@@ -1,0 +1,35 @@
+"""Carry the JAX package's parameters into the port.
+
+``params_from_jax`` takes a tree as ``jax.device_get`` returns it from
+``repro.models.layers.init_conv2d`` (nested dicts, lists or tuples of
+numpy arrays) and returns the same tree of torch tensors.  Layouts are the
+same in both packages (HWIO kernels), so nothing is transposed.  Only
+numpy is needed here, not jax.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _leaf(arr, device) -> torch.Tensor:
+    # Copy first: arrays from jax.device_get are read-only, and
+    # torch.from_numpy warns on (and would alias) them.
+    arr = np.array(arr, copy=True, order="C")
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 has no torch counterpart in from_numpy:
+        # carry the bits through uint16.
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def params_from_jax(tree, device="cuda"):
+    """The same tree with every numpy leaf as a torch tensor on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device) for v in tree)
+    return _leaf(tree, device)

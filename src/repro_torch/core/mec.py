@@ -1,0 +1,115 @@
+"""MEC: Memory-efficient Convolution (Cho & Brand, ICML 2017) — eager torch.
+
+Counterpart of ``repro.core.mec``: Algorithm 1 (VanillaMEC) and
+Algorithm 2 (MEC with channels/mini-batch and Solutions A/B).  The
+lowered tensor ``L (i_n, o_w, i_h, k_w, i_c)`` is materialized exactly as
+in the paper (Eq. 3) and the o_h output rows are produced by *shifted*
+reads of L at stride ``s_h * k_w * i_c`` (the BLAS ld-aliasing trick: each
+window is a slice view of L, so no im2col-sized intermediate exists).
+
+The hand-written CUDA kernels in ``repro_torch.kernels`` implement the
+same algorithm on the GPU; this module is the algorithmic reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.convspec import normalize_stride, spec_of
+from repro_torch.core.direct import accum_dtype
+
+# Paper §3.3: platform-dependent threshold T for choosing Solution A vs B.
+# ("we found T around 100 to be a good threshold for latest GPUs")
+SOLUTION_T = 100
+
+SOLUTIONS = ("A", "B", "auto")
+
+
+def pick_solution(spec, threshold: int = SOLUTION_T) -> str:
+    """Algorithm 2 line 8: Solution A iff o_w <= T and |O| <= |L|."""
+    size_o = spec.i_n * spec.o_h * spec.o_w * spec.k_c
+    size_l = spec.i_n * spec.o_w * spec.i_h * spec.k_w * spec.i_c
+    return "A" if (spec.o_w <= threshold and size_o <= size_l) else "B"
+
+
+def mec_lower(inp: torch.Tensor, k_w: int, s_w: int) -> torch.Tensor:
+    """Compact lowering, Algorithm 2 lines 4-6.
+
+    inp: (i_n, i_h, i_w, i_c)  ->  L: (i_n, o_w, i_h, k_w, i_c)
+    L[n, w, h, :, :] = I[n, h, s_w*w : s_w*w + k_w, :]
+    """
+    # unfold: (i_n, i_h, o_w, i_c, k_w) -> (i_n, o_w, i_h, k_w, i_c)
+    return inp.unfold(2, k_w, s_w).permute(0, 2, 1, 4, 3).contiguous()
+
+
+def _shifted_rows(l_mat: torch.Tensor, kernel_mat: torch.Tensor, o_h: int,
+                  row_stride: int, window: int) -> torch.Tensor:
+    """out[h] = L[..., h*row_stride : +window] @ K for h < o_h, each row
+    accumulated in f32 and narrowed to L's dtype (paper's o_h GEMMs over
+    overlapping sub-matrix views).  Returns (o_h, *l_mat.shape[:-1], k_c).
+    """
+    acc = accum_dtype(l_mat.dtype)
+    k32 = kernel_mat.to(acc)
+    rows = []
+    for h in range(o_h):
+        win = l_mat[..., h * row_stride:h * row_stride + window]
+        rows.append(torch.matmul(win.to(acc), k32).to(l_mat.dtype))
+    return torch.stack(rows)
+
+
+def mec_conv2d(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
+               solution: str = "auto",
+               threshold: int = SOLUTION_T) -> torch.Tensor:
+    """O = I * K via MEC (Algorithm 2).
+
+    inp: (i_n, i_h, i_w, i_c) pre-padded; kernel: (k_h, k_w, i_c, k_c).
+    solution: 'A' | 'B' | 'auto' (paper line 8: A iff o_w <= T and |O| <= |L|).
+    Returns (i_n, o_h, o_w, k_c) in n-h-w-c.
+    """
+    spec = spec_of(inp, kernel, stride)
+    i_n, i_h, i_c = spec.i_n, spec.i_h, spec.i_c
+    k_h, k_w, k_c = spec.k_h, spec.k_w, spec.k_c
+    o_h, o_w = spec.o_h, spec.o_w
+
+    if solution == "auto":
+        solution = pick_solution(spec, threshold)
+    if solution not in ("A", "B"):
+        raise ValueError(f"unknown solution {solution!r}")
+
+    low = mec_lower(inp, k_w, spec.s_w)  # (i_n, o_w, i_h, k_w, i_c)
+    kernel_mat = kernel.reshape(k_h * k_w * i_c, k_c).to(low.dtype)
+    row_stride = spec.s_h * k_w * i_c
+    window = k_h * k_w * i_c
+
+    if solution == "A":
+        # Lines 9-19: one GEMM per output row over the whole mini-batch;
+        # the h-n-w-c intermediate (line 13) is restored to n-h-w-c.
+        l_mat = low.reshape(i_n * o_w, i_h * k_w * i_c)
+        rows = _shifted_rows(l_mat, kernel_mat, o_h, row_stride, window)
+        out = rows.reshape(o_h, i_n, o_w, k_c)
+    else:
+        # Lines 21-25: per-sample GEMMs.
+        l_mat = low.reshape(i_n, o_w, i_h * k_w * i_c)
+        out = _shifted_rows(l_mat, kernel_mat, o_h, row_stride, window)
+    return out.permute(1, 0, 2, 3).contiguous()
+
+
+def vanilla_mec(inp: torch.Tensor, kernel: torch.Tensor,
+                stride=1) -> torch.Tensor:
+    """Algorithm 1: single channel, single sample.
+
+    inp: (i_h, i_w); kernel: (k_h, k_w).  Returns (o_h, o_w).
+    """
+    i_h, _ = inp.shape
+    k_h, k_w = kernel.shape
+    s_h, s_w = normalize_stride(stride)
+    o_h = (i_h - k_h) // s_h + 1
+
+    # Lines 4-6: L[w, h, 0:k_w] = I[h, s_w*w : s_w*w + k_w]
+    low = inp.unfold(1, k_w, s_w).permute(1, 0, 2)   # (o_w, i_h, k_w)
+    l_mat = low.reshape(low.shape[0], i_h * k_w)
+    kernel_mat = kernel.reshape(k_h * k_w, 1)
+
+    # Lines 10-12: O[h] = L[0:o_w, s_h*k_w*h : +k_h*k_w] x K
+    rows = [(l_mat[:, h * s_h * k_w:h * s_h * k_w + k_h * k_w]
+             @ kernel_mat)[:, 0] for h in range(o_h)]
+    return torch.stack(rows)  # (o_h, o_w)

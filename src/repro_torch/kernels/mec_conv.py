@@ -1,0 +1,225 @@
+"""Hand-written Hopper kernels for MEC convolution, and their plain versions.
+
+Each wrapper below launches one CUDA kernel of ``csrc/mec_conv.cu`` for a
+CUDA tensor, and computes the same function with its plain PyTorch
+version for a CPU tensor; any other device raises.  There is no fallback
+from a CUDA tensor to the plain version.  Each wrapper counts its
+launches in a plain int attribute, ``<wrapper>.launches``.
+
+=================  ==========================================  ===========
+wrapper            replaces (src/repro/kernels/mec_conv.py)    bound
+=================  ==========================================  ===========
+``mec_lower``      ``mec_lower_pallas`` / ``_lower_kernel``     bytes
+``mec_conv_fused`` ``mec_conv_fused_pallas`` / ``_fused_kernel`` operations
+``mec_gemm``       ``mec_gemm_pallas`` / ``_gemm_kernel``       operations
+=================  ==========================================  ===========
+
+The design notes (what bounds each kernel on the card and what its
+design does about it) head ``csrc/mec_conv.cu``.  The kernels accumulate
+in IEEE f32 and write the output in the input dtype, which fuses the
+TPU wrappers' final casts.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.convspec import spec_of
+from repro_torch.core.direct import accum_dtype
+from repro_torch.kernels import build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("mec_conv")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mec_lower.argtypes = [ptr, ptr, i32] + [i64] * 7 + [ptr]
+    lib.mec_fused.argtypes = [ptr, ptr, ptr, i32] + [i64] * 12 + [ptr]
+    lib.mec_gemm.argtypes = [ptr, ptr, ptr, i32] + [i64] * 9 + [ptr]
+    for fn in (lib.mec_lower, lib.mec_fused, lib.mec_gemm):
+        fn.restype = i32
+    lib.mec_error_string.argtypes = [i32]
+    lib.mec_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU operands (plain version); False for CUDA operands
+    (kernel).  Raises on mixed or other devices and unsupported dtypes."""
+    device = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != device:
+            raise ValueError(f"operands on different devices: {device} and "
+                             f"{t.device}")
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"MEC kernels run on cuda (or cpu, plain version); "
+                         f"got {device}")
+    if tensors[0].dtype not in _DTYPE_CODE:
+        raise TypeError(f"MEC kernels take float32/bfloat16/float16, got "
+                        f"{tensors[0].dtype}")
+    return False
+
+
+def _launch(fn_name: str, device: torch.device, *args) -> None:
+    """Call C entry ``fn_name`` on ``device`` and its current stream (the
+    last argument); raise on the ``cudaError_t`` it returns."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} "
+                           f"({lib.mec_error_string(rc).decode()})")
+
+
+# ---------------------------------------------------------------------------
+# K2: compact lowering  I (n, i_h, i_w, i_c) -> L (n, o_w, i_h, k_w*i_c)
+# ---------------------------------------------------------------------------
+
+def mec_lower_plain(inp: torch.Tensor, k_w: int, s_w: int) -> torch.Tensor:
+    """L[n, w, h, j*i_c + c] = I[n, h, s_w*w + j, c]."""
+    i_n, i_h, _, i_c = inp.shape
+    # (n, o_w, i_h, k_w, i_c), materialized: a reshape alone would return
+    # an overlapping view of I, not L.
+    low = inp.unfold(2, k_w, s_w).permute(0, 2, 1, 4, 3).contiguous()
+    return low.reshape(i_n, low.shape[1], i_h, k_w * i_c)
+
+
+def mec_lower(inp: torch.Tensor, k_w: int, s_w: int) -> torch.Tensor:
+    """Compact MEC lowering (paper Algorithm 2 lines 4-6) into L."""
+    i_n, i_h, i_w, i_c = inp.shape
+    if not (1 <= k_w <= i_w and s_w >= 1):
+        raise ValueError(f"bad lowering k_w={k_w} s_w={s_w} for width {i_w}")
+    if _on_cpu(inp):
+        return mec_lower_plain(inp, k_w, s_w)
+    inp = inp.contiguous()
+    o_w = (i_w - k_w) // s_w + 1
+    low = torch.empty((i_n, o_w, i_h, k_w * i_c), dtype=inp.dtype,
+                      device=inp.device)
+    _launch("mec_lower", inp.device, inp.data_ptr(), low.data_ptr(),
+            _DTYPE_CODE[inp.dtype], i_n, i_h, i_w, i_c, k_w, s_w, o_w)
+    mec_lower.launches += 1
+    return low
+
+
+mec_lower.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1: fused conv, lowering on chip  I, K -> O
+# ---------------------------------------------------------------------------
+
+def mec_conv_fused_plain(inp: torch.Tensor, kernel: torch.Tensor,
+                         stride=1) -> torch.Tensor:
+    """O[n, h] = sum_r strip(I[n, h*s_h + r]) @ K[r], f32 accumulation,
+    one cast to the input dtype."""
+    spec = spec_of(inp, kernel, stride)
+    acc = accum_dtype(inp.dtype)
+    k_mat = kernel.to(inp.dtype).reshape(spec.k_h, spec.k_w * spec.i_c,
+                                         spec.k_c).to(acc)
+    out = None
+    for r in range(spec.k_h):
+        rows = inp[:, r:r + spec.s_h * (spec.o_h - 1) + 1:spec.s_h]
+        strip = rows.unfold(2, spec.k_w, spec.s_w).permute(0, 1, 2, 4, 3)
+        strip = strip.reshape(spec.i_n, spec.o_h, spec.o_w, -1).to(acc)
+        term = torch.matmul(strip, k_mat[r])
+        out = term if out is None else out + term
+    return out.to(inp.dtype)
+
+
+def mec_conv_fused(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
+                   w_blk: int = 64) -> torch.Tensor:
+    """Fused MEC convolution: the lowering happens in shared memory, L
+    never exists in device memory.  inp (n, i_h, i_w, i_c) pre-padded,
+    kernel (k_h, k_w, i_c, k_c), w_blk output columns per CTA (clamped to
+    o_w).  Returns (n, o_h, o_w, k_c) in inp.dtype."""
+    spec = spec_of(inp, kernel, stride)
+    if w_blk < 1:
+        raise ValueError(f"w_blk must be >= 1, got {w_blk}")
+    w_blk = min(w_blk, spec.o_w)
+    if _on_cpu(inp, kernel):
+        return mec_conv_fused_plain(inp, kernel, (spec.s_h, spec.s_w))
+    inp = inp.contiguous()
+    kernel = kernel.to(inp.dtype).contiguous()
+    out = torch.empty(spec.out_shape, dtype=inp.dtype, device=inp.device)
+    _launch("mec_fused", inp.device, inp.data_ptr(), kernel.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[inp.dtype], spec.i_n, spec.i_h,
+            spec.i_w, spec.i_c, spec.k_h, spec.k_w, spec.k_c, spec.s_h,
+            spec.s_w, spec.o_h, spec.o_w, w_blk)
+    mec_conv_fused.launches += 1
+    return out
+
+
+mec_conv_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: shifted GEMM over L  L, K (k_h, k_w*i_c, k_c) -> O
+# ---------------------------------------------------------------------------
+
+def _gemm_geometry(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int,
+                   s_h: int):
+    i_n, o_w, i_h, kwic = low.shape
+    if kernel_mat.dim() != 3 or kernel_mat.shape[:2] != (k_h, kwic):
+        raise ValueError(f"kernel_mat {tuple(kernel_mat.shape)} is not "
+                         f"(k_h={k_h}, k_w*i_c={kwic}, k_c)")
+    if not (1 <= k_h <= i_h and s_h >= 1):
+        raise ValueError(f"bad k_h={k_h} s_h={s_h} for height {i_h}")
+    return i_n, o_w, i_h, kwic, kernel_mat.shape[2], (i_h - k_h) // s_h + 1
+
+
+def mec_gemm_plain(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int,
+                   s_h: int) -> torch.Tensor:
+    """O[n, h] = sum_r L[n, :, h*s_h + r, :] @ K[r], f32 accumulation, one
+    cast to L's dtype."""
+    _, _, _, _, _, o_h = _gemm_geometry(low, kernel_mat, k_h, s_h)
+    acc = accum_dtype(low.dtype)
+    k_mat = kernel_mat.to(low.dtype).to(acc)
+    out = None
+    for r in range(k_h):
+        rows = low[:, :, r:r + s_h * (o_h - 1) + 1:s_h]   # (n, o_w, o_h, kwic)
+        term = torch.matmul(rows.to(acc), k_mat[r])
+        out = term if out is None else out + term
+    return out.permute(0, 2, 1, 3).to(low.dtype).contiguous()
+
+
+def mec_gemm(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int, s_h: int,
+             w_blk: int = 64) -> torch.Tensor:
+    """The o_h shifted GEMMs over a materialized L (paper-faithful path):
+    low (n, o_w, i_h, k_w*i_c) from :func:`mec_lower`, kernel_mat
+    (k_h, k_w*i_c, k_c).  Returns O (n, o_h, o_w, k_c) in low.dtype."""
+    i_n, o_w, i_h, kwic, k_c, o_h = _gemm_geometry(low, kernel_mat, k_h, s_h)
+    if w_blk < 1:
+        raise ValueError(f"w_blk must be >= 1, got {w_blk}")
+    w_blk = min(w_blk, o_w)
+    if _on_cpu(low, kernel_mat):
+        return mec_gemm_plain(low, kernel_mat, k_h, s_h)
+    low = low.contiguous()
+    kernel_mat = kernel_mat.to(low.dtype).contiguous()
+    out = torch.empty((i_n, o_h, o_w, k_c), dtype=low.dtype, device=low.device)
+    _launch("mec_gemm", low.device, low.data_ptr(), kernel_mat.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[low.dtype], i_n, o_w, i_h, kwic, k_h,
+            k_c, s_h, o_h, w_blk)
+    mec_gemm.launches += 1
+    return out
+
+
+mec_gemm.launches = 0
+
+#: every kernel wrapper of this module, for resetting and reading counts
+KERNELS = (mec_conv_fused, mec_lower, mec_gemm)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}

@@ -1,0 +1,74 @@
+"""Public entry point for the MEC CUDA kernels (counterpart of
+``repro.kernels.ops``) and the H100 block picker."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.convspec import normalize_stride
+from repro_torch.kernels.mec_conv import mec_conv_fused, mec_gemm, mec_lower
+
+#: H100 SXM: streaming multiprocessors
+N_SMS = 132
+#: output channels per CTA (csrc/mec_conv.cu kBN)
+CTA_CHANNELS = 64
+#: the largest output sub-tile a CTA computes at once (kernel tile_rows)
+CTA_TILE_ROWS = 64
+#: the smallest sub-tile: a block narrower than this idles rows
+MIN_TILE_ROWS = 16
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pick_w_blk(o_w: int, k_c: int, i_n: int, o_h: int) -> int:
+    """Output columns per CTA for the K1/K3 kernels on the H100.
+
+    The TPU picker filled a slice of VMEM with the accumulator; on Hopper
+    the limits are other ones.  A CTA keeps a (sub-tile x 64-channel) f32
+    accumulator in registers, 16 per thread for the 64-row tile, far
+    below the 255-register cap; its shared memory is the K1 input span
+    and kernel slab of one channel chunk, which the kernel sizes to at most
+    48 KB of the 227 KB a block may use.  So the block is the sub-tile
+    (at most 64 columns, never wider than o_w) and what remains to size is
+    parallelism: the block is halved, down to 16 columns, until the grid
+    (n * o_h * ceil(o_w / w_blk) * ceil(k_c / 64) CTAs) covers the 132 SMs
+    twice.
+    """
+    blk = max(1, min(o_w, CTA_TILE_ROWS))
+    others = i_n * o_h * _ceil_div(k_c, CTA_CHANNELS)
+    while blk > MIN_TILE_ROWS and others * _ceil_div(o_w, blk) < 2 * N_SMS:
+        blk = _ceil_div(blk, 2)
+    return blk
+
+
+def mec_conv2d_cuda(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
+                    mode: str = "fused", w_blk: int | None = None) -> torch.Tensor:
+    """MEC convolution with the hand-written kernels.
+
+    mode='lowered' is the paper-faithful path (K2 builds L in device
+    memory, Eq. 3 memory observable; K3 runs the shifted GEMMs); mode=
+    'fused' is K1, the lowering fused into the GEMM.  w_blk is output
+    columns per CTA, :func:`pick_w_blk` when None.  CPU tensors run the
+    kernels' plain versions.
+    """
+    s_h, s_w = normalize_stride(stride)
+    i_w, i_c = inp.shape[2], inp.shape[3]
+    k_h, k_w, _, k_c = kernel.shape
+    o_h = (inp.shape[1] - k_h) // s_h + 1
+    o_w = (i_w - k_w) // s_w + 1
+    if w_blk is None:
+        w_blk = pick_w_blk(o_w, k_c, inp.shape[0], o_h)
+    elif not 1 <= w_blk <= max(o_w, 1):
+        raise ValueError(f"w_blk must be in [1, o_w={o_w}], got {w_blk}")
+    if mode == "fused":
+        return mec_conv_fused(inp, kernel, (s_h, s_w), w_blk=w_blk)
+    if mode == "fused2":
+        raise NotImplementedError(
+            "mode='fused2' (mec_conv_fused2_pallas, the h-blocked fused "
+            "kernel) is not ported yet: ROADMAP Queue 2 K4")
+    if mode == "lowered":
+        low = mec_lower(inp, k_w, s_w)
+        kernel_mat = kernel.to(inp.dtype).reshape(k_h, k_w * i_c, k_c)
+        return mec_gemm(low, kernel_mat, k_h, s_h, w_blk=w_blk)
+    raise ValueError(f"unknown mode {mode!r}")

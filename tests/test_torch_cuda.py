@@ -1,0 +1,168 @@
+"""The port's CUDA kernels and its conv2d on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA card: the
+kernels have no CPU mode (on the CPU the wrappers run their plain
+versions, which ``tests/test_torch_kernels.py`` holds against the JAX
+package).  The file imports torch, numpy and the port only, never jax, so
+it runs on a GPU machine without JAX; ``--noconftest`` keeps pytest from
+loading the JAX suite's ``tests/conftest.py``:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances, as scale-normalized max errors: a kernel against its plain
+version on the same inputs is held to 2 x the contract's forward
+tolerance (``numerics.fwd_tolerance``, f32 scaled by sqrt(K/27)), since
+each side is held to the budget on its own; K2 is data movement and must
+match exactly.  The plain versions run on the card too, with TF32 off.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import conv2d                  # noqa: E402
+from repro_torch.core.numerics import fwd_tolerance  # noqa: E402
+from repro_torch.kernels import mec_conv as K        # noqa: E402
+from repro_torch.kernels import ops, ref             # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# (ih, iw, ic, kh, kw, kc, stride, w_blk): tests/test_kernels.py SWEEP,
+# then the edges the kernels mask rather than pad: a w-block that does not
+# divide o_w, k_c off the 64-channel tile, i_c off the channel chunk, a
+# block wider than one 64-column sub-tile, and cv1's k_w = 11 at s_w = 4.
+GEOMS = [
+    (7, 7, 1, 3, 3, 1, 1, 8),
+    (12, 14, 3, 5, 3, 8, 2, 8),
+    (9, 9, 4, 3, 3, 6, 1, 8),
+    (11, 13, 2, 4, 5, 3, (2, 3), 8),
+    (16, 16, 8, 7, 7, 16, 2, 8),
+    (8, 8, 3, 1, 1, 4, 1, 8),
+    (24, 24, 6, 5, 5, 16, 1, 8),
+    (227 // 4, 227 // 4, 3, 11, 11, 8, 4, 8),
+    (20, 45, 37, 3, 3, 130, 1, 13),
+    (9, 140, 5, 3, 4, 65, (1, 1), 100),
+    (67, 67, 3, 11, 11, 96, 4, 15),
+]
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+IDS = [f"g{i}" for i in range(len(GEOMS))]
+
+
+@pytest.fixture
+def cuda():
+    """The card, with cuBLAS/cuDNN in IEEE f32 for the plain versions;
+    skips without one (decided here, not at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+def _operands(geom, dtype, device, batch=2):
+    """Seeded numpy input and kernel, as tensors of ``dtype`` on
+    ``device``."""
+    ih, iw, ic, kh, kw, kc = geom[:6]
+    rng = np.random.RandomState(sum(geom[:6]))
+    x = rng.randn(batch, ih, iw, ic).astype(np.float32)
+    k = (rng.randn(kh, kw, ic, kc) * (kh * kw * ic) ** -0.5).astype(np.float32)
+    return (torch.from_numpy(x).to(device, DTYPES[dtype]),
+            torch.from_numpy(k).to(device, DTYPES[dtype]))
+
+
+def _strides(s):
+    return (s, s) if isinstance(s, int) else tuple(s)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("geom", GEOMS, ids=IDS)
+def test_fused_kernel_matches_plain(cuda, geom, dtype):
+    x, k = _operands(geom, dtype, cuda)
+    s, w_blk = _strides(geom[6]), geom[7]
+    before = K.mec_conv_fused.launches
+    y = K.mec_conv_fused(x, k, s, w_blk=w_blk)
+    torch.cuda.synchronize()
+    assert K.mec_conv_fused.launches == before + 1
+    assert y.dtype == x.dtype and y.device == x.device
+    tol = 2 * fwd_tolerance("mec_fused", dtype, geom[3] * geom[4] * geom[2])
+    assert ref.scaled_error(y, K.mec_conv_fused_plain(x, k, s)) <= tol
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("geom", GEOMS, ids=IDS)
+def test_lower_kernel_matches_plain(cuda, geom, dtype):
+    x, _ = _operands(geom, dtype, cuda)
+    s_w = _strides(geom[6])[1]
+    before = K.mec_lower.launches
+    low = K.mec_lower(x, geom[4], s_w)
+    torch.cuda.synchronize()
+    assert K.mec_lower.launches == before + 1
+    assert torch.equal(low, K.mec_lower_plain(x, geom[4], s_w))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("geom", GEOMS, ids=IDS)
+def test_gemm_kernel_matches_plain(cuda, geom, dtype):
+    ih, iw, ic, kh, kw, kc, s, w_blk = geom
+    s_h, s_w = _strides(s)
+    x, k = _operands(geom, dtype, cuda)
+    low = K.mec_lower_plain(x, kw, s_w)
+    kmat = k.reshape(kh, kw * ic, kc)
+    before = K.mec_gemm.launches
+    y = K.mec_gemm(low, kmat, kh, s_h, w_blk=w_blk)
+    torch.cuda.synchronize()
+    assert K.mec_gemm.launches == before + 1
+    tol = 2 * fwd_tolerance("mec_lowered", dtype, kh * kw * ic)
+    assert ref.scaled_error(y, K.mec_gemm_plain(low, kmat, kh, s_h)) <= tol
+
+
+def test_kernels_take_non_contiguous_operands(cuda):
+    x, k = _operands((12, 14, 6, 3, 3, 10, 1), "float32", cuda)
+    x_t = x.transpose(1, 2).contiguous().transpose(1, 2)    # same values
+    assert not x_t.is_contiguous()
+    tol = 2 * fwd_tolerance("mec_fused", "float32", 3 * 3 * 6)
+    assert ref.scaled_error(K.mec_conv_fused(x_t, k, 1),
+                            K.mec_conv_fused_plain(x, k, 1)) <= tol
+    assert torch.equal(K.mec_lower(x_t, 3, 1), K.mec_lower_plain(x, 3, 1))
+
+
+@pytest.mark.parametrize("padding", ["VALID", "SAME", ((1, 2), (0, 3))])
+@pytest.mark.parametrize("stride", [1, 2, (2, 3)])
+def test_conv2d_on_the_card_runs_the_kernels(cuda, padding, stride):
+    """conv2d on CUDA tensors: auto resolves to K1, mec_lowered runs K2 +
+    K3, and both agree with the same call on CPU tensors (the kernels'
+    plain versions)."""
+    x, k = _operands((15, 17, 5, 3, 4, 7, 1), "float32", cuda)
+    tol = 2 * fwd_tolerance("mec_fused", "float32", 3 * 4 * 5)
+    for algorithm, launched in (("auto", {"mec_conv_fused": 1}),
+                                ("mec_fused", {"mec_conv_fused": 1}),
+                                ("mec_lowered", {"mec_lower": 1, "mec_gemm": 1})):
+        K.reset_launch_counts()
+        y = conv2d(x, k, stride=stride, padding=padding, algorithm=algorithm)
+        torch.cuda.synchronize()
+        want = {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0}
+        assert K.launch_counts() == {**want, **launched}, algorithm
+        y_cpu = conv2d(x.cpu(), k.cpu(), stride=stride, padding=padding,
+                       algorithm=algorithm)
+        assert y.device == x.device and y.shape == y_cpu.shape
+        assert ref.scaled_error(y.cpu(), y_cpu) <= tol, algorithm
+
+
+def test_mec_backward_raises_on_the_card(cuda):
+    x, k = _operands((9, 9, 4, 3, 3, 6, 1), "float32", cuda)
+    y = conv2d(x.requires_grad_(), k, algorithm="auto")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        y.sum().backward()
+
+
+def test_mixed_devices_raise(cuda):
+    x, k = _operands((9, 9, 4, 3, 3, 6, 1), "float32", cuda)
+    with pytest.raises(ValueError, match="kernel on"):
+        conv2d(x, k.cpu())
+    with pytest.raises(ValueError, match="different devices"):
+        ops.mec_conv2d_cuda(x.cpu(), k)

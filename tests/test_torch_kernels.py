@@ -1,0 +1,192 @@
+"""The port's CUDA kernel wrappers against the JAX package's Pallas
+kernels.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; these
+tests hold those versions against ``mec_conv_fused_pallas`` (K1),
+``mec_lower_pallas`` (K2) and ``mec_gemm_pallas`` (K3) run with
+``interpret=True``, on the kernel test sweep (f32, bf16) and the Table-2
+layers cut to <= 32x32 spatial and <= 8 channels (f32).  Tolerances:
+K1/K3, 2 x the contract's forward tolerance (``numerics.fwd_tolerance``,
+f32 scaled by sqrt(K/27)), since each side is held to it on its own; K2
+is data movement and must match exactly.
+
+The kernels themselves, on the card, are held against these plain
+versions in ``tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp                              # noqa: E402
+
+from repro.bench.scenarios import CV_LAYERS          # noqa: E402
+from repro.kernels.mec_conv import (mec_conv_fused_pallas,  # noqa: E402
+                                    mec_gemm_pallas, mec_lower_pallas)
+from repro.kernels.ref import lower_ref as j_lower_ref  # noqa: E402
+
+from repro_torch.core.numerics import fwd_tolerance  # noqa: E402
+from repro_torch.kernels import build, ops, ref      # noqa: E402
+from repro_torch.kernels import mec_conv as K        # noqa: E402
+
+SWEEP = [
+    # (ih, iw, ic, kh, kw, kc, stride), as tests/test_kernels.py SWEEP
+    (7, 7, 1, 3, 3, 1, 1),
+    (12, 14, 3, 5, 3, 8, 2),
+    (9, 9, 4, 3, 3, 6, 1),
+    (11, 13, 2, 4, 5, 3, (2, 3)),
+    (16, 16, 8, 7, 7, 16, 2),
+    (8, 8, 3, 1, 1, 4, 1),
+    (24, 24, 6, 5, 5, 16, 1),
+    (227 // 4, 227 // 4, 3, 11, 11, 8, 4),
+]
+TABLE2_SMALL = {name: (min(ih, 32), min(iw, 32), min(ic, 8), kh, kw,
+                       min(kc, 8), s)
+                for name, (ih, iw, ic, kh, kw, kc, s) in CV_LAYERS.items()}
+GEOMS = ([(f"sweep{i}", g, "float32") for i, g in enumerate(SWEEP)]
+         + [(f"sweep{i}", g, "bfloat16") for i, g in enumerate(SWEEP)]
+         + [(name, g, "float32") for name, g in TABLE2_SMALL.items()])
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
+
+
+def _operands(geom, dtype, batch=2):
+    """Seeded numpy input and kernel as (jax, torch) pairs of ``dtype``."""
+    ih, iw, ic, kh, kw, kc, _ = geom
+    rng = np.random.RandomState(sum(geom[:6]))
+    x = rng.randn(batch, ih, iw, ic).astype(np.float32)
+    k = (rng.randn(kh, kw, ic, kc) * (kh * kw * ic) ** -0.5).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return (jnp.asarray(x, jd), jnp.asarray(k, jd),
+            torch.from_numpy(x).to(td), torch.from_numpy(k).to(td))
+
+
+def _strides(s):
+    return (s, s) if isinstance(s, int) else tuple(s)
+
+
+def _to_torch(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+@pytest.mark.parametrize("name,geom,dtype", GEOMS,
+                         ids=[f"{n}-{d}" for n, _, d in GEOMS])
+def test_kernels_plain_match_pallas(name, geom, dtype):
+    """K1, K2 and K3 through their wrappers on CPU tensors (the plain
+    versions) against the Pallas kernels in interpret mode."""
+    ih, iw, ic, kh, kw, kc, s = geom
+    s_h, s_w = _strides(s)
+    jx, jk, tx, tk = _operands(geom, dtype)
+    tol = 2 * fwd_tolerance("mec_fused", dtype, kh * kw * ic)
+
+    # K2: exact, and equal to the JAX oracle too
+    j_low = mec_lower_pallas(jx, kw, s_w, interpret=True)
+    t_low = K.mec_lower(tx, kw, s_w)
+    assert t_low.dtype == tx.dtype and tuple(t_low.shape) == j_low.shape
+    assert torch.equal(t_low.to(torch.float32), _to_torch(j_low))
+    assert torch.equal(t_low, ref.lower_ref(tx, kw, s_w))
+    assert torch.equal(t_low.to(torch.float32),
+                       _to_torch(j_lower_ref(jx, kw, s_w)))
+
+    # K1
+    j_out = mec_conv_fused_pallas(jx, jk, (s_h, s_w), w_blk=8, interpret=True)
+    t_out = K.mec_conv_fused(tx, tk, (s_h, s_w), w_blk=8)
+    assert t_out.dtype == tx.dtype and tuple(t_out.shape) == j_out.shape
+    assert ref.scaled_error(t_out, _to_torch(j_out)) <= tol
+
+    # K3 (the Pallas kernel returns f32; the port writes the input dtype)
+    j_kmat = jk.reshape(kh, kw * ic, kc)
+    j_out3 = mec_gemm_pallas(j_low, j_kmat, kh, s_h, w_blk=8, interpret=True)
+    t_out3 = K.mec_gemm(t_low, tk.reshape(kh, kw * ic, kc), kh, s_h, w_blk=8)
+    assert t_out3.dtype == tx.dtype and tuple(t_out3.shape) == j_out3.shape
+    assert ref.scaled_error(t_out3, _to_torch(j_out3)) <= tol
+
+
+@pytest.mark.parametrize("geom", SWEEP[:5])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_versions_against_f64_oracle(geom, dtype):
+    """Each plain version alone holds the contract budget against the f64
+    oracle (computed from the same quantized inputs)."""
+    kh, kw, ic, s = geom[3], geom[4], geom[2], geom[6]
+    _, _, tx, tk = _operands(geom, dtype)
+    oracle = ref.conv2d_f64(tx, tk, s)
+    tol = fwd_tolerance("mec_fused", dtype, kh * kw * ic)
+    assert ref.scaled_error(K.mec_conv_fused_plain(tx, tk, s), oracle) <= tol
+    s_h, s_w = _strides(s)
+    low = K.mec_lower_plain(tx, kw, s_w)
+    y3 = K.mec_gemm_plain(low, tk.reshape(kh, kw * ic, -1), kh, s_h)
+    assert ref.scaled_error(y3, oracle) <= tol
+
+
+@pytest.mark.parametrize("mode", ["fused", "lowered"])
+@pytest.mark.parametrize("w_blk", [None, 1, 3])
+def test_mec_conv2d_cuda_modes_on_cpu(mode, w_blk):
+    geom = SWEEP[3]
+    _, _, tx, tk = _operands(geom, "float32")
+    out = ops.mec_conv2d_cuda(tx, tk, geom[6], mode=mode, w_blk=w_blk)
+    oracle = ref.conv2d_f64(tx, tk, geom[6])
+    assert ref.scaled_error(out, oracle) <= \
+        fwd_tolerance("mec_" + mode, "float32", 4 * 5 * 2)
+
+
+def test_mec_conv2d_cuda_rejects_bad_arguments():
+    _, _, tx, tk = _operands(SWEEP[2], "float32")     # o_w = 7
+    for bad in (0, 8, -1):
+        with pytest.raises(ValueError, match="w_blk"):
+            ops.mec_conv2d_cuda(tx, tk, 1, w_blk=bad)
+    with pytest.raises(NotImplementedError, match="Queue 2 K4"):
+        ops.mec_conv2d_cuda(tx, tk, 1, mode="fused2")
+    with pytest.raises(ValueError, match="mode"):
+        ops.mec_conv2d_cuda(tx, tk, 1, mode="nope")
+    with pytest.raises(ValueError, match="w_blk"):
+        K.mec_conv_fused(tx, tk, 1, w_blk=0)
+    with pytest.raises(ValueError, match="kernel_mat"):
+        K.mec_gemm(K.mec_lower(tx, 3, 1), tk.reshape(3, 12, 6)[:2], 3, 1)
+    with pytest.raises(ValueError, match="lowering"):
+        K.mec_lower(tx, 10, 1)
+
+
+def test_wrappers_refuse_other_devices_and_mixed_operands():
+    x = torch.zeros((1, 5, 5, 2), device="meta")
+    k = torch.zeros((3, 3, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        K.mec_lower(x, 3, 1)
+    with pytest.raises(ValueError, match="cuda"):
+        K.mec_conv_fused(x, k)
+    with pytest.raises(ValueError, match="different devices"):
+        K.mec_conv_fused(torch.zeros((1, 5, 5, 2)), k)
+
+
+def test_cpu_path_launches_no_kernel():
+    K.reset_launch_counts()
+    _, _, tx, tk = _operands(SWEEP[1], "float32")
+    ops.mec_conv2d_cuda(tx, tk, 2, mode="fused")
+    ops.mec_conv2d_cuda(tx, tk, 2, mode="lowered")
+    assert K.launch_counts() == {"mec_conv_fused": 0, "mec_lower": 0,
+                                 "mec_gemm": 0}
+
+
+@pytest.mark.parametrize("o_w,k_c,i_n,o_h", [
+    (109, 64, 1, 109), (109, 64, 16, 109), (5, 512, 16, 5), (12, 256, 1, 12),
+    (1, 1, 1, 1), (4096, 8, 1, 1), (54, 64, 1, 54), (26, 128, 16, 26)])
+def test_pick_w_blk_sizes_for_the_h100(o_w, k_c, i_n, o_h):
+    blk = ops.pick_w_blk(o_w, k_c, i_n, o_h)
+    assert 1 <= blk <= min(o_w, ops.CTA_TILE_ROWS)
+    ctas = i_n * o_h * -(-o_w // blk) * -(-k_c // ops.CTA_CHANNELS)
+    # halved only while the grid is short of two waves of 132 SMs
+    if blk > ops.MIN_TILE_ROWS and blk < min(o_w, ops.CTA_TILE_ROWS):
+        prev = -(-o_w // (2 * blk - 1))
+        assert i_n * o_h * prev * -(-k_c // ops.CTA_CHANNELS) < 2 * ops.N_SMS
+    assert ctas >= 1
+
+
+def test_build_names_sources_and_hashes_them():
+    assert build.sources() == ["mec_conv"]
+    path = build.library_path("mec_conv")
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("libmec_conv-") and path.suffix == ".so"
+    assert path == build.library_path("mec_conv")      # stable
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    with pytest.raises(FileNotFoundError):
+        build.library_path("nope")
