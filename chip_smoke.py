@@ -9,18 +9,30 @@ the script exits non-zero without its last line:
 
 1. device  - refuse to run without CUDA; the card's name and power limit.
 2. build   - compile the CUDA kernels from ``src/repro_torch/kernels/csrc``.
-3. kernels - hold K1 (fused conv), K2 (compact lowering) and K3 (shifted
-             GEMM) against their plain PyTorch versions and an f64 oracle
-             on the kernel test sweep and all twelve Table-2 layers at full
-             width, batch 1, in f32, bf16 and f16.
-4. slice   - the main path: the 34 convolutions of the ResNet-101 Table-3
-             stack at batch 16 through ``conv2d(algorithm="auto")`` (K1),
-             then each of its five layers through ``mec_lowered`` (K2+K3),
-             with the launch counts read around each run and every output
-             checked against the plain version and the f64 oracle; then
-             the device memory each path allocates against paper Eq. 3
-             (``mec_lowered`` holds the compact L beside O, K1 only O).
-5. timing  - each kernel at each Table-3 layer, batch 1 and 16, with CUDA
+3. kernels - hold K1 (fused conv), K2 (compact lowering), K3 (shifted
+             GEMM) and K4 (h-blocked fused conv) against their plain
+             PyTorch versions and an f64 oracle on the kernel test sweep,
+             the geometries of fault F1 and one with k_h < s_h, and all
+             twelve Table-2 layers at full width, batch 1, in f32, bf16
+             and f16; K4's launcher runs the pickers' block as one
+             sub-tile.
+4. slice   - the inference path: the 34 convolutions of the ResNet-101
+             Table-3 stack at batch 16 through ``conv2d(algorithm="auto")``
+             (K1), then each of its five layers through ``mec_lowered``
+             (K2+K3), with the launch counts read around each run and every
+             output checked against the plain version and the f64 oracle;
+             then the device memory each path allocates against paper
+             Eq. 3 (``mec_lowered`` holds the compact L beside O, K1 and K4
+             only O).
+5. train   - the training path: (a) each of the five Table-3 layers at
+             batch 16 through ``conv2d(algorithm="mec_fused2")`` (K4)
+             forward and the MEC VJP backward, loss sum(out^2), output and
+             both gradients against f64 autograd through ``F.conv2d``;
+             then the 34-conv stack forward and backward, timed, with the
+             launch counts read around it; (b) the CNN trainer
+             ``repro_torch.examples.train_cnn`` at its defaults through
+             ``mec_fused2``: accuracy above 0.8, 3 K4 launches a step.
+6. timing  - each kernel at each Table-3 layer, batch 1 and 16, with CUDA
              events (median of 15 after 3 warm-up calls), beside its plain
              version, one library call and its bound.
 
@@ -30,6 +42,7 @@ and ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -72,9 +85,20 @@ SWEEP = [
     (24, 24, 6, 5, 5, 16, 1),
     (227 // 4, 227 // 4, 3, 11, 11, 8, 4),
 ]
+# Fault F1's three geometries (the TPU's fused2 kernel reads a halo view
+# shorter than the halo) and k_h < s_h, at batch 2.
+EDGE_GEOMS = {
+    "f1_7x7": (7, 7, 3, 7, 7, 5, 1),
+    "f1_6x6": (6, 6, 3, 5, 5, 5, 1),
+    "f1_9x9": (9, 9, 3, 7, 7, 5, 1),
+    "kh_lt_sh": (8, 8, 3, 2, 2, 5, 3),
+}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 SLICE_BATCH = 16
+# repro_torch.examples.train_cnn at its defaults (200 steps) through K4.
+TRAIN_ARGS = ["--algorithm", "mec_fused2"]
+TRAIN_STEPS = 200
 TIMING_BATCHES = (1, 16)
 WARMUP, ITERS = 3, 15
 DEVICE = "cuda"
@@ -96,6 +120,8 @@ KERNEL_ROWS = {
                   "src/repro/kernels/mec_conv.py:39"),
     "mec_gemm": ("src/repro_torch/kernels/csrc/mec_conv.cu",
                  "src/repro/kernels/mec_conv.py:82"),
+    "mec_conv_fused2": ("src/repro_torch/kernels/csrc/mec_conv.cu",
+                        "src/repro/kernels/mec_conv.py:171"),
 }
 
 
@@ -195,9 +221,10 @@ def main(argv=None) -> int:
     from repro_torch.core.conv_api import conv2d, conv2d_spec, resolve_algorithm
     from repro_torch.core.convspec import spec_of
     from repro_torch.core.direct import ieee_f32_conv
-    from repro_torch.core.numerics import fwd_tolerance
+    from repro_torch.core.numerics import fwd_tolerance, grad_tolerance
+    from repro_torch.examples import train_cnn
     from repro_torch.kernels import build, mec_conv as K, ref
-    from repro_torch.kernels.ops import mec_conv2d_cuda, pick_w_blk
+    from repro_torch.kernels.ops import mec_conv2d_cuda, pick_oh_blk, pick_w_blk
     from repro_torch.models.layers import init_conv2d
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -222,6 +249,7 @@ def main(argv=None) -> int:
 
     # 3. kernels -----------------------------------------------------------
     geoms = [(f"sweep{i}", g, 2) for i, g in enumerate(SWEEP)]
+    geoms += [(name, g, 2) for name, g in EDGE_GEOMS.items()]
     geoms += [(name, g, 1) for name, g in CV_LAYERS.items()]
     worst = {}
     for dname, dtype in DTYPES.items():
@@ -233,7 +261,13 @@ def main(argv=None) -> int:
             tol = fwd_tolerance("mec_fused", dname, kh * kw * geom[2])
             oracle = ref.conv2d_f64(x, k, (s_h, s_w))
             w_blk = pick_w_blk(spec.o_w, kc, batch, spec.o_h)
+            oh_blk = pick_oh_blk(spec.o_h, spec.o_w, w_blk, kc, batch)
+            tile = K.fused2_tile(oh_blk, w_blk, kh, kw, s_h, s_w)
+            check(tile == (oh_blk, w_blk),
+                  f"K4 {name}: launcher's sub-tile {tile} is not the picked "
+                  f"block {(oh_blk, w_blk)}")
             y1 = K.mec_conv_fused(x, k, (s_h, s_w), w_blk=w_blk)
+            y4 = K.mec_conv_fused2(x, k, (s_h, s_w), w_blk=w_blk, oh_blk=oh_blk)
             low = K.mec_lower(x, kw, s_w)
             kmat = k.reshape(kh, kw * geom[2], kc)
             y3 = K.mec_gemm(low, kmat, kh, s_h, w_blk=w_blk)
@@ -245,7 +279,8 @@ def main(argv=None) -> int:
                    "tol": tol}
             for kname, y, plain in (
                     ("K1", y1, K.mec_conv_fused_plain(x, k, (s_h, s_w))),
-                    ("K3", y3, K.mec_gemm_plain(low, kmat, kh, s_h))):
+                    ("K3", y3, K.mec_gemm_plain(low, kmat, kh, s_h)),
+                    ("K4", y4, K.mec_conv_fused2_plain(x, k, (s_h, s_w), oh_blk))):
                 check(y.shape == spec.out_shape and y.dtype == dtype,
                       f"{kname} {name} {dname}: {tuple(y.shape)} {y.dtype}")
                 e_o, e_p = ref.scaled_error(y, oracle), ref.scaled_error(y, plain)
@@ -336,7 +371,7 @@ def main(argv=None) -> int:
         out_b = math.prod(spec.out_shape) * x.element_size()
         low_b = memory.mec_overhead(spec) * x.element_size()
         extra = {}
-        for alg in ("mec_fused", "mec_lowered"):
+        for alg in ("mec_fused", "mec_fused2", "mec_lowered"):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -345,13 +380,15 @@ def main(argv=None) -> int:
             extra[alg] = torch.cuda.max_memory_allocated() - base
             del y
         slack = 2 << 20       # allocator rounding
-        check(out_b <= extra["mec_fused"] <= out_b + slack,
-              f"{name}: fused path allocated {extra['mec_fused']} B, O is {out_b} B")
+        for alg in ("mec_fused", "mec_fused2"):
+            check(out_b <= extra[alg] <= out_b + slack,
+                  f"{name}: {alg} allocated {extra[alg]} B, O is {out_b} B")
         check(low_b + out_b <= extra["mec_lowered"] <= low_b + out_b + slack,
               f"{name}: lowered path allocated {extra['mec_lowered']} B, "
               f"Eq. 3 L + O is {low_b + out_b} B")
         mem[name] = {"out_bytes": out_b, "eq3_bytes": low_b,
                      "fused_extra_bytes": extra["mec_fused"],
+                     "fused2_extra_bytes": extra["mec_fused2"],
                      "lowered_extra_bytes": extra["mec_lowered"]}
     emit({"phase": "slice", "batch": SLICE_BATCH, "convs": len(stack),
           "auto_launches": auto_counts, "auto_seconds": round(auto_s, 4),
@@ -360,7 +397,90 @@ def main(argv=None) -> int:
           "max_scaled_err": scaled, "max_abs_err_vs_plain": abs_err,
           "memory": mem})
 
-    # 5. timing ------------------------------------------------------------
+    # 5. train: the training path ------------------------------------------
+    # (a) each distinct layer: K4 forward, MEC VJP backward, against f64
+    # autograd through F.conv2d, loss sum(out^2).
+    grad_err = {}
+    for name, x, w, s, spec in lowered:
+        xg, wg = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+        y = conv2d(xg, wg, stride=s, padding="VALID", algorithm="mec_fused2")
+        y.square().sum().backward()
+        x64, w64 = x.double().requires_grad_(), w.double().requires_grad_()
+        y64 = ref.conv2d_f64(x64, w64, s)
+        y64.square().sum().backward()
+        tols = {"out": fwd_tolerance("mec_fused2", "float32",
+                                     spec.k_h * spec.k_w * spec.i_c),
+                "d_input": grad_tolerance("mec_fused2", "float32",
+                                          spec.k_h * spec.k_w * spec.k_c),
+                "d_kernel": grad_tolerance("mec_fused2", "float32",
+                                           spec.i_n * spec.o_h * spec.o_w)}
+        errs = {"out": ref.scaled_error(y, y64),
+                "d_input": ref.scaled_error(xg.grad, x64.grad),
+                "d_kernel": ref.scaled_error(wg.grad, w64.grad)}
+        for what, e in errs.items():
+            check(math.isfinite(e) and e <= tols[what],
+                  f"train {name} {what}: error {e} vs f64 > tol {tols[what]}")
+        grad_err[name] = {"err": errs, "tol": tols}
+        del xg, wg, y, x64, w64, y64
+
+    # The 34-conv stack forward and backward through K4 and the MEC VJP.
+    leaves = {}
+    for name, x, _, _, _ in stack:
+        leaves.setdefault(name, x.detach().clone().requires_grad_())
+    kernels = [w.detach().clone().requires_grad_() for _, _, w, _, _ in stack]
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs2 = [conv2d(leaves[name], wg, stride=s, padding="VALID", algorithm="mec_fused2")
+             for (name, _, _, s, _), wg in zip(stack, kernels)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sum(y.square().sum() for y in outs2).backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    train_counts = K.launch_counts()
+    check(train_counts["mec_conv_fused2"] >= len(stack)
+          and train_counts["mec_conv_fused"] == 0 and train_counts["mec_lower"] == 0
+          and train_counts["mec_gemm"] == 0, f"mec_fused2 stack launched {train_counts}")
+    abs_err["mec_conv_fused2"] = 0.0
+    for (name, x, w, s, spec), y, wg in zip(stack, outs2, kernels):
+        check(tuple(y.shape) == spec.out_shape and wg.grad is not None
+              and bool(torch.isfinite(wg.grad).all()),
+              f"mec_fused2 stack {name}: output or kernel gradient")
+        w_blk = pick_w_blk(spec.o_w, spec.k_c, spec.i_n, spec.o_h)
+        plain = K.mec_conv_fused2_plain(
+            x, w, s, pick_oh_blk(spec.o_h, spec.o_w, w_blk, spec.k_c, spec.i_n))
+        tol = fwd_tolerance("mec_fused2", "float32", spec.k_h * spec.k_w * spec.i_c)
+        check(ref.scaled_error(y, plain) <= 2 * tol,
+              f"mec_fused2 stack {name}: error vs plain > {2 * tol}")
+        abs_err["mec_conv_fused2"] = max(abs_err["mec_conv_fused2"],
+                                         (y - plain).abs().max().item())
+    check(all(bool(torch.isfinite(v.grad).all()) for v in leaves.values()),
+          "mec_fused2 stack: non-finite input gradient")
+    del outs2, leaves, kernels
+
+    # (b) the CNN trainer at its defaults; its lines go to stderr.
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        acc = train_cnn.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t3
+    cnn_counts = K.launch_counts()
+    check(acc > 0.8, f"train_cnn through mec_fused2: final accuracy {acc}")
+    check(cnn_counts == {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0,
+                         "mec_conv_fused2": 3 * TRAIN_STEPS},
+          f"train_cnn launched {cnn_counts}, not 3 x {TRAIN_STEPS} K4")
+    emit({"phase": "train", "batch": SLICE_BATCH, "grad_check": grad_err,
+          "stack_convs": len(stack), "stack_launches": train_counts,
+          "stack_forward_seconds": round(t1 - t0, 4),
+          "stack_backward_seconds": round(t2 - t1, 4),
+          "train_cnn": {"args": TRAIN_ARGS, "steps": TRAIN_STEPS, "final_acc": acc,
+                        "launches": cnn_counts, "seconds": round(train_s, 3),
+                        "seconds_per_step": train_s / TRAIN_STEPS}})
+
+    # 6. timing ------------------------------------------------------------
     def bound(flops, nbytes):
         t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -375,6 +495,7 @@ def main(argv=None) -> int:
             x, k = make_operands(gen, batch, geom, torch.float32)
             spec = spec_of(x, k, (s_h, s_w))
             w_blk = pick_w_blk(spec.o_w, kc, batch, spec.o_h)
+            oh_blk = pick_oh_blk(spec.o_h, spec.o_w, w_blk, kc, batch)
             kmat = k.reshape(kh, kw * ic, kc)
             low = K.mec_lower(x, kw, s_w)
             k_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -405,11 +526,22 @@ def main(argv=None) -> int:
                     lambda: K.mec_gemm_plain(low, kmat, kh, s_h),
                     time_ms(lambda: torch.matmul(window_view(low, kh, s_h), k_2d)),
                     bound(flops, (n_low + n_k + n_out) * es)),
+                "mec_conv_fused2": (
+                    lambda: K.mec_conv_fused2(x, k, (s_h, s_w), w_blk=w_blk,
+                                              oh_blk=oh_blk),
+                    lambda: K.mec_conv_fused2_plain(x, k, (s_h, s_w), oh_blk),
+                    lib_conv_ms, bound(flops, (n_in + n_k + n_out) * es)),
             }
+            # K4's own traffic: I once plus the halo rows that consecutive
+            # h-blocks both read, beside K and O.  The bound counts I once.
+            halo = max(0, kh - s_h) / (oh_blk * s_h)
             for kname, (fn, plain_fn, lib_ms, (b_ms, b_by)) in cases.items():
                 rec = {"layer": name, "batch": batch, "w_blk": w_blk,
                        "ms": time_ms(fn), "plain_ms": time_ms(plain_fn),
                        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+                if kname == "mec_conv_fused2":
+                    rec["oh_blk"] = oh_blk
+                    rec["design_bytes"] = (n_in * (1 + halo) + n_k + n_out) * es
                 shapes[kname][(name, batch)] = rec
                 emit({"phase": "timing", "kernel": kname, **rec})
             pair[(name, batch)] = {
@@ -422,13 +554,16 @@ def main(argv=None) -> int:
             del low
 
     # Main-path totals: each kernel over the calls its path made at batch 16
-    # (K1: the 34-conv stack; K2, K3: one call per Table-3 layer).
+    # (K1: the 34-conv stack; K2, K3: one call per Table-3 layer; K4: the
+    # 34-conv training stack).
     weights = {"mec_conv_fused": RESNET101,
                "mec_lower": {n: 1 for n in RESNET101},
-               "mec_gemm": {n: 1 for n in RESNET101}}
+               "mec_gemm": {n: 1 for n in RESNET101},
+               "mec_conv_fused2": RESNET101}
     launches = {"mec_conv_fused": auto_counts["mec_conv_fused"],
                 "mec_lower": low_counts["mec_lower"],
-                "mec_gemm": low_counts["mec_gemm"]}
+                "mec_gemm": low_counts["mec_gemm"],
+                "mec_conv_fused2": train_counts["mec_conv_fused2"]}
     abs_err["mec_lower"] = 0.0       # checked bit-exact above
     rows = []
     for kname, (source, replaces) in KERNEL_ROWS.items():
@@ -445,7 +580,9 @@ def main(argv=None) -> int:
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if 2 * ops_ms >= total("bound_ms") else "bytes",
             "library_ms": total("library_ms")})
-    rows[-1]["lowered_pair"] = {
+    rows[list(KERNEL_ROWS).index("mec_conv_fused2")]["train_cnn_launches"] = \
+        cnn_counts["mec_conv_fused2"]
+    rows[list(KERNEL_ROWS).index("mec_gemm")]["lowered_pair"] = {
         "ms": sum(pair[(n, SLICE_BATCH)]["ms"] for n in RESNET101),
         "library_ms": sum(pair[(n, SLICE_BATCH)]["library_ms"] for n in RESNET101)}
     print(smi, flush=True)

@@ -12,19 +12,29 @@ the algorithm back-ends:
 ``mec``         paper Algorithm 2 in eager torch (Solutions A/B)
 ``mec_lowered`` CUDA kernels K2 + K3: L materialized in device memory
 ``mec_fused``   CUDA kernel K1: lowering fused into the GEMM, no L
+``mec_fused2``  CUDA kernel K4: K1 h-blocked, oh_blk output rows per CTA
 ``auto``        ``launch.costmodel.pick_conv2d_algorithm`` on the
                 tensors' device type: ``mec_fused`` on CUDA
 =============== ===========================================================
 
-``fft``, ``winograd`` and ``mec_fused2`` and the ``plan=`` and
-``partition=`` arguments are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.  ``conv2d`` runs where
-its inputs live: CUDA tensors go through the kernels, CPU tensors
-through the kernels' plain versions.
+``fft`` and ``winograd`` and the ``plan=`` and ``partition=`` arguments
+are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
+item.  ``conv2d`` runs where its inputs live: CUDA tensors go through the
+kernels, CPU tensors through the kernels' plain versions.
 
-The MEC algorithms run inside one ``torch.autograd.Function``.  Its
-backward (the JAX package's MEC custom VJP) is not ported yet and raises,
-so a gradient is never silently missing.
+The MEC algorithms run inside one ``torch.autograd.Function``, the port
+of the JAX package's MEC custom VJP; its backward is the same for every
+MEC algorithm:
+
+* input gradient = a transposed MEC conv: the cotangent, stride-dilated
+  and fully padded, is MEC-convolved (``core.mec.mec_conv2d``) with the
+  spatially flipped, channel-swapped kernel;
+* weight gradient from the compact L (``core.mec.mec_lower``): one
+  contraction per kernel row over the stride-s_h view of L.
+
+Both run in f32 and are cast back to the operand dtypes.  The backward
+is plain PyTorch (``torch.matmul``), as the JAX package's is plain jnp:
+it has no Pallas backward kernel.
 """
 from __future__ import annotations
 
@@ -36,7 +46,7 @@ from repro_torch.core.convspec import (ConvSpec, normalize_stride, pad_nhwc,
                                        pad_same, padding_amounts, spec_of)
 from repro_torch.core.direct import direct_conv2d
 from repro_torch.core.im2col import im2col_conv2d
-from repro_torch.core.mec import mec_conv2d as _mec_reference
+from repro_torch.core.mec import mec_conv2d as _mec_reference, mec_lower
 from repro_torch.launch.costmodel import pick_conv2d_algorithm
 
 MEC_ALGORITHMS = ("mec", "mec_lowered", "mec_fused", "mec_fused2")
@@ -46,7 +56,6 @@ ALGORITHMS = ("auto", "direct", "im2col", "fft", "winograd") + MEC_ALGORITHMS
 _NOT_PORTED = {
     "fft": "ROADMAP Queue 1 item 5",
     "winograd": "ROADMAP Queue 1 item 5",
-    "mec_fused2": "ROADMAP Queue 2 K4",
 }
 
 Padding = Union[str, int, Tuple]
@@ -88,16 +97,66 @@ def _mec_forward(inp, kernel, s_h, s_w, variant, solution):
     return mec_conv2d_cuda(inp, kernel, (s_h, s_w), mode=variant[len("mec_"):])
 
 
+def _mec_input_grad(g: torch.Tensor, kernel: torch.Tensor, s_h: int,
+                    s_w: int, i_h: int, i_w: int) -> torch.Tensor:
+    """dL/dI as a transposed MEC conv: stride-dilate the cotangent, pad it
+    fully, and MEC-convolve with the spatially flipped kernel whose
+    channel axes are swapped (HWIO -> HWOI)."""
+    k_h, k_w = kernel.shape[:2]
+    g32 = g.to(torch.float32)
+    i_n, o_h, o_w, k_c = g.shape
+    if s_h > 1 or s_w > 1:
+        gd = g32.new_zeros((i_n, (o_h - 1) * s_h + 1, (o_w - 1) * s_w + 1,
+                            k_c))
+        gd[:, ::s_h, ::s_w, :] = g32
+    else:
+        gd = g32
+    gp = pad_nhwc(gd, (k_h - 1, k_h - 1), (k_w - 1, k_w - 1))
+    k_t = kernel.flip(0, 1).permute(0, 1, 3, 2).to(torch.float32)
+    di = _mec_reference(gp, k_t, (1, 1))   # (n, (o_h-1)s_h + k_h, ..., i_c)
+    # Input rows/cols beyond the last kernel window receive zero gradient.
+    return pad_nhwc(di, (0, i_h - di.shape[1]), (0, i_w - di.shape[2]))
+
+
+def _mec_weight_grad(inp: torch.Tensor, g: torch.Tensor, s_h: int, s_w: int,
+                     k_h: int, k_w: int) -> torch.Tensor:
+    """dL/dK from the compact L (Eq. 3): for each kernel row r, the
+    stride-s_h view of L against the cotangent, the k_h-decomposition of
+    the forward kernels run in reverse."""
+    low = mec_lower(inp, k_w, s_w).to(torch.float32)  # (n, o_w, i_h, k_w, i_c)
+    o_h = g.shape[1]
+    g32 = g.to(torch.float32)
+    rows = []
+    for r in range(k_h):
+        lr = low[:, :, r:r + s_h * (o_h - 1) + 1:s_h]  # (n, o_w, o_h, k_w, i_c)
+        rows.append(torch.einsum("nwhjc,nhwo->jco", lr, g32))
+    return torch.stack(rows)               # (k_h, k_w, i_c, k_c)
+
+
 class _MecConv(torch.autograd.Function):
-    """Every MEC path behind one autograd node; forward only so far."""
+    """Every MEC path behind one autograd node: the forward runs the
+    chosen algorithm, the backward is the shared MEC VJP."""
 
     @staticmethod
     def forward(ctx, inp, kernel, s_h, s_w, variant, solution):
+        ctx.save_for_backward(inp, kernel)
+        ctx.strides = (s_h, s_w)
         return _mec_forward(inp, kernel, s_h, s_w, variant, solution)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError("MEC VJP: ROADMAP Queue 1 item 8")
+        # variant and solution shape the forward only: the VJP math is the
+        # same for every MEC execution path.
+        inp, kernel = ctx.saved_tensors
+        s_h, s_w = ctx.strides
+        d_inp = d_ker = None
+        if ctx.needs_input_grad[0]:
+            d_inp = _mec_input_grad(grad_out, kernel, s_h, s_w, inp.shape[1],
+                                    inp.shape[2]).to(inp.dtype)
+        if ctx.needs_input_grad[1]:
+            d_ker = _mec_weight_grad(inp, grad_out, s_h, s_w, kernel.shape[0],
+                                     kernel.shape[1]).to(kernel.dtype)
+        return d_inp, d_ker, None, None, None, None
 
 
 def resolve_algorithm(spec: ConvSpec, device: Union[str, torch.device]) -> str:

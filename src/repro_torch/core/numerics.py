@@ -111,6 +111,17 @@ def contract_for(algorithm: str) -> Optional[NumericContract]:
     return CONTRACTS.get(algorithm)
 
 
+def _scaled_budget(algorithm: str, dtype: str, direction: str,
+                   reduction: int) -> float:
+    budget = CONTRACTS[algorithm].tolerance(dtype, direction)
+    if budget is None:
+        raise KeyError(f"{algorithm} declares no {direction} budget for "
+                       f"{dtype}")
+    if dtype == "float32":
+        return budget * max(1.0, math.sqrt(reduction / PROBE_REDUCTION))
+    return budget
+
+
 def fwd_tolerance(algorithm: str, dtype: str, reduction: int) -> float:
     """Forward tolerance against an f64 oracle for a conv whose reduction
     length is ``reduction`` (= k_h*k_w*i_c).
@@ -120,9 +131,13 @@ def fwd_tolerance(algorithm: str, dtype: str, reduction: int) -> float:
     rounding to the input dtype, not the sum, so the budget stands as is
     (the oracle is computed from the same quantized inputs, upcast).
     """
-    budget = CONTRACTS[algorithm].tolerance(dtype, "fwd")
-    if budget is None:
-        raise KeyError(f"{algorithm} declares no fwd budget for {dtype}")
-    if dtype == "float32":
-        return budget * max(1.0, math.sqrt(reduction / PROBE_REDUCTION))
-    return budget
+    return _scaled_budget(algorithm, dtype, "fwd", reduction)
+
+
+def grad_tolerance(algorithm: str, dtype: str, reduction: int) -> float:
+    """Gradient tolerance against an f64 oracle, the contract's "grad"
+    budget scaled as :func:`fwd_tolerance` scales "fwd": f32 by
+    max(1, sqrt(R/27)), bf16/f16 as is.  R is the reduction length of
+    that gradient: k_h*k_w*k_c for d_input, i_n*o_h*o_w for d_kernel.
+    """
+    return _scaled_budget(algorithm, dtype, "grad", reduction)

@@ -6,13 +6,14 @@ version for a CPU tensor; any other device raises.  There is no fallback
 from a CUDA tensor to the plain version.  Each wrapper counts its
 launches in a plain int attribute, ``<wrapper>.launches``.
 
-=================  ==========================================  ===========
-wrapper            replaces (src/repro/kernels/mec_conv.py)    bound
-=================  ==========================================  ===========
-``mec_lower``      ``mec_lower_pallas`` / ``_lower_kernel``     bytes
-``mec_conv_fused`` ``mec_conv_fused_pallas`` / ``_fused_kernel`` operations
-``mec_gemm``       ``mec_gemm_pallas`` / ``_gemm_kernel``       operations
-=================  ==========================================  ===========
+===================  ============================================  ==========
+wrapper              replaces (src/repro/kernels/mec_conv.py)      bound
+===================  ============================================  ==========
+``mec_lower``        ``mec_lower_pallas`` / ``_lower_kernel``       bytes
+``mec_conv_fused``   ``mec_conv_fused_pallas`` / ``_fused_kernel``   operations
+``mec_conv_fused2``  ``mec_conv_fused2_pallas`` / ``_fused2_kernel`` operations
+``mec_gemm``         ``mec_gemm_pallas`` / ``_gemm_kernel``         operations
+===================  ============================================  ==========
 
 The design notes (what bounds each kernel on the card and what its
 design does about it) head ``csrc/mec_conv.cu``.  The kernels accumulate
@@ -39,8 +40,11 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mec_lower.argtypes = [ptr, ptr, i32] + [i64] * 7 + [ptr]
     lib.mec_fused.argtypes = [ptr, ptr, ptr, i32] + [i64] * 12 + [ptr]
+    lib.mec_fused2.argtypes = [ptr, ptr, ptr, i32] + [i64] * 13 + [ptr]
     lib.mec_gemm.argtypes = [ptr, ptr, ptr, i32] + [i64] * 9 + [ptr]
-    for fn in (lib.mec_lower, lib.mec_fused, lib.mec_gemm):
+    lib.mec_fused2_tile.argtypes = [i64] * 6 + [ctypes.POINTER(i32)] * 2
+    for fn in (lib.mec_lower, lib.mec_fused, lib.mec_fused2, lib.mec_gemm,
+               lib.mec_fused2_tile):
         fn.restype = i32
     lib.mec_error_string.argtypes = [i32]
     lib.mec_error_string.restype = ctypes.c_char_p
@@ -160,6 +164,80 @@ mec_conv_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K4: h-blocked fused conv, oh_blk output rows per CTA  I, K -> O
+# ---------------------------------------------------------------------------
+
+def mec_conv_fused2_plain(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
+                          oh_blk: int = 8) -> torch.Tensor:
+    """The h-blocked decomposition: each block of oh_blk output rows is
+    computed from its own rows_blk + halo input rows (oh_blk*s_h + k_h -
+    s_h), O[n, h0 + d] = sum_r strip(X[n, d*s_h + r]) @ K[r] over the
+    block's rows X; f32 accumulation, one cast to the input dtype."""
+    spec = spec_of(inp, kernel, stride)
+    if oh_blk < 1:
+        raise ValueError(f"oh_blk must be >= 1, got {oh_blk}")
+    acc = accum_dtype(inp.dtype)
+    k_mat = kernel.to(inp.dtype).reshape(spec.k_h, spec.k_w * spec.i_c,
+                                         spec.k_c).to(acc)
+    blocks = []
+    for h0 in range(0, spec.o_h, oh_blk):
+        rows = min(oh_blk, spec.o_h - h0)
+        x = inp[:, h0 * spec.s_h:(h0 + rows - 1) * spec.s_h + spec.k_h]
+        out = None
+        for r in range(spec.k_h):
+            sel = x[:, r:r + spec.s_h * (rows - 1) + 1:spec.s_h]
+            strip = sel.unfold(2, spec.k_w, spec.s_w).permute(0, 1, 2, 4, 3)
+            strip = strip.reshape(spec.i_n, rows, spec.o_w, -1).to(acc)
+            term = torch.matmul(strip, k_mat[r])
+            out = term if out is None else out + term
+        blocks.append(out)
+    return torch.cat(blocks, dim=1).to(inp.dtype)
+
+
+def mec_conv_fused2(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
+                    w_blk: int = 64, oh_blk: int = 8) -> torch.Tensor:
+    """h-blocked fused MEC convolution: a CTA computes oh_blk output rows
+    x w_blk output columns (each clamped to the output) and reads each of
+    its input rows once per channel chunk.  inp (n, i_h, i_w, i_c)
+    pre-padded, kernel (k_h, k_w, i_c, k_c).  Returns (n, o_h, o_w, k_c)
+    in inp.dtype."""
+    spec = spec_of(inp, kernel, stride)
+    if w_blk < 1 or oh_blk < 1:
+        raise ValueError(f"w_blk and oh_blk must be >= 1, got {w_blk}, "
+                         f"{oh_blk}")
+    w_blk, oh_blk = min(w_blk, spec.o_w), min(oh_blk, spec.o_h)
+    if _on_cpu(inp, kernel):
+        return mec_conv_fused2_plain(inp, kernel, (spec.s_h, spec.s_w),
+                                     oh_blk=oh_blk)
+    inp = inp.contiguous()
+    kernel = kernel.to(inp.dtype).contiguous()
+    out = torch.empty(spec.out_shape, dtype=inp.dtype, device=inp.device)
+    _launch("mec_fused2", inp.device, inp.data_ptr(), kernel.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[inp.dtype], spec.i_n, spec.i_h,
+            spec.i_w, spec.i_c, spec.k_h, spec.k_w, spec.k_c, spec.s_h,
+            spec.s_w, spec.o_h, spec.o_w, w_blk, oh_blk)
+    mec_conv_fused2.launches += 1
+    return out
+
+
+mec_conv_fused2.launches = 0
+
+
+def fused2_tile(oh_blk: int, w_blk: int, k_h: int, k_w: int, s_h: int,
+                s_w: int) -> tuple[int, int]:
+    """The (rows, columns) sub-tile K4's launcher runs for an oh_blk x
+    w_blk block on the current CUDA device, which ``ops.pick_oh_blk``
+    sizes its blocks by; it launches nothing."""
+    tr, tc = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().mec_fused2_tile(oh_blk, w_blk, k_h, k_w, s_h, s_w,
+                                ctypes.byref(tr), ctypes.byref(tc))
+    if rc != 0:
+        raise RuntimeError(f"mec_fused2_tile: CUDA error {rc} "
+                           f"({_lib().mec_error_string(rc).decode()})")
+    return tr.value, tc.value
+
+
+# ---------------------------------------------------------------------------
 # K3: shifted GEMM over L  L, K (k_h, k_w*i_c, k_c) -> O
 # ---------------------------------------------------------------------------
 
@@ -213,7 +291,7 @@ def mec_gemm(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int, s_h: int,
 mec_gemm.launches = 0
 
 #: every kernel wrapper of this module, for resetting and reading counts
-KERNELS = (mec_conv_fused, mec_lower, mec_gemm)
+KERNELS = (mec_conv_fused, mec_lower, mec_gemm, mec_conv_fused2)
 
 
 def reset_launch_counts() -> None:

@@ -1,11 +1,12 @@
 """Public entry point for the MEC CUDA kernels (counterpart of
-``repro.kernels.ops``) and the H100 block picker."""
+``repro.kernels.ops``) and the H100 block pickers."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.convspec import normalize_stride
-from repro_torch.kernels.mec_conv import mec_conv_fused, mec_gemm, mec_lower
+from repro_torch.kernels.mec_conv import (mec_conv_fused, mec_conv_fused2,
+                                          mec_gemm, mec_lower)
 
 #: H100 SXM: streaming multiprocessors
 N_SMS = 132
@@ -15,6 +16,13 @@ CTA_CHANNELS = 64
 CTA_TILE_ROWS = 64
 #: the smallest sub-tile: a block narrower than this idles rows
 MIN_TILE_ROWS = 16
+#: K4: output positions (rows x columns) per CTA sub-tile, the launcher's
+#: kFused2MaxPos (``mec_conv.fused2_tile`` reads back what it runs)
+CTA_POSITIONS = 128
+#: K4: output rows per CTA sub-tile, the launcher's kFused2MaxRows
+CTA_ROWS = 16
+#: K4: the picker keeps at least this many positions, 2 per thread row
+MIN_POSITIONS = 32
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -42,14 +50,43 @@ def pick_w_blk(o_w: int, k_c: int, i_n: int, o_h: int) -> int:
     return blk
 
 
+def pick_oh_blk(o_h: int, o_w: int, w_blk: int, k_c: int, i_n: int) -> int:
+    """Output rows per CTA for the K4 kernel on the H100, given its
+    ``w_blk`` output columns.
+
+    A K4 CTA computes a sub-tile of at most 128 output positions (rows x
+    columns) flattened onto its 16 thread rows, so a thread holds up to
+    8 positions x 4 channels: 32 f32 accumulators, far below the
+    255-register cap.  Every row of the block up to 16 shares one staged
+    copy of its input rows, which the kernel sizes against the 96 KB that
+    lets two CTAs share an SM (the 227 KB opt-in where one channel needs
+    more).  So the block takes as many rows as fill 128 positions with
+    ``w_blk`` columns; narrow layers (cv11: 12 columns, cv12: 5) thereby
+    fill the thread rows that K1 leaves idle.  Then parallelism: the
+    rows are halved while the grid (n * ceil(o_h / oh_blk) * ceil(o_w /
+    w_blk) * ceil(k_c / 64) CTAs) is short of one CTA per SM, as long
+    as the block keeps 32 positions (2 per thread row).
+    """
+    w_blk = max(1, min(w_blk, o_w))
+    blk = max(1, min(o_h, CTA_POSITIONS // w_blk, CTA_ROWS))
+    others = i_n * _ceil_div(o_w, w_blk) * _ceil_div(k_c, CTA_CHANNELS)
+    while (others * _ceil_div(o_h, blk) < N_SMS
+           and _ceil_div(blk, 2) * w_blk >= MIN_POSITIONS and blk > 1):
+        blk = _ceil_div(blk, 2)
+    return blk
+
+
 def mec_conv2d_cuda(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
-                    mode: str = "fused", w_blk: int | None = None) -> torch.Tensor:
+                    mode: str = "fused", w_blk: int | None = None
+                    ) -> torch.Tensor:
     """MEC convolution with the hand-written kernels.
 
     mode='lowered' is the paper-faithful path (K2 builds L in device
     memory, Eq. 3 memory observable; K3 runs the shifted GEMMs); mode=
-    'fused' is K1, the lowering fused into the GEMM.  w_blk is output
-    columns per CTA, :func:`pick_w_blk` when None.  CPU tensors run the
+    'fused' is K1, the lowering fused into the GEMM; mode='fused2' is K4,
+    the fused conv h-blocked over oh_blk output rows per CTA.  w_blk is
+    output columns per CTA, :func:`pick_w_blk` when None; K4's output
+    rows per CTA come from :func:`pick_oh_blk`.  CPU tensors run the
     kernels' plain versions.
     """
     s_h, s_w = normalize_stride(stride)
@@ -64,9 +101,9 @@ def mec_conv2d_cuda(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     if mode == "fused":
         return mec_conv_fused(inp, kernel, (s_h, s_w), w_blk=w_blk)
     if mode == "fused2":
-        raise NotImplementedError(
-            "mode='fused2' (mec_conv_fused2_pallas, the h-blocked fused "
-            "kernel) is not ported yet: ROADMAP Queue 2 K4")
+        oh_blk = pick_oh_blk(o_h, o_w, w_blk, k_c, inp.shape[0])
+        return mec_conv_fused2(inp, kernel, (s_h, s_w), w_blk=w_blk,
+                               oh_blk=oh_blk)
     if mode == "lowered":
         low = mec_lower(inp, k_w, s_w)
         kernel_mat = kernel.to(inp.dtype).reshape(k_h, k_w * i_c, k_c)

@@ -1,0 +1,101 @@
+"""AdamW with global-norm clipping and a warmup-cosine schedule
+(counterpart of ``repro.optim.adamw``), as plain functions on nested
+dicts of tensors.
+
+Not ``torch.optim.AdamW``: the JAX package clips by the global norm of
+all gradients, decays only tensors with ndim >= 2, and keeps f32 moments
+whatever the parameter dtype, so this is a line-for-line port.  Every
+function is pure: ``update`` returns new parameters and a new state.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists of the same
+    structure (a tuple is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in ``jax.tree.leaves`` order (sorted dict keys)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    step = step.to(torch.float32)
+    warm = step / max(1.0, cfg.warmup_steps)
+    t = (step - cfg.warmup_steps) / max(1.0, cfg.total_steps - cfg.warmup_steps)
+    t = t.clamp(0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (1 + torch.cos(math.pi * t))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init(params) -> Dict[str, Any]:
+    """f32 zero moments on each parameter's device, step 0."""
+    leaves = tree_leaves(params)
+    device = leaves[0].device if leaves else "cpu"
+    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    return {"m": zeros, "v": tree_map(torch.clone, zeros),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree_leaves(tree)))
+
+
+def update(cfg: AdamWConfig, grads, opt_state, params
+           ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step: (new params, new state, {"grad_norm", "lr"})."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    lr = schedule(cfg, step)
+    step_f = step.to(torch.float32)
+    b1c = 1 - cfg.b1 ** step_f
+    b2c = 1 - cfg.b2 ** step_f
+
+    def upd(g, m, v, p):
+        g = g.to(torch.float32) * scale
+        m2 = cfg.b1 * m + (1 - cfg.b1) * g
+        v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+        mhat, vhat = m2 / b1c, v2 / b2c
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        if p.dim() >= 2:  # decay matrices only
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - lr * delta).to(p.dtype), m2, v2
+
+    out = tree_map(upd, grads, opt_state["m"], opt_state["v"], params)
+    new_params, new_m, new_v = (tree_map(lambda o: o[i], out) for i in range(3))
+    return new_params, {"m": new_m, "v": new_v, "step": step}, \
+        {"grad_norm": gnorm, "lr": lr}

@@ -128,6 +128,21 @@ def test_fwd_tolerance_scaling():
         jnum.CONTRACTS["mec"].tolerance("bfloat16", "fwd")
 
 
+def test_grad_tolerance_scaling():
+    """The "grad" budgets scale as the "fwd" ones: f32 by sqrt(R/27),
+    sub-f32 not at all; a backend with no budget raises."""
+    f32 = jnum.CONTRACTS["mec_fused2"].tolerance("float32", "grad")
+    assert tnum.grad_tolerance("mec_fused2", "float32", 27) == f32
+    assert tnum.grad_tolerance("mec_fused2", "float32", 1) == f32
+    assert tnum.grad_tolerance("mec_fused2", "float32", 27 * 100) == \
+        pytest.approx(10 * f32)
+    for dtype in ("bfloat16", "float16"):
+        assert tnum.grad_tolerance("mec", dtype, 10 ** 6) == \
+            jnum.CONTRACTS["mec"].tolerance(dtype, "grad")
+    with pytest.raises(KeyError, match="grad"):
+        tnum.grad_tolerance("mec", "float64", 27)
+
+
 def test_stride_and_spec_validation_match_jax():
     for stride in (1, 3, (2, 3), [1, 4]):
         assert jspec.normalize_stride(stride) == tspec.normalize_stride(stride)

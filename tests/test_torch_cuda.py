@@ -14,6 +14,9 @@ version on the same inputs is held to 2 x the contract's forward
 tolerance (``numerics.fwd_tolerance``, f32 scaled by sqrt(K/27)), since
 each side is held to the budget on its own; K2 is data movement and must
 match exactly.  The plain versions run on the card too, with TF32 off.
+Gradients through ``conv2d`` on the card are held to the contract's grad
+tolerance (``numerics.grad_tolerance``) against f64 autograd through
+``F.conv2d``.
 """
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import conv2d                  # noqa: E402
-from repro_torch.core.numerics import fwd_tolerance  # noqa: E402
+from repro_torch.core.numerics import fwd_tolerance, grad_tolerance  # noqa: E402
 from repro_torch.kernels import mec_conv as K        # noqa: E402
 from repro_torch.kernels import ops, ref             # noqa: E402
 
@@ -47,6 +50,22 @@ GEOMS = [
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 IDS = [f"g{i}" for i in range(len(GEOMS))]
+# K4: GEOMS at oh_blk = 8, then (ih, iw, ic, kh, kw, kc, stride, w_blk,
+# oh_blk) for the three geometries of fault F1 (the TPU kernel's halo view
+# is shorter than the halo), k_h < s_h, an oh_blk that does not divide o_h,
+# and an oh_blk above the kernel's 16-row sub-tile.
+FUSED2_GEOMS = [g + (8,) for g in GEOMS] + [
+    (7, 7, 3, 7, 7, 5, 1, 8, 8),
+    (6, 6, 3, 5, 5, 5, 1, 8, 8),
+    (9, 9, 3, 7, 7, 5, 1, 8, 8),
+    (8, 8, 3, 2, 2, 5, 3, 8, 8),
+    (23, 19, 5, 3, 3, 7, 1, 17, 5),
+    (40, 12, 4, 3, 3, 9, 1, 10, 38),
+]
+FUSED2_IDS = IDS + ["f1_7x7", "f1_6x6", "f1_9x9", "kh_lt_sh", "ragged_h",
+                    "rows_gt_16"]
+NO_LAUNCHES = {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0,
+               "mec_conv_fused2": 0}
 
 
 @pytest.fixture
@@ -91,6 +110,49 @@ def test_fused_kernel_matches_plain(cuda, geom, dtype):
     assert y.dtype == x.dtype and y.device == x.device
     tol = 2 * fwd_tolerance("mec_fused", dtype, geom[3] * geom[4] * geom[2])
     assert ref.scaled_error(y, K.mec_conv_fused_plain(x, k, s)) <= tol
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("geom", FUSED2_GEOMS, ids=FUSED2_IDS)
+def test_fused2_kernel_matches_plain(cuda, geom, dtype):
+    """K4 against its plain version and the f64 oracle, and one launch of
+    K4 alone: no fallback to K1, on every geometry."""
+    x, k = _operands(geom, dtype, cuda)
+    s, w_blk, oh_blk = _strides(geom[6]), geom[7], geom[8]
+    K.reset_launch_counts()
+    y = K.mec_conv_fused2(x, k, s, w_blk=w_blk, oh_blk=oh_blk)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {**NO_LAUNCHES, "mec_conv_fused2": 1}
+    assert y.dtype == x.dtype and y.device == x.device
+    tol = fwd_tolerance("mec_fused2", dtype, geom[3] * geom[4] * geom[2])
+    assert ref.scaled_error(y, K.mec_conv_fused2_plain(x, k, s, oh_blk)) <= 2 * tol
+    assert ref.scaled_error(y, ref.conv2d_f64(x, k, s)) <= tol
+
+
+# Table 2's cv1-cv12 at batch 16: (ih, iw, ic, kh, kw, kc, stride).
+TABLE2 = [(227, 227, 3, 11, 11, 96, 4), (231, 231, 3, 11, 11, 96, 4),
+          (227, 227, 3, 7, 7, 64, 2), (224, 224, 64, 7, 7, 64, 2),
+          (24, 24, 96, 5, 5, 256, 1), (12, 12, 256, 3, 3, 512, 1),
+          (224, 224, 3, 3, 3, 64, 1), (112, 112, 64, 3, 3, 128, 1),
+          (56, 56, 64, 3, 3, 64, 1), (28, 28, 128, 3, 3, 128, 1),
+          (14, 14, 256, 3, 3, 256, 1), (7, 7, 512, 3, 3, 512, 1)]
+
+
+def test_fused2_launcher_runs_the_picked_block(cuda):
+    """K4's launcher owns its sub-tile; ``ops.pick_oh_blk`` sizes blocks by
+    a copy of its limits.  The launcher keeps to those limits, and runs
+    every block the pickers choose as one sub-tile."""
+    assert K.fused2_tile(ops.CTA_ROWS + 3, 1, 3, 3, 1, 1) == (ops.CTA_ROWS, 1)
+    assert K.fused2_tile(1, 1000, 3, 3, 1, 1) == (1, ops.CTA_POSITIONS)
+    assert K.fused2_tile(4, 1000, 3, 3, 1, 1) == (4, ops.CTA_POSITIONS // 4)
+    for batch, geoms in ((2, GEOMS), (1, TABLE2), (16, TABLE2)):
+        for ih, iw, _, kh, kw, kc, s, *_ in geoms:
+            s_h, s_w = _strides(s)
+            o_h, o_w = (ih - kh) // s_h + 1, (iw - kw) // s_w + 1
+            w_blk = ops.pick_w_blk(o_w, kc, batch, o_h)
+            oh_blk = ops.pick_oh_blk(o_h, o_w, w_blk, kc, batch)
+            assert K.fused2_tile(oh_blk, w_blk, kh, kw, s_h, s_w) == \
+                (oh_blk, w_blk), (ih, iw, kh, kw, s, batch)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -141,23 +203,44 @@ def test_conv2d_on_the_card_runs_the_kernels(cuda, padding, stride):
     tol = 2 * fwd_tolerance("mec_fused", "float32", 3 * 4 * 5)
     for algorithm, launched in (("auto", {"mec_conv_fused": 1}),
                                 ("mec_fused", {"mec_conv_fused": 1}),
+                                ("mec_fused2", {"mec_conv_fused2": 1}),
                                 ("mec_lowered", {"mec_lower": 1, "mec_gemm": 1})):
         K.reset_launch_counts()
         y = conv2d(x, k, stride=stride, padding=padding, algorithm=algorithm)
         torch.cuda.synchronize()
-        want = {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0}
-        assert K.launch_counts() == {**want, **launched}, algorithm
+        assert K.launch_counts() == {**NO_LAUNCHES, **launched}, algorithm
         y_cpu = conv2d(x.cpu(), k.cpu(), stride=stride, padding=padding,
                        algorithm=algorithm)
         assert y.device == x.device and y.shape == y_cpu.shape
         assert ref.scaled_error(y.cpu(), y_cpu) <= tol, algorithm
 
 
-def test_mec_backward_raises_on_the_card(cuda):
-    x, k = _operands((9, 9, 4, 3, 3, 6, 1), "float32", cuda)
-    y = conv2d(x.requires_grad_(), k, algorithm="auto")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        y.sum().backward()
+@pytest.mark.parametrize("algorithm", ["mec_fused2", "mec_fused", "mec_lowered"])
+@pytest.mark.parametrize("stride", [1, 2, (2, 3)])
+def test_mec_backward_on_the_card_matches_f64_autograd(cuda, stride, algorithm):
+    """d_input and d_kernel of sum(out * g) through the MEC VJP on the card
+    against autograd through the f64 direct conv; the forward launches
+    the algorithm's kernels and the backward none."""
+    x, k = _operands((15, 17, 5, 3, 4, 7, 1), "float32", cuda)
+    x64 = x.double().requires_grad_()
+    k64 = k.double().requires_grad_()
+    x.requires_grad_()
+    k.requires_grad_()
+    K.reset_launch_counts()
+    y = conv2d(x, k, stride=stride, padding="SAME", algorithm=algorithm)
+    fwd_counts = K.launch_counts()
+    g = torch.randn(y.shape, generator=torch.Generator(cuda).manual_seed(3),
+                    device=cuda)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == fwd_counts
+    conv2d(x64, k64, stride=stride, padding="SAME",
+           algorithm="direct").backward(g.double())
+    i_n, o_h, o_w, k_c = y.shape
+    assert ref.scaled_error(x.grad, x64.grad) <= \
+        grad_tolerance(algorithm, "float32", 3 * 4 * k_c)
+    assert ref.scaled_error(k.grad, k64.grad) <= \
+        grad_tolerance(algorithm, "float32", i_n * o_h * o_w)
 
 
 def test_mixed_devices_raise(cuda):

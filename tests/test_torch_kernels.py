@@ -3,12 +3,16 @@ kernels.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; these
 tests hold those versions against ``mec_conv_fused_pallas`` (K1),
-``mec_lower_pallas`` (K2) and ``mec_gemm_pallas`` (K3) run with
-``interpret=True``, on the kernel test sweep (f32, bf16) and the Table-2
-layers cut to <= 32x32 spatial and <= 8 channels (f32).  Tolerances:
-K1/K3, 2 x the contract's forward tolerance (``numerics.fwd_tolerance``,
-f32 scaled by sqrt(K/27)), since each side is held to it on its own; K2
-is data movement and must match exactly.
+``mec_lower_pallas`` (K2), ``mec_gemm_pallas`` (K3) and
+``mec_conv_fused2_pallas`` (K4) run with ``interpret=True``, on the
+kernel test sweep (f32, bf16) and the Table-2 layers cut to <= 32x32
+spatial and <= 8 channels (f32).  On the geometries of fault F1, where
+the TPU's K4 reads a halo view shorter than the halo, and on k_h < s_h,
+K4's plain version is held against the JAX package's oracle
+``repro.kernels.ref.conv2d_ref`` instead.  Tolerances: K1/K3/K4, 2 x the
+contract's forward tolerance (``numerics.fwd_tolerance``, f32 scaled by
+sqrt(K/27)), since each side is held to it on its own; K2 is data
+movement and must match exactly.
 
 The kernels themselves, on the card, are held against these plain
 versions in ``tests/test_torch_cuda.py``.
@@ -21,8 +25,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp                              # noqa: E402
 
 from repro.bench.scenarios import CV_LAYERS          # noqa: E402
-from repro.kernels.mec_conv import (mec_conv_fused_pallas,  # noqa: E402
-                                    mec_gemm_pallas, mec_lower_pallas)
+from repro.kernels.mec_conv import (mec_conv_fused2_pallas,  # noqa: E402
+                                    mec_conv_fused_pallas, mec_gemm_pallas,
+                                    mec_lower_pallas)
+from repro.kernels.ref import conv2d_ref as j_conv2d_ref  # noqa: E402
 from repro.kernels.ref import lower_ref as j_lower_ref  # noqa: E402
 
 from repro_torch.core.numerics import fwd_tolerance  # noqa: E402
@@ -49,6 +55,14 @@ GEOMS = ([(f"sweep{i}", g, "float32") for i, g in enumerate(SWEEP)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16),
           "float16": (jnp.float16, torch.float16)}
+# Fault F1 (ROADMAP Queue 3): the TPU's fused2 kernel is wrong where the
+# halo k_h - s_h outruns s_h * min(8, o_h); then k_h < s_h (negative halo).
+EDGE_GEOMS = {
+    "f1_7x7": (7, 7, 3, 7, 7, 5, 1),
+    "f1_6x6": (6, 6, 3, 5, 5, 5, 1),
+    "f1_9x9": (9, 9, 3, 7, 7, 5, 1),
+    "kh_lt_sh": (8, 8, 3, 2, 2, 5, 3),
+}
 
 
 def _operands(geom, dtype, batch=2):
@@ -103,6 +117,34 @@ def test_kernels_plain_match_pallas(name, geom, dtype):
     assert ref.scaled_error(t_out3, _to_torch(j_out3)) <= tol
 
 
+@pytest.mark.parametrize("name,geom,dtype", GEOMS,
+                         ids=[f"{n}-{d}" for n, _, d in GEOMS])
+def test_fused2_plain_matches_pallas(name, geom, dtype):
+    """K4 through its wrapper on CPU tensors (the plain h-blocked
+    decomposition) against the Pallas kernel in interpret mode, at the
+    TPU kernel's default oh_blk = 8 and w_blk = 8."""
+    kh, kw, ic, s = geom[3], geom[4], geom[2], _strides(geom[6])
+    jx, jk, tx, tk = _operands(geom, dtype)
+    j_out = mec_conv_fused2_pallas(jx, jk, s, w_blk=8, oh_blk=8, interpret=True)
+    t_out = K.mec_conv_fused2(tx, tk, s, w_blk=8, oh_blk=8)
+    assert t_out.dtype == tx.dtype and tuple(t_out.shape) == j_out.shape
+    assert ref.scaled_error(t_out, _to_torch(j_out)) <= \
+        2 * fwd_tolerance("mec_fused2", dtype, kh * kw * ic)
+
+
+@pytest.mark.parametrize("oh_blk", [1, 2, 3, 8])
+@pytest.mark.parametrize("name", list(EDGE_GEOMS))
+def test_fused2_plain_on_fault_f1_geometries(name, oh_blk):
+    """Where the TPU kernel is wrong (F1) or its halo is negative, K4's
+    plain version matches the JAX package's oracle at any block height."""
+    geom = EDGE_GEOMS[name]
+    kh, kw, ic, s = geom[3], geom[4], geom[2], geom[6]
+    jx, jk, tx, tk = _operands(geom, "float32")
+    t_out = K.mec_conv_fused2(tx, tk, s, oh_blk=oh_blk)
+    assert ref.scaled_error(t_out, _to_torch(j_conv2d_ref(jx, jk, s))) <= \
+        2 * fwd_tolerance("mec_fused2", "float32", kh * kw * ic)
+
+
 @pytest.mark.parametrize("geom", SWEEP[:5])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_plain_versions_against_f64_oracle(geom, dtype):
@@ -117,9 +159,12 @@ def test_plain_versions_against_f64_oracle(geom, dtype):
     low = K.mec_lower_plain(tx, kw, s_w)
     y3 = K.mec_gemm_plain(low, tk.reshape(kh, kw * ic, -1), kh, s_h)
     assert ref.scaled_error(y3, oracle) <= tol
+    for oh_blk in (1, 3, 8):
+        y4 = K.mec_conv_fused2_plain(tx, tk, s, oh_blk)
+        assert ref.scaled_error(y4, oracle) <= tol
 
 
-@pytest.mark.parametrize("mode", ["fused", "lowered"])
+@pytest.mark.parametrize("mode", ["fused", "fused2", "lowered"])
 @pytest.mark.parametrize("w_blk", [None, 1, 3])
 def test_mec_conv2d_cuda_modes_on_cpu(mode, w_blk):
     geom = SWEEP[3]
@@ -135,8 +180,10 @@ def test_mec_conv2d_cuda_rejects_bad_arguments():
     for bad in (0, 8, -1):
         with pytest.raises(ValueError, match="w_blk"):
             ops.mec_conv2d_cuda(tx, tk, 1, w_blk=bad)
-    with pytest.raises(NotImplementedError, match="Queue 2 K4"):
-        ops.mec_conv2d_cuda(tx, tk, 1, mode="fused2")
+    with pytest.raises(ValueError, match="oh_blk"):
+        K.mec_conv_fused2(tx, tk, 1, oh_blk=0)
+    with pytest.raises(ValueError, match="oh_blk"):
+        K.mec_conv_fused2_plain(tx, tk, 1, oh_blk=0)
     with pytest.raises(ValueError, match="mode"):
         ops.mec_conv2d_cuda(tx, tk, 1, mode="nope")
     with pytest.raises(ValueError, match="w_blk"):
@@ -154,17 +201,22 @@ def test_wrappers_refuse_other_devices_and_mixed_operands():
         K.mec_lower(x, 3, 1)
     with pytest.raises(ValueError, match="cuda"):
         K.mec_conv_fused(x, k)
+    with pytest.raises(ValueError, match="cuda"):
+        K.mec_conv_fused2(x, k)
     with pytest.raises(ValueError, match="different devices"):
         K.mec_conv_fused(torch.zeros((1, 5, 5, 2)), k)
+    with pytest.raises(ValueError, match="different devices"):
+        K.mec_conv_fused2(torch.zeros((1, 5, 5, 2)), k)
 
 
 def test_cpu_path_launches_no_kernel():
     K.reset_launch_counts()
     _, _, tx, tk = _operands(SWEEP[1], "float32")
     ops.mec_conv2d_cuda(tx, tk, 2, mode="fused")
+    ops.mec_conv2d_cuda(tx, tk, 2, mode="fused2")
     ops.mec_conv2d_cuda(tx, tk, 2, mode="lowered")
     assert K.launch_counts() == {"mec_conv_fused": 0, "mec_lower": 0,
-                                 "mec_gemm": 0}
+                                 "mec_gemm": 0, "mec_conv_fused2": 0}
 
 
 @pytest.mark.parametrize("o_w,k_c,i_n,o_h", [
@@ -179,6 +231,33 @@ def test_pick_w_blk_sizes_for_the_h100(o_w, k_c, i_n, o_h):
         prev = -(-o_w // (2 * blk - 1))
         assert i_n * o_h * prev * -(-k_c // ops.CTA_CHANNELS) < 2 * ops.N_SMS
     assert ctas >= 1
+
+
+# (o_h, o_w, k_c, i_n): the Table-3 layers at batch 1 and 16, and edges
+@pytest.mark.parametrize("o_h,o_w,k_c,i_n", [
+    (109, 109, 64, 1), (109, 109, 64, 16), (54, 54, 64, 16), (26, 26, 128, 16),
+    (12, 12, 256, 1), (12, 12, 256, 16), (5, 5, 512, 16), (1, 1, 1, 1),
+    (1, 4096, 8, 1), (300, 2, 3, 1)])
+def test_pick_oh_blk_sizes_for_the_h100(o_h, o_w, k_c, i_n):
+    w_blk = ops.pick_w_blk(o_w, k_c, i_n, o_h)
+    blk = ops.pick_oh_blk(o_h, o_w, w_blk, k_c, i_n)
+    assert 1 <= blk <= min(o_h, ops.CTA_ROWS)
+    assert blk == 1 or blk * w_blk <= ops.CTA_POSITIONS
+    others = i_n * -(-o_w // w_blk) * -(-k_c // ops.CTA_CHANNELS)
+    full = max(1, min(o_h, ops.CTA_POSITIONS // w_blk, ops.CTA_ROWS))
+    if blk < full:
+        # halved only while the grid was short of one CTA per SM (the block
+        # before the last halving was 2 * blk - 1 or 2 * blk rows)
+        assert others * -(-o_h // (2 * blk)) < ops.N_SMS
+        assert blk * w_blk >= ops.MIN_POSITIONS
+
+
+def test_pick_oh_blk_fills_narrow_layers():
+    """cv11 and cv12 at batch 16 stack output rows into one CTA: 60 and
+    25 positions, where K1 runs 12 and 5."""
+    assert ops.pick_oh_blk(12, 12, 12, 256, 16) == 5
+    assert ops.pick_oh_blk(5, 5, 5, 512, 16) == 5
+    assert ops.pick_oh_blk(109, 109, 64, 64, 16) == 2
 
 
 def test_build_names_sources_and_hashes_them():

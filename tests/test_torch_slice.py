@@ -8,7 +8,11 @@ package's Pallas kernels run in interpret mode, as its own tests run
 them.  Tolerance: 2 x the contract's forward tolerance
 (``numerics.fwd_tolerance``, f32 scaled by sqrt(K/27)) as a
 scale-normalized max error, because each package is held to the budget
-on its own.
+on its own.  Gradients through the MEC VJP are held to 2 x the
+contract's grad tolerance (``numerics.grad_tolerance``, f32 scaled by
+sqrt(R/27) with R = k_h*k_w*k_c for d_input and i_n*o_h*o_w for
+d_kernel) against ``jax.vjp`` of the JAX package's ``conv2d`` on the same
+cotangent.
 """
 import dataclasses
 
@@ -30,12 +34,14 @@ from repro_torch.convert import params_from_jax      # noqa: E402
 from repro_torch.core import conv2d, conv2d_spec     # noqa: E402
 from repro_torch.core.conv_api import ALGORITHMS, resolve_algorithm  # noqa: E402
 from repro_torch.core.convspec import ConvSpec       # noqa: E402
-from repro_torch.core.numerics import fwd_tolerance  # noqa: E402
+from repro_torch.core.numerics import fwd_tolerance, grad_tolerance  # noqa: E402
 from repro_torch.kernels import mec_conv as K        # noqa: E402
 from repro_torch.kernels.ref import scaled_error     # noqa: E402
 from repro_torch.models.layers import conv2d_layer, init_conv2d  # noqa: E402
 
-ALGOS = ["direct", "im2col", "mec", "mec_lowered", "mec_fused", "auto"]
+ALGOS = ["direct", "im2col", "mec", "mec_lowered", "mec_fused", "mec_fused2",
+         "auto"]
+MEC_ALGOS = ["mec", "mec_lowered", "mec_fused", "mec_fused2"]
 PADDINGS = {"VALID": "VALID", "SAME": "SAME", "explicit": ((1, 2), (0, 3))}
 STRIDES = {"s1": 1, "s2": 2, "s2x3": (2, 3)}
 # (n, ih, iw, ic, kh, kw, kc): odd sizes, a non-square kernel
@@ -104,7 +110,7 @@ def test_cpu_slice_launches_no_kernel():
     for algorithm in ALGOS:
         conv2d(tx, tk, padding="SAME", algorithm=algorithm)
     assert K.launch_counts() == {"mec_conv_fused": 0, "mec_lower": 0,
-                                 "mec_gemm": 0}
+                                 "mec_gemm": 0, "mec_conv_fused2": 0}
 
 
 def test_auto_resolves_to_the_fused_kernel_on_cuda():
@@ -124,8 +130,7 @@ def test_auto_resolves_to_the_fused_kernel_on_cuda():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("algorithm,item", [("fft", "Queue 1 item 5"),
-                                            ("winograd", "Queue 1 item 5"),
-                                            ("mec_fused2", "Queue 2 K4")])
+                                            ("winograd", "Queue 1 item 5")])
 def test_unported_algorithms_raise(algorithm, item):
     assert algorithm in ALGORITHMS
     _, _, tx, tk = _operands("float32")
@@ -148,17 +153,41 @@ def test_plan_partition_and_bad_arguments_raise():
         conv2d(tx, tk.to("meta"))
 
 
-@pytest.mark.parametrize("algorithm", ["mec", "mec_lowered", "mec_fused"])
-def test_mec_backward_raises_not_missing(algorithm):
-    """The MEC VJP is not ported: a gradient through a MEC path raises
-    rather than coming back missing or wrong."""
-    _, _, tx, tk = _operands("float32")
+@pytest.mark.parametrize("stride", list(STRIDES.values()), ids=list(STRIDES))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("algorithm", MEC_ALGOS)
+def test_mec_gradients_match_jax(algorithm, dtype, stride):
+    """d_input and d_kernel of sum(out * g) through the port's MEC VJP
+    against ``jax.vjp`` of the JAX package's custom VJP, same cotangent."""
+    jx, jk, tx, tk = _operands(dtype, seed=4)
+    jd, td = DTYPES[dtype]
+    j_out, vjp = jax.vjp(lambda a, b: j_conv2d(a, b, stride=stride,
+                                               padding="SAME",
+                                               algorithm=algorithm), jx, jk)
+    g = np.random.RandomState(6).randn(*j_out.shape).astype(np.float32)
+    j_dx, j_dk = vjp(jnp.asarray(g, jd))
     tx.requires_grad_()
     tk.requires_grad_()
-    y = conv2d(tx, tk, padding="SAME", algorithm=algorithm)
-    assert y.requires_grad
-    with pytest.raises(NotImplementedError, match="MEC VJP: ROADMAP Queue 1 item 8"):
-        y.sum().backward()
+    y = conv2d(tx, tk, stride=stride, padding="SAME", algorithm=algorithm)
+    y.backward(torch.from_numpy(g).to(td))
+    assert tx.grad.dtype == td and tk.grad.dtype == td
+    i_n, o_h, o_w, k_c = y.shape
+    kh, kw = tk.shape[:2]
+    assert scaled_error(tx.grad, _as_torch(j_dx)) <= \
+        2 * grad_tolerance(algorithm, dtype, kh * kw * k_c)
+    assert scaled_error(tk.grad, _as_torch(j_dk)) <= \
+        2 * grad_tolerance(algorithm, dtype, i_n * o_h * o_w)
+
+
+def test_mec_backward_skips_gradients_not_asked_for():
+    """Only the operands that require a gradient get one, and the
+    backward launches no kernel."""
+    _, _, tx, tk = _operands("float32")
+    tk.requires_grad_()
+    K.reset_launch_counts()
+    conv2d(tx, tk, padding="SAME", algorithm="mec_fused2").sum().backward()
+    assert tx.grad is None and tk.grad.shape == tk.shape
+    assert sum(K.launch_counts().values()) == 0
 
 
 def test_direct_gradients_match_jax():
@@ -180,7 +209,8 @@ def test_direct_gradients_match_jax():
 # the conv layer, with JAX parameters carried over
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("algorithm", ["auto", "mec_fused", "mec_lowered"])
+@pytest.mark.parametrize("algorithm", ["auto", "mec_fused", "mec_fused2",
+                                       "mec_lowered"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_conv2d_layer_with_jax_params(dtype, algorithm):
     jd, td = DTYPES[dtype]
