@@ -15,7 +15,13 @@ the script exits non-zero without its last line:
              the geometries of fault F1 and one with k_h < s_h, and all
              twelve Table-2 layers at full width, batch 1, in f32, bf16
              and f16; K4's launcher runs the pickers' block as one
-             sub-tile.
+             sub-tile.  Then K5 (causal depthwise conv1d) against its plain
+             version and an f64 oracle: the kernel test cases and fault
+             F2's k_w = 1 in f32, bf16 and f16; the zamba2-7b conv input
+             (4, 512, 7296, k_w = 4), a column slice of the in_proj
+             output, in all three; and the long_500k input (1, 524288,
+             7296) in bf16, past 2^31 elements, on its first and last
+             4096 steps.
 4. slice   - the inference path: the 34 convolutions of the ResNet-101
              Table-3 stack at batch 16 through ``conv2d(algorithm="auto")``
              (K1), then each of its five layers through ``mec_lowered``
@@ -32,9 +38,25 @@ the script exits non-zero without its last line:
              launch counts read around it; (b) the CNN trainer
              ``repro_torch.examples.train_cnn`` at its defaults through
              ``mec_fused2``: accuracy above 0.8, 3 K4 launches a step.
-6. timing  - each kernel at each Table-3 layer, batch 1 and 16, with CUDA
-             events (median of 15 after 3 warm-up calls), beside its plain
-             version, one library call and its bound.
+6. serve   - zamba2-7b at full width and depth, bf16, seeded random
+             weights, ``conv_impl="fused"``, through
+             ``repro_torch.launch.serve.serve``: batch 4, prompt 512, 32
+             greedy tokens; 81 K5 launches (one per Mamba2 layer) and no
+             K1-K4; finite logits; prefill seconds, decode tokens/s and
+             peak memory.  The same prompt and weights through
+             ``conv_impl="lowered"`` (plain L): last-token logits within
+             2e-2 of the fused path.  A prefill of 384 tokens plus 128
+             decode steps against a prefill of all 512: rel <= 2e-2.  K5
+             on layer 0's real conv input against its plain version.
+             Memory: one K5 call allocates its output and nothing else,
+             the lowered conv1d L plus the output.
+7. timing  - each conv2d kernel at each Table-3 layer, batch 1 and 16, and
+             K5 at the zamba2-7b shape, with CUDA events (median of 15
+             after 3 warm-up calls), beside its plain version, one library
+             call and its bound.
+8. profile - one zamba2-7b prefill and four decode steps traced with
+             ``torch.profiler``: device time by kernel, launches, and the
+             device's busy share of the host-clock window.
 
 The last lines are the nvidia-smi line, the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
@@ -95,6 +117,20 @@ EDGE_GEOMS = {
 }
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+# K5: (t, c, k_w) of tests/test_kernels.py test_mec_conv1d_kernel, then
+# fault F2's k_w = 1, at batch 2; that test's tolerance (rtol = atol).
+CONV1D_CASES = [(10, 5, 4), (1024, 256, 4), (33, 7, 3), (512, 64, 2),
+                (5, 3, 4), (10, 5, 1), (1024, 8, 1)]
+CONV1D_TOL = {"float32": 2e-4, "bfloat16": 4e-2, "float16": 4e-2}
+# zamba2-7b served: batch, prompt, generated tokens; the Mamba2 conv input
+# is columns 7168 .. 14463 (d_in .. 2 d_in + 2 N) of a 14576-wide row.
+SERVE_ARCH = "zamba2-7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+DECODE_FROM = 384            # decode against prefill: 384 + 128 steps
+LOGITS_TOL = 2e-2            # tests/test_archs.py test_decode_matches_prefill
+IN_PROJ, CONV_LO, CONV_HI = 14576, 7168, 14464
+# configs/shapes.py long_500k: zamba2-7b at t = 524288
+LONG_T, LONG_WINDOW = 524288, 4096
 SLICE_BATCH = 16
 # repro_torch.examples.train_cnn at its defaults (200 steps) through K4.
 TRAIN_ARGS = ["--algorithm", "mec_fused2"]
@@ -122,6 +158,8 @@ KERNEL_ROWS = {
                  "src/repro/kernels/mec_conv.py:82"),
     "mec_conv_fused2": ("src/repro_torch/kernels/csrc/mec_conv.cu",
                         "src/repro/kernels/mec_conv.py:171"),
+    "mec_conv1d": ("src/repro_torch/kernels/csrc/mec_conv1d.cu",
+                   "src/repro/kernels/mec_conv1d.py:19"),
 }
 
 
@@ -189,6 +227,95 @@ def window_view(low, k_h, s_h):
                           (o_w * ih * kwic, s_h * kwic, ih * kwic, 1))
 
 
+def scaled_err(y, ref) -> float:
+    """max|y - ref| / max|ref| in f64."""
+    y64, r64 = y.double(), ref.double()
+    return ((y64 - r64).abs().max() / r64.abs().max()).item()
+
+
+def conv1d_case(C, ref, name, dname, x, k, window=None):
+    """K5 on x against its plain version and the f64 oracle.  ``window`` =
+    (start, stop) compares only those output steps, the plain version and
+    the oracle run on the input from k_w - 1 steps before ``start``."""
+    y = C.mec_conv1d(x, k)
+    torch.cuda.synchronize()
+    check(y.shape == x.shape and y.dtype == x.dtype and y.is_contiguous(),
+          f"K5 {name} {dname}: {tuple(y.shape)} {y.dtype}")
+    lo, hi = window or (0, x.shape[1])
+    pre = min(lo, k.shape[0] - 1)
+    xin = x[:, lo - pre:hi].contiguous()
+    plain = C.mec_conv1d_plain(xin, k)[:, pre:]
+    oracle = ref.conv1d_ref(xin.double(), k.double())[:, pre:]
+    y = y[:, lo:hi]
+    tol = CONV1D_TOL[dname]
+    ok_o = torch.allclose(y.double(), oracle, rtol=tol, atol=tol)
+    ok_p = torch.allclose(y.double(), plain.double(), rtol=tol, atol=tol)
+    check(ok_o and ok_p, f"K5 {name} {dname}: outside rtol = atol = {tol} "
+          f"(f64 oracle {ok_o}, plain {ok_p})")
+    return {"geom": name, "dtype": dname, "tol": tol,
+            "max_abs_err_vs_plain": (y.float() - plain.float()).abs().max().item(),
+            "bit_exact_vs_plain": bool(torch.equal(y, plain)),
+            "scaled_err_vs_f64": scaled_err(y, oracle)}
+
+
+def device_breakdown(prof, wall_s: float, top: int = 15) -> dict:
+    """Device time by kernel from a torch.profiler trace, and the device's
+    busy share of the ``wall_s`` host-clock window."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_us = sum(dev_us(e) for e in kernels)
+    kernels.sort(key=dev_us, reverse=True)
+    return {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:120], "count": e.count,
+                     "device_ms": dev_us(e) / 1e3} for e in kernels[:top]]}
+
+
+def profile_serving(cfg, seed: int, decode_steps: int = 4) -> dict:
+    """Trace one zamba2-7b prefill (after a warm-up prefill) and
+    ``decode_steps`` decode steps (after two warm-up steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm as lm_mod, serve as serve_lib
+    from repro_torch.models.layers import f32_accumulation
+    model = lm_mod.LM(cfg)
+    out = {}
+    with torch.inference_mode(), f32_accumulation():
+        params = launch_serve.init_params(cfg, seed, DEVICE)
+        prompt = launch_serve.make_prompt(cfg, SERVE_BATCH, SERVE_PROMPT, seed,
+                                          DEVICE)
+        max_len = SERVE_PROMPT + 2 + decode_steps
+        serve_lib.prefill(model, params, {"tokens": prompt}, max_len)
+        torch.cuda.synchronize()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _, cache = serve_lib.prefill(model, params, {"tokens": prompt},
+                                         max_len)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["prefill"] = device_breakdown(prof, wall)
+        tok = prompt[:, -1:]
+        for _ in range(2):
+            _, cache = serve_lib.decode_step(model, params, cache, tok)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(decode_steps):
+                _, cache = serve_lib.decode_step(model, params, cache, tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["decode"] = {"steps": decode_steps, **device_breakdown(prof, wall)}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -223,7 +350,12 @@ def main(argv=None) -> int:
     from repro_torch.core.direct import ieee_f32_conv
     from repro_torch.core.numerics import fwd_tolerance, grad_tolerance
     from repro_torch.examples import train_cnn
-    from repro_torch.kernels import build, mec_conv as K, ref
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.core.mec import mec_conv1d_depthwise
+    from repro_torch.kernels import build, mec_conv as K, mec_conv1d as C, ref
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm as lm_mod, serve as serve_lib
+    from repro_torch.models.layers import f32_accumulation, linear, rms_norm
     from repro_torch.kernels.ops import mec_conv2d_cuda, pick_oh_blk, pick_w_blk
     from repro_torch.models.layers import init_conv2d
     bad = [m for m in sys.modules
@@ -233,7 +365,8 @@ def main(argv=None) -> int:
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     built = build.build()
-    K._lib()          # load and bind the library now, not inside a timing
+    K._lib()          # load and bind the libraries now, not inside a timing
+    C._lib()
     build_s = time.perf_counter() - t0
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -296,6 +429,40 @@ def main(argv=None) -> int:
           "K2": "exact",
           "worst_err_over_tol": {f"{k}/{d}": round(v, 4)
                                  for (k, d), v in sorted(worst.items())}})
+
+    # K5: the test cases and F2 at batch 2, the zamba2-7b conv input as a
+    # column slice, and long_500k for the 64-bit offsets.
+    conv1d_rows = []
+    for dname, dtype in DTYPES.items():
+        for t, c, kw in CONV1D_CASES:
+            x = torch.randn((2, t, c), generator=gen, device=DEVICE).to(dtype)
+            k = torch.randn((kw, c), generator=gen, device=DEVICE).to(dtype)
+            conv1d_rows.append(conv1d_case(C, ref, f"t{t}_c{c}_kw{kw}", dname,
+                                           x, k))
+        zx = torch.randn((SERVE_BATCH, SERVE_PROMPT, IN_PROJ), generator=gen,
+                         device=DEVICE).to(dtype)
+        k = torch.randn((4, CONV_HI - CONV_LO), generator=gen,
+                        device=DEVICE).to(dtype)
+        conv1d_rows.append(conv1d_case(C, ref, "zamba2_slice", dname,
+                                       zx[..., CONV_LO:CONV_HI], k))
+        del zx
+    x = torch.randn((1, LONG_T, CONV_HI - CONV_LO), generator=gen,
+                    device=DEVICE, dtype=torch.bfloat16)
+    k = torch.randn((4, CONV_HI - CONV_LO), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    check(x.numel() > 2 ** 31, f"long_500k input has {x.numel()} elements")
+    for window in ((0, LONG_WINDOW), (LONG_T - LONG_WINDOW, LONG_T)):
+        conv1d_rows.append(conv1d_case(C, ref, f"long_500k_{window[0]}",
+                                       "bfloat16", x, k, window))
+    del x, k
+    torch.cuda.empty_cache()
+    for row in conv1d_rows:
+        emit({"phase": "kernels", "kernel": "K5", **row}, sys.stderr)
+    emit({"phase": "kernels", "kernel": "K5", "checked": len(conv1d_rows),
+          "bit_exact_vs_plain": sum(r["bit_exact_vs_plain"] for r in conv1d_rows),
+          "worst_scaled_err_vs_f64": {
+              d: max(r["scaled_err_vs_f64"] for r in conv1d_rows if r["dtype"] == d)
+              for d in DTYPES}})
 
     # 4. slice: the main path ----------------------------------------------
     stack = []
@@ -480,12 +647,155 @@ def main(argv=None) -> int:
                         "launches": cnn_counts, "seconds": round(train_s, 3),
                         "seconds_per_step": train_s / TRAIN_STEPS}})
 
-    # 6. timing ------------------------------------------------------------
+    # 6. serve: zamba2-7b at full width and depth ---------------------------
+    cfg = ARCHS[SERVE_ARCH].with_(conv_impl="fused")
+    n_mamba = cfg.n_layers
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    C.mec_conv1d.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = launch_serve.serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                                gen=SERVE_GEN, temperature=0.0, device=DEVICE,
+                                seed=args.seed)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_counts = {**K.launch_counts(), "mec_conv1d": C.mec_conv1d.launches}
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(serve_counts == {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0,
+                           "mec_conv_fused2": 0, "mec_conv1d": n_mamba},
+          f"serve launched {serve_counts}, not {n_mamba} K5 and no K1-K4")
+    toks = served["tokens"]
+    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          f"served tokens {tuple(toks.shape)}")
+    check(bool(torch.isfinite(served["prefill_logits"]).all())
+          and bool(torch.isfinite(served["logits"]).all()),
+          "served logits are not finite")
+    fused_logits = served["prefill_logits"]
+    serve_times = {"prefill_seconds": served["prefill_s"],
+                   "decode_seconds": served["decode_s"],
+                   "decode_tokens_per_s": served["decode_tokens_per_s"]}
+    del served
+    torch.cuda.empty_cache()
+
+    # The same prompt and weights through the plain lowered conv1d, and
+    # decode against prefill, at full width: both gated in f32 and reported
+    # in bf16.  In bf16 the paths round in different places (the lowered
+    # conv sums in cuBLAS's order; decode keeps the conv's SiLU output in
+    # f32 where prefill casts it), and 81 random-weight layers amplify a
+    # rounding apart into percents of the logits; in f32 the paths agree
+    # unless they compute different functions.  Then, in bf16, K5 against
+    # the lowered conv on layer 0's real conv input, and their memory.
+    decode, lowered_err = {}, {}
+    for dname in ("float32", "bfloat16"):
+        dcfg = cfg.with_(dtype=dname)
+        model = lm_mod.LM(dcfg)
+        with torch.inference_mode(), f32_accumulation():
+            params = launch_serve.init_params(dcfg, args.seed, DEVICE)
+            prompt = launch_serve.make_prompt(dcfg, SERVE_BATCH, SERVE_PROMPT,
+                                              args.seed, DEVICE)
+            C.mec_conv1d.launches = 0
+            low, cache = serve_lib.prefill(lm_mod.LM(dcfg.with_(conv_impl="lowered")),
+                                           params, {"tokens": prompt}, SERVE_PROMPT)
+            check(C.mec_conv1d.launches == 0, "the lowered path launched K5")
+            del cache
+            full, cache = serve_lib.prefill(model, params, {"tokens": prompt},
+                                            SERVE_PROMPT)
+            del cache
+            lowered_err[dname] = scaled_err(full, low)
+            del low
+            _, cache = serve_lib.prefill(model, params,
+                                         {"tokens": prompt[:, :DECODE_FROM]},
+                                         SERVE_PROMPT)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DECODE_FROM, SERVE_PROMPT):
+                logits, cache = serve_lib.decode_step(model, params, cache,
+                                                      prompt[:, i:i + 1])
+            torch.cuda.synchronize()
+            decode[dname] = {"err": scaled_err(logits, full),
+                             "seconds_per_step": (time.perf_counter() - t0)
+                             / (SERVE_PROMPT - DECODE_FROM)}
+            del cache, logits
+            if dname == "float32":
+                check(decode[dname]["err"] <= LOGITS_TOL,
+                      f"decode vs prefill at full width, f32: "
+                      f"{decode[dname]['err']} > {LOGITS_TOL}")
+                check(lowered_err[dname] <= LOGITS_TOL,
+                      f"fused vs lowered last-token logits, f32: "
+                      f"{lowered_err[dname]} > {LOGITS_TOL}")
+                del params, full
+                torch.cuda.empty_cache()
+                continue
+            same_err = scaled_err(full, fused_logits)
+            check(same_err <= LOGITS_TOL,
+                  f"serve and a prefill of the same prompt and weights: {same_err}")
+            p0 = lm_mod.tree_at(params["mamba"], (0, 0))
+            h = rms_norm(model.embed(params, prompt), params["mamba_norms"][0],
+                         cfg.norm_eps)
+            zxbcdt = linear(h, p0["in_proj"])
+            conv_x = zxbcdt[..., CONV_LO:CONV_HI]
+            conv_w = p0["conv_w"].to(conv_x.dtype)
+            y = C.mec_conv1d(conv_x, conv_w)
+            plain = C.mec_conv1d_plain(conv_x, conv_w)
+            k5_abs_err = (y.float() - plain.float()).abs().max().item()
+            check(scaled_err(y, plain) <= CONV1D_TOL["bfloat16"],
+                  f"K5 on layer 0's conv input: {scaled_err(y, plain)} vs plain")
+            y_low = mec_conv1d_depthwise(conv_x, conv_w)
+            tol = CONV1D_TOL["bfloat16"]
+            check(torch.allclose(y.double(), y_low.double(), rtol=tol, atol=tol),
+                  "K5 and the lowered conv1d differ on layer 0's conv input")
+            layer0 = {"k5_vs_plain_max_abs_err": k5_abs_err,
+                      "k5_vs_lowered_max_abs_err":
+                          (y.float() - y_low.float()).abs().max().item(),
+                      "k5_vs_lowered_elements_differing":
+                          int((y != y_low).sum().item()),
+                      "elements": y.numel()}
+            del y_low
+            # Memory: K5 allocates its output; the lowered conv1d L + output.
+            out_b = conv_x.numel() * conv_x.element_size()
+            low_b = out_b * cfg.conv_width
+            extra = {}
+            for name, fn in (("fused", lambda: C.mec_conv1d(conv_x, conv_w)),
+                             ("lowered",
+                              lambda: mec_conv1d_depthwise(conv_x, conv_w))):
+                del y
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                y = fn()
+                torch.cuda.synchronize()
+                extra[name] = torch.cuda.max_memory_allocated() - base
+            check(extra["fused"] == out_b,
+                  f"K5 allocated {extra['fused']} B, its output is {out_b} B")
+            check(low_b + out_b <= extra["lowered"] <= low_b + out_b + (2 << 20),
+                  f"lowered conv1d allocated {extra['lowered']} B, L + O is "
+                  f"{low_b + out_b} B")
+            del y, plain, zxbcdt, h, params, full
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "arch": SERVE_ARCH, "dtype": cfg.dtype,
+          "layers": {"mamba2": n_mamba, "shared_attention_applications":
+                     cfg.n_layers // cfg.attn_every},
+          "params": cfg.param_count(), "batch": SERVE_BATCH,
+          "prompt": SERVE_PROMPT, "generated": SERVE_GEN,
+          "launches": serve_counts, **serve_times,
+          "serve_seconds_total": serve_s,
+          "peak_allocated_bytes": serve_peak,
+          "fused_vs_lowered_logits_err": lowered_err,
+          "layer0_conv": layer0,
+          "decode_vs_prefill": decode, "serve_vs_prefill_err": same_err,
+          "memory": {"conv_out_bytes": out_b, "conv_l_bytes": low_b,
+                     "fused_extra_bytes": extra["fused"],
+                     "lowered_extra_bytes": extra["lowered"]}})
+
+    # 7. timing ------------------------------------------------------------
     def bound(flops, nbytes):
         t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
-    shapes = {n: {} for n in KERNEL_ROWS}
+    shapes = {n: {} for n in KERNEL_ROWS if n != "mec_conv1d"}
     pair = {}
     for name in RESNET101:
         geom = CV_LAYERS[name]
@@ -553,9 +863,41 @@ def main(argv=None) -> int:
                   **pair[(name, batch)]})
             del low
 
+    # K5 at the zamba2-7b conv input in bf16, a column slice of the in_proj
+    # output as the model passes it.  Library: cuDNN's depthwise conv1d on a
+    # contiguous (n, c, t) copy (the copy is not timed).
+    zx = torch.randn((SERVE_BATCH, SERVE_PROMPT, IN_PROJ), generator=gen,
+                     device=DEVICE, dtype=torch.bfloat16)
+    x = zx[..., CONV_LO:CONV_HI]
+    n, t, c = x.shape
+    kw = cfg.conv_width
+    k = torch.randn((kw, c), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    x_nct = x.permute(0, 2, 1).contiguous()
+    w_c1k = k.t().contiguous().unsqueeze(1)
+
+    def library_conv1d():
+        return F.conv1d(x_nct, w_c1k, groups=c, padding=kw - 1)
+
+    lib_y = library_conv1d()[..., :t].permute(0, 2, 1)
+    check(torch.allclose(lib_y.double(), C.mec_conv1d_plain(x, k).double(),
+                         rtol=CONV1D_TOL["bfloat16"], atol=CONV1D_TOL["bfloat16"]),
+          "cuDNN's depthwise conv1d does not compute K5's function")
+    k5_bound = bound(2 * kw * n * t * c, (2 * n * t * c + kw * c) * x.element_size())
+    k5 = {"shape": [n, t, c, kw], "dtype": "bfloat16", "input_row_stride": x.stride(1),
+          "ms": time_ms(lambda: C.mec_conv1d(x, k)),
+          "plain_ms": time_ms(lambda: C.mec_conv1d_plain(x, k)),
+          "library_ms": time_ms(library_conv1d),
+          "bound_ms": k5_bound[0], "bound_by": k5_bound[1]}
+    emit({"phase": "timing", "kernel": "mec_conv1d", **k5})
+    del zx, x, x_nct, lib_y
+
+    # 8. profile ------------------------------------------------------------
+    emit({"phase": "profile", **profile_serving(cfg, args.seed)})
+
     # Main-path totals: each kernel over the calls its path made at batch 16
     # (K1: the 34-conv stack; K2, K3: one call per Table-3 layer; K4: the
-    # 34-conv training stack).
+    # 34-conv training stack), K5 over the 81 calls of one zamba2-7b
+    # prefill.
     weights = {"mec_conv_fused": RESNET101,
                "mec_lower": {n: 1 for n in RESNET101},
                "mec_gemm": {n: 1 for n in RESNET101},
@@ -567,6 +909,18 @@ def main(argv=None) -> int:
     abs_err["mec_lower"] = 0.0       # checked bit-exact above
     rows = []
     for kname, (source, replaces) in KERNEL_ROWS.items():
+        if kname == "mec_conv1d":
+            calls = serve_counts["mec_conv1d"]
+            rows.append({
+                "name": kname, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": calls,
+                "max_abs_err": k5_abs_err, "ms": calls * k5["ms"],
+                "plain_ms": calls * k5["plain_ms"],
+                "bound_ms": calls * k5["bound_ms"], "bound_by": k5["bound_by"],
+                "library_ms": calls * k5["library_ms"],
+                "per_call": {f: k5[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                "library_ms")}})
+            continue
         recs = [(w, shapes[kname][(n, SLICE_BATCH)]) for n, w in weights[kname].items()]
 
         def total(field):

@@ -1,10 +1,14 @@
 """Carry the JAX package's parameters into the port.
 
-``params_from_jax`` takes a tree as ``jax.device_get`` returns it from
-``repro.models.layers.init_conv2d`` (nested dicts, lists or tuples of
-numpy arrays) and returns the same tree of torch tensors.  Layouts are the
-same in both packages (HWIO kernels), so nothing is transposed.  Only
-numpy is needed here, not jax.
+``params_from_jax`` takes a tree as ``jax.device_get`` returns it (nested
+dicts, lists or tuples of numpy arrays, such as the parameters of
+``repro.models.layers.init_conv2d`` or ``repro.models.lm.LM.init`` and
+the caches of ``repro.models.serve``) and returns the same tree of torch
+tensors.  Layer-stacked leaves stay stacked, 0-d arrays (a cache's int32
+``len``) become 0-d tensors of their dtype, and ``None`` leaves (a cache's
+``tail`` when the layers divide evenly) stay ``None``.  Layouts are the
+same in both packages (HWIO kernels, (in, out) linear weights), so
+nothing is transposed.  Only numpy is needed here, not jax.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ def _leaf(arr, device) -> torch.Tensor:
 def params_from_jax(tree, device="cuda"):
     """The same tree with every numpy leaf as a torch tensor on
     ``device``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

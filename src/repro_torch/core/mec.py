@@ -113,3 +113,63 @@ def vanilla_mec(inp: torch.Tensor, kernel: torch.Tensor,
     rows = [(l_mat[:, h * s_h * k_w:h * s_h * k_w + k_h * k_w]
              @ kernel_mat)[:, 0] for h in range(o_h)]
     return torch.stack(rows)  # (o_h, o_w)
+
+
+def mec_conv1d_shift(inp: torch.Tensor, kernel: torch.Tensor,
+                     causal: bool = True) -> torch.Tensor:
+    """Fused-dataflow depthwise conv1d: k_w shifted scaled adds, no lowered
+    tensor at all (what the fused conv1d kernel does on chip).
+
+    inp (n, t, c), kernel (k_w, c).  out[n, s, c] = sum_j xp[n, s + j, c] *
+    kernel[j, c], with xp the input left-padded by k_w - 1 zeros when
+    causal; summed in f32 over j = 0 .. k_w - 1 in that order, one cast to
+    the input dtype.  Without the causal pad the shifted slices are shorter
+    than t for k_w > 1, and the call raises, as the JAX function does.
+    """
+    n, t, c = inp.shape
+    k_w, kc = kernel.shape
+    if kc != c:
+        raise ValueError(f"kernel {tuple(kernel.shape)} does not match input "
+                         f"{tuple(inp.shape)}")
+    pad = k_w - 1 if causal else 0
+    xp = torch.nn.functional.pad(inp, (0, 0, pad, 0)) if pad else inp
+    if xp.shape[1] < t + k_w - 1:
+        raise ValueError(f"non-causal shift conv1d needs k_w = 1, got {k_w}")
+    acc = torch.zeros((n, t, c), dtype=torch.float32, device=inp.device)
+    for j in range(k_w):
+        acc = acc + xp[:, j:j + t, :].to(torch.float32) * kernel[j]
+    return acc.to(inp.dtype)
+
+
+def mec_conv1d_depthwise(inp: torch.Tensor, kernel: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """Depthwise conv1d via the MEC column-strip lowering.
+
+    inp (n, t, c), kernel (k_w, c).  In 1-D the compact L coincides with
+    im2col (Eq. 4 with i_h == k_h == 1); this form materializes it, as the
+    JAX function does: L holds n * t * k_w * c elements, built straight
+    from the input (no padded copy), with the k_w taps innermost so that
+    the contraction over them is one batched GEMM per channel over a view
+    of L.  L[n, s, :, j] is the input at step s - (k_w - 1) + j, zero
+    before step 0 when causal; without the causal pad, steps past the end
+    repeat the last one (the JAX gather clamps its indices).  The product
+    is the input dtype's GEMM (f32 accumulation), as the JAX einsum.
+    """
+    n, t, c = inp.shape
+    k_w, kc = kernel.shape
+    if kc != c:
+        raise ValueError(f"kernel {tuple(kernel.shape)} does not match input "
+                         f"{tuple(inp.shape)}")
+    low = torch.zeros((n, t, c, k_w), dtype=inp.dtype, device=inp.device)
+    for j in range(k_w):
+        if causal:
+            shift = k_w - 1 - j                 # L[:, s, :, j] = x[s - shift]
+            if shift < t:
+                low[:, shift:, :, j] = inp[:, :t - shift]
+        else:                                   # L[:, s, :, j] = x[min(s+j, t-1)]
+            low[:, :max(t - j, 0), :, j] = inp[:, j:]
+            low[:, max(t - j, 0):, :, j] = inp[:, t - 1:]
+    # (c, n*t, k_w) @ (c, k_w, 1): a view of L, no copy.
+    out = torch.bmm(low.permute(2, 0, 1, 3).reshape(c, n * t, k_w),
+                    kernel.to(inp.dtype).t().unsqueeze(-1))
+    return out.reshape(c, n, t).permute(1, 2, 0)

@@ -1,4 +1,4 @@
-"""Public entry point for the MEC CUDA kernels (counterpart of
+"""Public entry points for the MEC CUDA kernels (counterpart of
 ``repro.kernels.ops``) and the H100 block pickers."""
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import torch
 from repro_torch.core.convspec import normalize_stride
 from repro_torch.kernels.mec_conv import (mec_conv_fused, mec_conv_fused2,
                                           mec_gemm, mec_lower)
+from repro_torch.kernels.mec_conv1d import mec_conv1d
 
 #: H100 SXM: streaming multiprocessors
 N_SMS = 132
@@ -109,3 +110,9 @@ def mec_conv2d_cuda(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
         kernel_mat = kernel.to(inp.dtype).reshape(k_h, k_w * i_c, k_c)
         return mec_gemm(low, kernel_mat, k_h, s_h, w_blk=w_blk)
     raise ValueError(f"unknown mode {mode!r}")
+
+
+def mec_conv1d_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Fused causal depthwise conv1d (Mamba2 / xLSTM blocks): K5 on CUDA
+    tensors, its plain version on CPU tensors."""
+    return mec_conv1d(x, kernel)

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.direct import direct_conv2d
-from repro_torch.core.mec import mec_lower
+from repro_torch.core.mec import mec_conv1d_depthwise, mec_lower
 
 
 def conv2d_ref(inp: torch.Tensor, kernel: torch.Tensor,
@@ -20,6 +20,11 @@ def lower_ref(inp: torch.Tensor, k_w: int, s_w: int) -> torch.Tensor:
     low = mec_lower(inp, k_w, s_w)  # (n, o_w, i_h, k_w, i_c)
     n, o_w, i_h, kw, i_c = low.shape
     return low.reshape(n, o_w, i_h, kw * i_c)
+
+
+def conv1d_ref(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Oracle for mec_conv1d (causal depthwise)."""
+    return mec_conv1d_depthwise(x, kernel, causal=True)
 
 
 def conv2d_f64(inp: torch.Tensor, kernel: torch.Tensor,

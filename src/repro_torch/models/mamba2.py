@@ -1,0 +1,183 @@
+"""Mamba2 block (SSD, chunked) for the zamba2 hybrid architecture
+(counterpart of ``repro.models.mamba2``).
+
+Prefill uses the chunked state-space-duality form (a loop over sequence
+chunks, quadratic within a chunk, linear state hand-off across chunks).
+Decode is the O(1) recurrent update.  The depthwise causal conv1d is the
+MEC conv hot-spot: with ``cfg.conv_impl == "fused"`` it is the
+hand-written kernel K5 (``kernels.ops.mec_conv1d_cuda``) on CUDA tensors
+and its plain version on CPU tensors; otherwise the compact-L form
+(``core.mec.mec_conv1d_depthwise``), plain PyTorch as in the JAX package.
+Decode convolves its k_w-step history with a plain einsum, as the JAX
+package does; K5 runs in prefill only.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.mec import mec_conv1d_depthwise
+from repro_torch.kernels.ops import mec_conv1d_cuda
+from repro_torch.models.layers import (init_linear, init_normal, linear,
+                                       rms_norm)
+
+_F32 = torch.float32
+
+
+def conv1d(cfg, x, w):
+    """MEC conv1d with the configured dataflow: ``"fused"`` is the fused
+    kernel's shift-add dataflow (K5), anything else the lowered L."""
+    if cfg.conv_impl == "fused":
+        return mec_conv1d_cuda(x, w)
+    return mec_conv1d_depthwise(x, w)
+
+
+def _dims(cfg):
+    d_in = cfg.ssm_expand * cfg.d_model
+    n_heads = d_in // cfg.ssm_head_dim
+    return d_in, n_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def init_mamba(generator: torch.Generator, cfg, dtype, device="cuda") -> dict:
+    d = cfg.d_model
+    d_in, h, _, n = _dims(cfg)
+    conv_ch = d_in + 2 * n
+    kw = {"dtype": _F32, "device": device}
+    return {
+        # order: [z (d_in), xBC (d_in + 2n), dt (h)]
+        "in_proj": init_linear(generator, d, 2 * d_in + 2 * n + h, dtype,
+                               device=device),
+        "conv_w": init_normal(generator, (cfg.conv_width, conv_ch), 0.2,
+                              dtype, device),
+        "a_log": torch.zeros((h,), **kw),
+        "d_skip": torch.ones((h,), **kw),
+        "dt_bias": torch.full((h,), -2.0, **kw),
+        "norm": torch.ones((d_in,), dtype=dtype, device=device),
+        "out_proj": init_linear(generator, d_in, d, dtype, device=device),
+    }
+
+
+def _split_proj(zxbcdt, cfg):
+    d_in, _, _, n = _dims(cfg)
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:2 * d_in + 2 * n]
+    dt = zxbcdt[..., 2 * d_in + 2 * n:]
+    return z, xbc, dt
+
+
+def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = 128):
+    """Chunked SSD scan.
+
+    x: (B, S, H, P); dt: (B, S, H) (post-softplus); a: (H,) negative;
+    b_mat/c_mat: (B, S, N) (single group, broadcast over heads).
+    Returns y (B, S, H, P) f32 and final state (B, H, P, N).
+
+    The JAX package's four-operand einsum "bln,bsn,blsh,bshp->blhp" is
+    contracted C.B first, then the decay, then x.dt, so nothing of size
+    (B, c, c, H, P) is formed.
+    """
+    bsz, s, h, p_dim = x.shape
+    n = b_mat.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"SSD chunk {chunk}")
+    nc = s // chunk
+    xc, dtc, bc, cc = (t.to(_F32).reshape(bsz, nc, chunk, *t.shape[2:])
+                       for t in (x, dt, b_mat, c_mat))
+    da = dtc * a.to(_F32)[None, None, None, :]             # (B, nc, c, H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    state = torch.zeros((bsz, h, p_dim, n), dtype=_F32, device=x.device)
+    ys = []
+    for i in range(nc):
+        x_k, dt_k, da_k, b_k, c_k = (xc[:, i], dtc[:, i], da[:, i], bc[:, i],
+                                     cc[:, i])
+        cs = torch.cumsum(da_k, dim=1)                      # (B, c, H)
+        # intra-chunk causal decay L[i,j] = exp(cs_i - cs_j), j <= i
+        li = cs[:, :, None, :] - cs[:, None, :, :]          # (B, c, c, H)
+        decay = torch.where(tri[None, :, :, None], torch.exp(li), 0.0)
+        xdt = x_k * dt_k[..., None]                         # discrete input
+        cb = torch.einsum("bln,bsn->bls", c_k, b_k)
+        y_diag = torch.einsum("blsh,bshp->blhp", cb[..., None] * decay, xdt)
+        # contribution of the incoming state
+        g = torch.exp(cs)                                   # decay from chunk start
+        y_off = torch.einsum("bln,bhpn->blhp", c_k, state) * g[..., None]
+        # state update
+        tail = torch.exp(cs[:, -1:, :] - cs)                # decay to chunk end
+        state = (state * torch.exp(cs[:, -1, :])[..., None, None]
+                 + torch.einsum("bshp,bsn->bhpn", xdt * tail[..., None], b_k))
+        ys.append(y_diag + y_off)
+    y = torch.stack(ys, dim=1).reshape(bsz, s, h, p_dim)
+    return y, state
+
+
+def mamba_core(p: dict, cfg, x: torch.Tensor, chunk: int = 128):
+    """Full-sequence Mamba2 block. x (B, S, d) -> (out (B,S,d), cache)."""
+    d_in, h, p_dim, n = _dims(cfg)
+    zxbcdt = linear(x, p["in_proj"])
+    z, xbc_raw, dt = _split_proj(zxbcdt, cfg)
+    # xbc_raw is a column slice of zxbcdt: K5 reads it through its strides
+    xbc = conv1d(cfg, xbc_raw, p["conv_w"].to(xbc_raw.dtype))
+    xbc = F.silu(xbc.to(_F32)).to(x.dtype)
+    xs = xbc[..., :d_in].reshape(*x.shape[:2], h, p_dim)
+    b_mat = xbc[..., d_in:d_in + n]
+    c_mat = xbc[..., d_in + n:]
+    dt = F.softplus(dt.to(_F32) + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    y, state = ssd_chunked(xs.to(_F32), dt, a, b_mat.to(_F32),
+                           c_mat.to(_F32), chunk=chunk)
+    y = y + xs.to(_F32) * p["d_skip"][None, None, :, None]
+    y = y.reshape(*x.shape[:2], d_in).to(x.dtype)
+    y = rms_norm(y * F.silu(z.to(_F32)).to(x.dtype), p["norm"], cfg.norm_eps)
+    # a copy, so the cache does not hold zxbcdt alive
+    cache = {"state": state,
+             "conv": xbc_raw[:, x.shape[1] - (cfg.conv_width - 1):, :].clone(
+                 memory_format=torch.contiguous_format)}
+    return linear(y, p["out_proj"]), cache
+
+
+def mamba_forward(p: dict, cfg, x: torch.Tensor,
+                  chunk: int = 128) -> torch.Tensor:
+    return mamba_core(p, cfg, x, chunk)[0]
+
+
+def init_mamba_cache(cfg, batch: int, dtype, device="cuda") -> dict:
+    d_in, h, p_dim, n = _dims(cfg)
+    conv_ch = d_in + 2 * n
+    return {
+        "state": torch.zeros((batch, h, p_dim, n), dtype=_F32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
+                            device=device),
+    }
+
+
+def mamba_decode(p: dict, cfg, x: torch.Tensor, cache: dict
+                 ) -> Tuple[torch.Tensor, dict]:
+    """One-token recurrent step. x (B, 1, d).  Returns new cache tensors;
+    the given cache is not written."""
+    d_in, h, p_dim, n = _dims(cfg)
+    zxbcdt = linear(x, p["in_proj"])
+    z, xbc, dt = _split_proj(zxbcdt[:, 0], cfg)
+    # depthwise conv over (k_w-1 history, current)
+    hist = torch.cat([cache["conv"], xbc[:, None, :].to(cache["conv"].dtype)],
+                     dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", hist.to(_F32), p["conv_w"].to(_F32))
+    xbc_c = F.silu(conv_out)
+    xs = xbc_c[..., :d_in].reshape(-1, h, p_dim)
+    b_vec = xbc_c[..., d_in:d_in + n]
+    c_vec = xbc_c[..., d_in + n:]
+    dt = F.softplus(dt.to(_F32) + p["dt_bias"])                  # (B, H)
+    a = -torch.exp(p["a_log"])
+    da = torch.exp(dt * a[None, :])                              # (B, H)
+    state = (cache["state"] * da[..., None, None]
+             + torch.einsum("bh,bhp,bn->bhpn", dt, xs, b_vec))
+    y = torch.einsum("bhpn,bn->bhp", state, c_vec)
+    y = y + xs * p["d_skip"][None, :, None]
+    y = y.reshape(-1, 1, d_in).to(x.dtype)
+    y = rms_norm(y * F.silu(z.to(_F32)).to(x.dtype)[:, None, :], p["norm"],
+                 cfg.norm_eps)
+    new_cache = {"state": state, "conv": hist[:, 1:, :]}
+    return linear(y, p["out_proj"]), new_cache

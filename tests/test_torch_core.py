@@ -281,20 +281,34 @@ def test_params_from_jax(dtype):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_no_jax_and_no_repro():
+    """Import every module of the port, found by walking its packages
+    (every directory of the port has an ``__init__.py``, so the walk
+    reaches them all), and find no jax and no ``repro`` loaded."""
     code = (
         "import sys, pkgutil, importlib, repro_torch\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "import repro_torch.launch.costmodel, repro_torch.models.layers\n"
+        "walked = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in walked:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+        "print('\\n'.join(walked))\n")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    walked = set(out.stdout.split())
+    src = REPO / "src"
+    modules = {".".join(p.relative_to(src).with_suffix("").parts)
+               for p in (src / "repro_torch").rglob("*.py")}
+    modules = {m[:-len(".__init__")] if m.endswith(".__init__") else m
+               for m in modules} - {"repro_torch"}
+    assert modules <= walked, sorted(modules - walked)
+    assert {"repro_torch.launch.costmodel", "repro_torch.launch.serve",
+            "repro_torch.models.layers", "repro_torch.models.serve",
+            "repro_torch.configs.archs", "repro_torch.kernels.mec_conv1d"} \
+        <= walked
 
 
 def test_port_sources_never_import_jax_or_repro():

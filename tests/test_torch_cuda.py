@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and its conv2d on the card.
+"""The port's CUDA kernels, its conv2d and its serving path on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA card: the
 kernels have no CPU mode (on the CPU the wrappers run their plain
@@ -16,7 +16,11 @@ each side is held to the budget on its own; K2 is data movement and must
 match exactly.  The plain versions run on the card too, with TF32 off.
 Gradients through ``conv2d`` on the card are held to the contract's grad
 tolerance (``numerics.grad_tolerance``) against f64 autograd through
-``F.conv2d``.
+``F.conv2d``.  K5 (the conv1d) sums in the plain version's order with the
+same roundings, so it must equal its plain version to the bit; against the
+f64 oracle it is held to ``tests/test_kernels.py``'s tolerance (2e-4 in
+f32, 4e-2 below, rtol and atol).  The smoke-size zamba2 served on the card
+is held to the same served on the CPU at 1e-4, scale-normalized, in f32.
 """
 import numpy as np
 import pytest
@@ -26,7 +30,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import conv2d                  # noqa: E402
 from repro_torch.core.numerics import fwd_tolerance, grad_tolerance  # noqa: E402
 from repro_torch.kernels import mec_conv as K        # noqa: E402
+from repro_torch.configs.archs import smoke_config  # noqa: E402
+from repro_torch.kernels import mec_conv1d as C      # noqa: E402
 from repro_torch.kernels import ops, ref             # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import lm, serve             # noqa: E402
+from repro_torch.models.layers import f32_accumulation  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -249,3 +258,118 @@ def test_mixed_devices_raise(cuda):
         conv2d(x, k.cpu())
     with pytest.raises(ValueError, match="different devices"):
         ops.mec_conv2d_cuda(x.cpu(), k)
+
+
+# ---------------------------------------------------------------------------
+# K5: causal depthwise conv1d
+# ---------------------------------------------------------------------------
+
+# (t, c, k_w): tests/test_kernels.py's cases, fault F2's k_w = 1, a time
+# tile that does not divide t, channels off the 128-thread CTA, and the
+# widest instantiated kernel.
+CONV1D_CASES = [(10, 5, 4), (1024, 256, 4), (33, 7, 3), (512, 64, 2),
+                (5, 3, 4), (10, 5, 1), (1024, 8, 1), (100, 130, 8),
+                (65, 300, 6)]
+CONV1D_TOL = {"float32": 2e-4, "bfloat16": 4e-2, "float16": 4e-2}
+
+
+def _conv1d_operands(t, c, k_w, dtype, device, batch=2):
+    rng = np.random.RandomState(t + 7 * c + 31 * k_w)
+    x = rng.randn(batch, t, c).astype(np.float32)
+    k = rng.randn(k_w, c).astype(np.float32)
+    return (torch.from_numpy(x).to(device, DTYPES[dtype]),
+            torch.from_numpy(k).to(device, DTYPES[dtype]))
+
+
+def _within(y, oracle, tol) -> bool:
+    return torch.allclose(y.double(), oracle, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,c,k_w", CONV1D_CASES)
+def test_conv1d_kernel_matches_plain(cuda, t, c, k_w, dtype):
+    x, k = _conv1d_operands(t, c, k_w, dtype, cuda)
+    before = C.mec_conv1d.launches
+    y = C.mec_conv1d(x, k)
+    torch.cuda.synchronize()
+    assert C.mec_conv1d.launches == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape and y.is_contiguous()
+    assert torch.equal(y, C.mec_conv1d_plain(x, k))
+    assert _within(y, ref.conv1d_ref(x.double(), k.double()), CONV1D_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_conv1d_kernel_at_the_zamba2_shape_on_a_column_slice(cuda, dtype):
+    """(4, 512, 7296, k_w = 4): the conv input of every zamba2-7b Mamba2
+    layer, columns 7168 .. 14463 of its 14576-wide in_proj output."""
+    g = torch.Generator(cuda).manual_seed(5)
+    zxbcdt = torch.randn((4, 512, 14576), generator=g, device=cuda).to(DTYPES[dtype])
+    x = zxbcdt[..., 7168:14464]
+    k = torch.randn((4, 7296), generator=g, device=cuda).to(DTYPES[dtype])
+    y = C.mec_conv1d(x, k)
+    assert torch.equal(y, C.mec_conv1d_plain(x.contiguous(), k))
+
+
+def test_conv1d_kernel_refuses_what_it_does_not_take(cuda):
+    x, k = _conv1d_operands(10, 5, 4, "float32", cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        C.mec_conv1d(x, k.cpu())
+    with pytest.raises(ValueError, match="k_w <= 8"):
+        C.mec_conv1d(x, torch.zeros((9, 5), device=cuda))
+    with pytest.raises(TypeError):
+        C.mec_conv1d(x.double(), k.double())
+
+
+# ---------------------------------------------------------------------------
+# serving on the card
+# ---------------------------------------------------------------------------
+
+def _to(tree, device):
+    return lm.tree_map(lambda t: t.to(device), tree)
+
+
+def _scaled(a, b) -> float:
+    return ((a.double().cpu() - b.double().cpu()).abs().max()
+            / b.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("conv_impl", ["fused", "lowered"])
+def test_smoke_serving_on_the_card_matches_the_cpu(cuda, conv_impl):
+    """smoke_config("zamba2-7b") in f32: a 16-token prefill and 4 decode
+    steps on the card against the same on the CPU; the fused conv launches
+    K5 once per Mamba2 layer of the prefill and never in decode."""
+    cfg = smoke_config("zamba2-7b").with_(conv_impl=conv_impl)
+    model = lm.LM(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    logits = {}
+    with f32_accumulation():
+        for device in ("cpu", cuda):
+            p = _to(params, device)
+            C.mec_conv1d.launches = 0
+            out, cache = serve.prefill(model, p, {"tokens": toks[:, :16].to(device)}, 24)
+            prefill_launches = C.mec_conv1d.launches
+            steps = [out]
+            for i in range(4):
+                out, cache = serve.decode_step(model, p, cache,
+                                               toks[:, 16 + i:17 + i].to(device))
+                steps.append(out)
+            torch.cuda.synchronize()
+            logits[str(device)] = steps
+            if device != "cpu":
+                assert prefill_launches == (cfg.n_layers if conv_impl == "fused" else 0)
+                assert C.mec_conv1d.launches == prefill_launches
+    for got, want in zip(logits["cuda"], logits["cpu"]):
+        assert got.device.type == "cuda" and _scaled(got, want) <= 1e-4
+
+
+def test_serve_on_the_card_launches_k5_per_mamba_layer(cuda):
+    cfg = smoke_config("zamba2-7b").with_(conv_impl="fused")
+    C.mec_conv1d.launches = 0
+    K.reset_launch_counts()
+    res = launch_serve.serve(cfg, batch=2, prompt_len=16, gen=5, device=cuda)
+    assert C.mec_conv1d.launches == cfg.n_layers
+    assert K.launch_counts() == NO_LAUNCHES
+    assert res["tokens"].shape == (2, 5) and res["tokens"].device.type == "cuda"
+    assert bool(torch.isfinite(res["prefill_logits"]).all())

@@ -1,6 +1,13 @@
 """The port's CUDA kernel wrappers against the JAX package's Pallas
 kernels.
 
+K5 (the causal depthwise conv1d): its wrapper on CPU tensors (the plain
+version) against ``mec_conv1d_pallas`` in interpret mode
+(``repro.kernels.ops.mec_conv1d_tpu``) on the cases of
+``tests/test_kernels.py``, with that test's tolerance (2e-4 in f32, 4e-2
+below, rtol and atol); at k_w = 1, where the TPU kernel is wrong (fault
+F2), against the JAX oracle ``repro.kernels.ref.conv1d_ref`` instead.
+
 On the CPU each wrapper runs its kernel's plain PyTorch version; these
 tests hold those versions against ``mec_conv_fused_pallas`` (K1),
 ``mec_lower_pallas`` (K2), ``mec_gemm_pallas`` (K3) and
@@ -28,12 +35,15 @@ from repro.bench.scenarios import CV_LAYERS          # noqa: E402
 from repro.kernels.mec_conv import (mec_conv_fused2_pallas,  # noqa: E402
                                     mec_conv_fused_pallas, mec_gemm_pallas,
                                     mec_lower_pallas)
+from repro.kernels.ops import mec_conv1d_tpu         # noqa: E402
+from repro.kernels.ref import conv1d_ref as j_conv1d_ref  # noqa: E402
 from repro.kernels.ref import conv2d_ref as j_conv2d_ref  # noqa: E402
 from repro.kernels.ref import lower_ref as j_lower_ref  # noqa: E402
 
 from repro_torch.core.numerics import fwd_tolerance  # noqa: E402
 from repro_torch.kernels import build, ops, ref      # noqa: E402
 from repro_torch.kernels import mec_conv as K        # noqa: E402
+from repro_torch.kernels import mec_conv1d as C      # noqa: E402
 
 SWEEP = [
     # (ih, iw, ic, kh, kw, kc, stride), as tests/test_kernels.py SWEEP
@@ -261,7 +271,7 @@ def test_pick_oh_blk_fills_narrow_layers():
 
 
 def test_build_names_sources_and_hashes_them():
-    assert build.sources() == ["mec_conv"]
+    assert build.sources() == ["mec_conv", "mec_conv1d"]
     path = build.library_path("mec_conv")
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libmec_conv-") and path.suffix == ".so"
@@ -269,3 +279,95 @@ def test_build_names_sources_and_hashes_them():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     with pytest.raises(FileNotFoundError):
         build.library_path("nope")
+
+
+# ---------------------------------------------------------------------------
+# K5: causal depthwise conv1d
+# ---------------------------------------------------------------------------
+
+# (t, c, k_w), as tests/test_kernels.py test_mec_conv1d_kernel
+CONV1D_CASES = [(10, 5, 4), (1024, 256, 4), (33, 7, 3), (512, 64, 2),
+                (5, 3, 4)]
+CONV1D_TOL = {"float32": 2e-4, "bfloat16": 4e-2, "float16": 4e-2}
+
+
+def _conv1d_operands(t, c, k_w, dtype, batch=2):
+    """Seeded numpy x (batch, t, c) and kernel (k_w, c) as (jax, torch)
+    pairs of ``dtype``."""
+    rng = np.random.RandomState(t + 7 * c + 31 * k_w)
+    x = rng.randn(batch, t, c).astype(np.float32)
+    k = rng.randn(k_w, c).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return (jnp.asarray(x, jd), jnp.asarray(k, jd),
+            torch.from_numpy(x).to(td), torch.from_numpy(k).to(td))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,c,k_w", CONV1D_CASES)
+def test_conv1d_plain_matches_pallas(t, c, k_w, dtype):
+    jx, jk, tx, tk = _conv1d_operands(t, c, k_w, dtype)
+    j_out = mec_conv1d_tpu(jx, jk, interpret=True)
+    t_out = ops.mec_conv1d_cuda(tx, tk)
+    assert t_out.dtype == tx.dtype and tuple(t_out.shape) == j_out.shape
+    tol = CONV1D_TOL[dtype]
+    np.testing.assert_allclose(t_out.to(torch.float32).numpy(),
+                               np.asarray(j_out, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("t,c", [(10, 5), (1024, 8)])
+def test_conv1d_plain_at_kw1_matches_oracle_fault_f2(t, c):
+    """At k_w = 1 the TPU kernel returns the previous time block times k
+    (fault F2); the port's conv1d matches the JAX oracle there."""
+    jx, jk, tx, tk = _conv1d_operands(t, c, 1, "float32")
+    np.testing.assert_allclose(ops.mec_conv1d_cuda(tx, tk).numpy(),
+                               np.asarray(j_conv1d_ref(jx, jk)), rtol=2e-4,
+                               atol=2e-4)
+    assert torch.equal(ops.mec_conv1d_cuda(tx, tk), tx * tk[0])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_conv1d_takes_a_strided_input(dtype):
+    """A column slice of a wider row, as the Mamba2 block passes it, and a
+    time-strided view, give the result of the contiguous input."""
+    jx, jk, tx, tk = _conv1d_operands(33, 21, 4, dtype)
+    strided = torch.cat([tx[..., :3], tx, tx[..., :5]], dim=-1)[..., 3:24]
+    assert strided.stride() == (33 * 29, 29, 1) and torch.equal(strided, tx)
+    assert torch.equal(C.mec_conv1d(strided, tk), C.mec_conv1d_plain(tx, tk))
+    every_other = tx[:, ::2]
+    assert torch.equal(C.mec_conv1d(every_other, tk),
+                       C.mec_conv1d_plain(every_other.contiguous(), tk))
+    np.testing.assert_allclose(
+        C.mec_conv1d(strided, tk).to(torch.float32).numpy(),
+        np.asarray(mec_conv1d_tpu(jx, jk, interpret=True), np.float32),
+        rtol=CONV1D_TOL[dtype], atol=CONV1D_TOL[dtype])
+
+
+def test_conv1d_plain_against_f64_oracle():
+    _, _, tx, tk = _conv1d_operands(1024, 256, 4, "float32")
+    oracle = ref.conv1d_ref(tx.double(), tk.double())
+    assert ref.scaled_error(C.mec_conv1d_plain(tx, tk), oracle) <= 1e-6
+    assert ref.scaled_error(ref.conv1d_ref(tx, tk), oracle) <= 1e-6
+
+
+def test_conv1d_wrapper_refuses_bad_operands():
+    x, k = torch.zeros((1, 8, 4)), torch.zeros((3, 4))
+    with pytest.raises(ValueError, match="cuda"):
+        C.mec_conv1d(x.to("meta"), k.to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        C.mec_conv1d(x, k.to("meta"))
+    for dtype in (torch.float64, torch.int32):
+        with pytest.raises(TypeError, match="float32/bfloat16/float16"):
+            C.mec_conv1d(x.to(dtype), k.to(dtype))
+    with pytest.raises(ValueError, match="k_w, c"):
+        C.mec_conv1d(x, torch.zeros((3, 5)))
+    with pytest.raises(ValueError, match="empty"):
+        C.mec_conv1d(torch.zeros((1, 0, 4)), k)
+
+
+def test_conv1d_cpu_path_launches_no_kernel():
+    C.mec_conv1d.launches = 0
+    _, _, tx, tk = _conv1d_operands(33, 7, 3, "bfloat16")
+    ops.mec_conv1d_cuda(tx, tk)
+    C.mec_conv1d(tx[:, ::2], tk)
+    assert C.mec_conv1d.launches == 0
