@@ -53,7 +53,14 @@ the script exits non-zero without its last line:
 7. timing  - each conv2d kernel at each Table-3 layer, batch 1 and 16, and
              K5 at the zamba2-7b shape, with CUDA events (median of 15
              after 3 warm-up calls), beside its plain version, one library
-             call and its bound.
+             call and its bound.  K1's and K4's bound is that of their
+             own arithmetic on the tensor cores (three TF32 products a
+             multiply-add), with the CUDA cores' f32 bound beside it; they
+             also get the launch configuration they ran (tile, reduction
+             path, chunk, cluster split), a check that two runs give
+             equal bits, and, at batch 16, their bf16 time beside cuDNN's
+             in bf16, each output first checked against the f64 oracle
+             and the plain version.
 8. profile - one zamba2-7b prefill and four decode steps traced with
              ``torch.profiler``: device time by kernel, launches, and the
              device's busy share of the host-clock window.
@@ -139,14 +146,18 @@ TIMING_BATCHES = (1, 16)
 WARMUP, ITERS = 3, 15
 DEVICE = "cuda"
 
-# Data-sheet peaks by card name (dense f32 on the CUDA cores, device memory
-# bandwidth); the first substring that matches wins.
+# Data-sheet peaks by card name: dense f32 on the CUDA cores, device memory
+# bandwidth, and the dense tensor-core rates in TF32 and bf16/f16 (without
+# sparsity); the first substring that matches wins.
 PEAKS = (
-    ("H100 PCIe", 51e12, 2.0e12, "H100 PCIe data sheet"),
-    ("H100 NVL", 60e12, 3.9e12, "H100 NVL data sheet"),
-    ("H200", 67e12, 4.8e12, "H200 SXM data sheet"),
-    ("H100", 67e12, 3.35e12, "H100 SXM data sheet"),
+    ("H100 PCIe", 51e12, 2.0e12, 378e12, 756e12, "H100 PCIe data sheet"),
+    ("H100 NVL", 60e12, 3.9e12, 417.5e12, 835.5e12, "H100 NVL data sheet"),
+    ("H200", 67e12, 4.8e12, 495e12, 989e12, "H200 SXM data sheet"),
+    ("H100", 67e12, 3.35e12, 495e12, 989e12, "H100 SXM data sheet"),
 )
+# K1 and K4 multiply f32 operands as three TF32 products (hi*hi + hi*lo +
+# lo*hi) and bf16/f16 operands as one: their own arithmetic's bound.
+TF32_PRODUCTS = 3
 
 KERNEL_ROWS = {
     # wrapper name -> (source, the TPU kernel it replaces)
@@ -173,9 +184,9 @@ def check(ok: bool, what: str) -> None:
 
 
 def peaks_for(name: str):
-    for tag, flops, bw, label in PEAKS:
+    for tag, flops, bw, tf32, bf16, label in PEAKS:
         if tag in name:
-            return flops, bw, label
+            return flops, bw, tf32, bf16, label
     raise RuntimeError(f"no data-sheet peak for card {name!r}; add it to PEAKS")
 
 
@@ -330,12 +341,13 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw, peak_label = peaks_for(kind)
+    peak_flops, peak_bw, peak_tf32, peak_bf16, peak_label = peaks_for(kind)
     print(smi, flush=True)
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "peak_f32_flops": peak_flops,
-          "peak_bytes_per_s": peak_bw, "peak_source": peak_label})
+          "peak_bytes_per_s": peak_bw, "peak_tf32_flops": peak_tf32,
+          "peak_bf16_flops": peak_bf16, "peak_source": peak_label})
     # The plain versions and the oracle use cuBLAS/cuDNN: keep f32 IEEE.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -356,7 +368,8 @@ def main(argv=None) -> int:
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import lm as lm_mod, serve as serve_lib
     from repro_torch.models.layers import f32_accumulation, linear, rms_norm
-    from repro_torch.kernels.ops import mec_conv2d_cuda, pick_oh_blk, pick_w_blk
+    from repro_torch.kernels.ops import (mec_conv2d_cuda, pick_fused_w_blk,
+                                         pick_oh_blk, pick_w_blk)
     from repro_torch.models.layers import init_conv2d
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -394,13 +407,14 @@ def main(argv=None) -> int:
             tol = fwd_tolerance("mec_fused", dname, kh * kw * geom[2])
             oracle = ref.conv2d_f64(x, k, (s_h, s_w))
             w_blk = pick_w_blk(spec.o_w, kc, batch, spec.o_h)
-            oh_blk = pick_oh_blk(spec.o_h, spec.o_w, w_blk, kc, batch)
-            tile = K.fused2_tile(oh_blk, w_blk, kh, kw, s_h, s_w)
-            check(tile == (oh_blk, w_blk),
+            f_blk = pick_fused_w_blk(spec.o_w, kc, batch, spec.o_h)
+            oh_blk = pick_oh_blk(spec.o_h, spec.o_w, f_blk, kc, batch)
+            tile = K.fused2_tile(oh_blk, f_blk, kh, kw, s_h, s_w)
+            check(tile == (oh_blk, f_blk),
                   f"K4 {name}: launcher's sub-tile {tile} is not the picked "
-                  f"block {(oh_blk, w_blk)}")
-            y1 = K.mec_conv_fused(x, k, (s_h, s_w), w_blk=w_blk)
-            y4 = K.mec_conv_fused2(x, k, (s_h, s_w), w_blk=w_blk, oh_blk=oh_blk)
+                  f"block {(oh_blk, f_blk)}")
+            y1 = K.mec_conv_fused(x, k, (s_h, s_w), w_blk=f_blk)
+            y4 = K.mec_conv_fused2(x, k, (s_h, s_w), w_blk=f_blk, oh_blk=oh_blk)
             low = K.mec_lower(x, kw, s_w)
             kmat = k.reshape(kh, kw * geom[2], kc)
             y3 = K.mec_gemm(low, kmat, kh, s_h, w_blk=w_blk)
@@ -614,7 +628,7 @@ def main(argv=None) -> int:
         check(tuple(y.shape) == spec.out_shape and wg.grad is not None
               and bool(torch.isfinite(wg.grad).all()),
               f"mec_fused2 stack {name}: output or kernel gradient")
-        w_blk = pick_w_blk(spec.o_w, spec.k_c, spec.i_n, spec.o_h)
+        w_blk = pick_fused_w_blk(spec.o_w, spec.k_c, spec.i_n, spec.o_h)
         plain = K.mec_conv_fused2_plain(
             x, w, s, pick_oh_blk(spec.o_h, spec.o_w, w_blk, spec.k_c, spec.i_n))
         tol = fwd_tolerance("mec_fused2", "float32", spec.k_h * spec.k_w * spec.i_c)
@@ -791,11 +805,19 @@ def main(argv=None) -> int:
                      "lowered_extra_bytes": extra["lowered"]}})
 
     # 7. timing ------------------------------------------------------------
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
+    def bound(flops, nbytes, peak=None):
+        t_ops, t_bytes = flops / (peak or peak_flops), nbytes / peak_bw
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
+    def mma_bound(flops, nbytes, dtype):
+        """K1/K4's bound: their arithmetic on the tensor cores, three TF32
+        products a multiply-add for f32, one bf16 product for bf16."""
+        if dtype == torch.float32:
+            return bound(TF32_PRODUCTS * flops, nbytes, peak_tf32)
+        return bound(flops, nbytes, peak_bf16)
+
     shapes = {n: {} for n in KERNEL_ROWS if n != "mec_conv1d"}
+    shapes_bf16 = {"mec_conv_fused": {}, "mec_conv_fused2": {}}
     pair = {}
     for name in RESNET101:
         geom = CV_LAYERS[name]
@@ -805,7 +827,8 @@ def main(argv=None) -> int:
             x, k = make_operands(gen, batch, geom, torch.float32)
             spec = spec_of(x, k, (s_h, s_w))
             w_blk = pick_w_blk(spec.o_w, kc, batch, spec.o_h)
-            oh_blk = pick_oh_blk(spec.o_h, spec.o_w, w_blk, kc, batch)
+            f_blk = pick_fused_w_blk(spec.o_w, kc, batch, spec.o_h)
+            oh_blk = pick_oh_blk(spec.o_h, spec.o_w, f_blk, kc, batch)
             kmat = k.reshape(kh, kw * ic, kc)
             low = K.mec_lower(x, kw, s_w)
             k_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -823,7 +846,7 @@ def main(argv=None) -> int:
             lib_conv_ms = time_ms(library_conv)
             cases = {
                 "mec_conv_fused": (
-                    lambda: K.mec_conv_fused(x, k, (s_h, s_w), w_blk=w_blk),
+                    lambda: K.mec_conv_fused(x, k, (s_h, s_w), w_blk=f_blk),
                     lambda: K.mec_conv_fused_plain(x, k, (s_h, s_w)),
                     lib_conv_ms, bound(flops, (n_in + n_k + n_out) * es)),
                 "mec_lower": (
@@ -837,7 +860,7 @@ def main(argv=None) -> int:
                     time_ms(lambda: torch.matmul(window_view(low, kh, s_h), k_2d)),
                     bound(flops, (n_low + n_k + n_out) * es)),
                 "mec_conv_fused2": (
-                    lambda: K.mec_conv_fused2(x, k, (s_h, s_w), w_blk=w_blk,
+                    lambda: K.mec_conv_fused2(x, k, (s_h, s_w), w_blk=f_blk,
                                               oh_blk=oh_blk),
                     lambda: K.mec_conv_fused2_plain(x, k, (s_h, s_w), oh_blk),
                     lib_conv_ms, bound(flops, (n_in + n_k + n_out) * es)),
@@ -845,15 +868,77 @@ def main(argv=None) -> int:
             # K4's own traffic: I once plus the halo rows that consecutive
             # h-blocks both read, beside K and O.  The bound counts I once.
             halo = max(0, kh - s_h) / (oh_blk * s_h)
+            fused = {"mec_conv_fused": 1, "mec_conv_fused2": 4}
             for kname, (fn, plain_fn, lib_ms, (b_ms, b_by)) in cases.items():
-                rec = {"layer": name, "batch": batch, "w_blk": w_blk,
+                rec = {"layer": name, "batch": batch,
+                       "w_blk": f_blk if kname in fused else w_blk,
                        "ms": time_ms(fn), "plain_ms": time_ms(plain_fn),
                        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+                if kname in fused:
+                    # bound_ms is the tensor cores'; the CUDA cores' f32 one
+                    # beside it
+                    m_ms, m_by = mma_bound(flops, (n_in + n_k + n_out) * es,
+                                           torch.float32)
+                    rec.update(bound_ms=m_ms, bound_by=m_by,
+                               cuda_core_bound_ms=b_ms, config=K.fused_config(fused[kname], x.dtype, x.shape,
+                                                     k.shape, (s_h, s_w), f_blk,
+                                                     oh_blk))
+                    # deterministic: the cluster's partial sums add in rank order
+                    check(torch.equal(fn(), fn()),
+                          f"{kname} {name} batch {batch}: two runs differ")
                 if kname == "mec_conv_fused2":
                     rec["oh_blk"] = oh_blk
                     rec["design_bytes"] = (n_in * (1 + halo) + n_k + n_out) * es
                 shapes[kname][(name, batch)] = rec
                 emit({"phase": "timing", "kernel": kname, **rec})
+            if batch == SLICE_BATCH:
+                # K1 and K4 in bf16 beside cuDNN in bf16 (kernel and library
+                # only; the plain version is no yardstick)
+                xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
+                xb_nchw = xb.permute(0, 3, 1, 2)
+                kb_oihw = kb.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                lib_bf16_ms = time_ms(lambda: F.conv2d(xb_nchw, kb_oihw,
+                                                       stride=(s_h, s_w)))
+                b_ms, b_by = mma_bound(flops, (n_in + n_k + n_out) * 2,
+                                       torch.bfloat16)
+                # checked before they are timed: at batch 16 the pickers
+                # choose other tiles and splits than the kernels phase saw
+                tol_b = fwd_tolerance("mec_fused", "bfloat16", kh * kw * ic)
+                oracle_b = ref.conv2d_f64(xb, kb, (s_h, s_w))
+                for kname, fn, plain_fn in (
+                        ("mec_conv_fused",
+                         lambda: K.mec_conv_fused(xb, kb, (s_h, s_w), w_blk=f_blk),
+                         lambda: K.mec_conv_fused_plain(xb, kb, (s_h, s_w))),
+                        ("mec_conv_fused2",
+                         lambda: K.mec_conv_fused2(xb, kb, (s_h, s_w), w_blk=f_blk,
+                                                   oh_blk=oh_blk),
+                         lambda: K.mec_conv_fused2_plain(xb, kb, (s_h, s_w),
+                                                         oh_blk))):
+                    y = fn()
+                    e_o = ref.scaled_error(y, oracle_b)
+                    e_p = ref.scaled_error(y, plain_fn())
+                    check(y.dtype == torch.bfloat16 and math.isfinite(e_o)
+                          and e_o <= tol_b,
+                          f"{kname} {name} bf16 batch {batch}: error {e_o} vs "
+                          f"f64 > tol {tol_b}")
+                    check(e_p <= 2 * tol_b,
+                          f"{kname} {name} bf16 batch {batch}: error {e_p} vs "
+                          f"plain > {2 * tol_b}")
+                    key = (f"K{fused[kname]}", f"bfloat16@{batch}")
+                    worst[key] = max(worst.get(key, 0.0), e_o / tol_b,
+                                     e_p / (2 * tol_b))
+                    del y
+                    rec = {"layer": name, "batch": batch, "dtype": "bfloat16",
+                           "err": [e_o, e_p], "tol": tol_b,
+                           "ms": time_ms(fn), "library_ms": lib_bf16_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "config": K.fused_config(fused[kname], xb.dtype, xb.shape,
+                                                    kb.shape, (s_h, s_w), f_blk,
+                                                    oh_blk)}
+                    shapes_bf16[kname][name] = rec
+                    emit({"phase": "timing", "kernel": kname, **rec})
+                del xb, kb, xb_nchw, kb_oihw, oracle_b
             pair[(name, batch)] = {
                 "layer": name, "batch": batch,
                 "ms": time_ms(lambda: mec_conv2d_cuda(x, k, (s_h, s_w),
@@ -862,6 +947,9 @@ def main(argv=None) -> int:
             emit({"phase": "timing", "kernel": "mec_lower+mec_gemm",
                   **pair[(name, batch)]})
             del low
+    # the kernels phase's worst errors with the bf16 checks at batch 16 added
+    emit({"phase": "timing", "worst_err_over_tol": {
+        f"{k}/{d}": round(v, 4) for (k, d), v in sorted(worst.items())}})
 
     # K5 at the zamba2-7b conv input in bf16, a column slice of the in_proj
     # output as the model passes it.  Library: cuDNN's depthwise conv1d on a
@@ -934,6 +1022,19 @@ def main(argv=None) -> int:
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if 2 * ops_ms >= total("bound_ms") else "bytes",
             "library_ms": total("library_ms")})
+        if kname in shapes_bf16:
+            # what bound_ms is read against, the CUDA cores' f32 bound, and
+            # the bf16 stack beside cuDNN in bf16
+            bf = [(w, shapes_bf16[kname][n]) for n, w in weights[kname].items()]
+            rows[-1].update({
+                "bound_rate": f"{TF32_PRODUCTS} TF32 tensor-core products a "
+                              f"multiply-add at {peak_tf32 / 1e12:g} TFLOP/s",
+                "cuda_core_bound_ms": total("cuda_core_bound_ms"),
+                "bf16": {"ms": sum(w * r["ms"] for w, r in bf),
+                         "library_ms": sum(w * r["library_ms"] for w, r in bf),
+                         "bound_ms": sum(w * r["bound_ms"] for w, r in bf),
+                         "bound_by": f"bf16 tensor cores at "
+                                     f"{peak_bf16 / 1e12:g} TFLOP/s"}})
     rows[list(KERNEL_ROWS).index("mec_conv_fused2")]["train_cnn_launches"] = \
         cnn_counts["mec_conv_fused2"]
     rows[list(KERNEL_ROWS).index("mec_gemm")]["lowered_pair"] = {

@@ -1,12 +1,12 @@
 // MEC convolution kernels for NVIDIA Hopper (sm_90a), CUDA C++.
 //
-// Three kernels, each the Hopper counterpart of a Pallas TPU kernel in
+// Four kernels, each the Hopper counterpart of a Pallas TPU kernel in
 // src/repro/kernels/mec_conv.py.  Notation: I is (n, i_h, i_w, i_c), already
 // padded; K is (k_h, k_w, i_c, k_c), and K[r] is kernel row r as a
 // (k_w*i_c, k_c) matrix; O is (n, o_h, o_w, k_c); L is MEC's compact lowered
 // matrix (n, o_w, i_h, k_w*i_c) (paper Eq. 3).  Inputs are f32, bf16 or f16;
-// every product accumulates in IEEE f32 (no TF32) and the output is written
-// once, in the input dtype.
+// every sum is kept in f32 and the output is written once, in the input
+// dtype.
 //
 //   mec_lower  <- mec_lower_pallas / _lower_kernel    (K2)
 //     L[n, w, h, j*i_c + c] = I[n, h, s_w*w + j, c].  Pure data movement,
@@ -17,47 +17,79 @@
 //     including the short odd rows of i_c = 3.  One 32-bit division per
 //     element, 64-bit offsets.
 //
-//   mec_fused  <- mec_conv_fused_pallas / _fused_kernel  (K1)
-//     O[n, h, w-block] = sum_r strip(I[n, h*s_h + r]) @ K[r], with the
-//     lowering done in shared memory, so L never exists in device memory.
 //   mec_gemm   <- mec_gemm_pallas / _gemm_kernel          (K3)
 //     O[n, h] = L[n, :, h*s_h*k_w*i_c : +k_h*k_w*i_c] @ K, the paper's
 //     ld-aliasing: the k_h shifted rows of L form one contiguous window per
 //     output column, so the kernel reads it as an ordinary GEMM operand with
-//     leading dimension i_h*k_w*i_c.
+//     leading dimension i_h*k_w*i_c.  IEEE f32 FMAs on the CUDA cores: one
+//     CTA per (n, h, w-block, 64-channel tile), 256 threads as a 16 x 16
+//     grid, each thread TM columns x 4 channels, operands staged in shared
+//     memory as f32.  Bound by operations (f32 FMAs) at the paper's widths.
 //
-// K1 and K3 are GEMMs on the CUDA cores.  At the paper's widths they are
-// bound by operations (f32 FMAs), not bytes.  The TPU grid's innermost axis r
-// accumulated into one output block across sequential grid steps; CTAs on
-// Hopper run in no order, so each CTA owns one (n, h, w-block, k_c tile) and
-// loops over r and chunks of i_c itself, keeping the f32 accumulator in
-// registers.  Nothing carries across CTAs.  256 threads form a 16 x 16 grid;
-// a thread computes TM output columns x 4 output channels, with the reduction
-// operands staged in shared memory as f32 (bf16/f16 convert on load).  The
-// ragged edges (last w-block, last k_c tile, last i_c chunk) are masked,
-// never padded by a copy.  These are simple, correct kernels; tensor-core
-// MMA, TMA and pipelining are later work.
-//
+//   mec_fused  <- mec_conv_fused_pallas / _fused_kernel   (K1)
+//     O[n, h, w-block] = sum_r strip(I[n, h*s_h + r]) @ K[r], with the
+//     lowering done in shared memory, so L never exists in device memory.
+//     MEC's row-strip form: one CTA per (n, output row, w-block, k_c tile),
+//     the TPU grid's (n, h, w); the CTA's tile is 1 row x up to 128 columns.
 //   mec_fused2 <- mec_conv_fused2_pallas / _fused2_kernel (K4)
-//     The same O as K1, h-blocked: one CTA owns (n, block of oh_blk output
-//     rows, w-block, k_c tile).  What bounds it: at the paper's widths,
-//     operations (the same f32 FMAs as K1), with bytes I*(1 + halo/rows)
-//     + K + O, halo = k_h - s_h input rows shared by consecutive blocks.
-//     K1 reads every input row k_h/s_h times (once per output row that
-//     uses it), and a narrow layer (cv11: o_w = 12, cv12: o_w = 5) fills
-//     12 or 5 of a CTA's 16 position rows, each thread computing a
-//     1 x 4 tile at 5 shared-memory loads per 4 FMAs.  K4's design: the
-//     CTA's tile is a 2-D sub-tile of tr output rows x tc columns
-//     (tr*tc <= 128 positions), flattened onto the 16 thread rows, so a
-//     narrow layer stacks several output rows into one CTA and a thread
-//     computes up to 8 positions x 4 channels.  Per i_c chunk, the CTA
-//     stages the (tr-1)*s_h + k_h input rows its output rows need, over
-//     their column span, once, and then loops r over k_h reading every
-//     kernel row's window out of the same staged rows.  The TPU kernel's
-//     halo (a second BlockSpec view of block h+1, which is wrong when the
-//     halo outruns one block: fault F1) has no counterpart: a CTA loads
-//     the rows it needs, so any k_h, s_h (k_h < s_h included) is exact.
-//     Shared memory is sized against the 227 KB a block may opt into.
+//     The same O, h-blocked: a CTA owns (n, block of oh_blk output rows,
+//     w-block, k_c tile) and walks it in tr x tc sub-tiles (tr <= 16 rows,
+//     tr*tc <= 128 positions), so narrow layers (cv11: o_w = 12, cv12: 5)
+//     stack rows into one MMA tile.  The TPU kernel's halo (a second
+//     BlockSpec view of block h+1, wrong when the halo outruns one block:
+//     fault F1) has no counterpart: each step stages the input rows its
+//     output rows need, so any k_h, s_h (k_h < s_h included) is exact.
+//
+// K1 and K4 share one device core, mec_mma.cuh, and differ only in the
+// tile the launcher gives the CTA.  What bounds them: at the paper's widths,
+// operations; on the card, the tensor cores' rate for the design's own
+// arithmetic (below), then the shared-memory and L2 traffic of restaging
+// the kernel slab for every tile.  What the core does about it:
+//   - Tensor cores, f32 accumulators in registers.  bf16/f16:
+//     mma.sync.m16n8k16.  f32: mma.sync.m16n8k8 in TF32 with three products
+//     a multiply-add, hi*hi + hi*lo + lo*hi, hi = cvt.rna.tf32(x), lo =
+//     cvt.rna.tf32(x - hi), split as fragments are loaded.  One TF32 product
+//     misses the f32 contract (1e-6 * sqrt(K/27), numerics.py) by ~36x; the
+//     split keeps errors near 1e-7 scaled.  The tensor core truncates when it
+//     adds into its accumulator, which chained over a whole reduction
+//     missed the budget on the card (cv11: 1.6e-5 against 9.2e-6), so each
+//     reduction step's three-product sum is kept apart and added to the f32
+//     sum with IEEE adds (cv11 then reads 4e-7).  wgmma is not used: its
+//     canonical shared-memory layouts do not take MEC's strided,
+//     overlapping windows without a copy, which is the lowering MEC avoids.
+//   - The lowering stays in shared memory.  A reduction step is a kernel
+//     row r and a chunk of cc input channels: the CTA stages, per output row
+//     of its tile, the input row it needs (the columns its positions span,
+//     the chunk's channels, a column every cc + 16 B so ldmatrix is
+//     conflict-free) and the slab K[r, :, chunk, 64 channels], in the input
+//     dtype.  A is the strided window view: each lane points ldmatrix at its
+//     own position's window, so the lowered strip reaches the MMA fragments
+//     without being written anywhere.  For i_c <= 16 (cv1-cv3, cv7) the
+//     step reduces over the contiguous k_w*i_c run of a row, the compact-L
+//     row, staged from a 16-byte boundary (rows there are not 16-byte
+//     aligned, so A comes by scalar loads), not over channel chunks padded
+//     to the MMA depth.  The run is padded to the MMA depth with the next
+//     columns' inputs; A reads those as zero, so a non-finite input reaches
+//     only the outputs whose windows hold it.
+//   - A 3-stage cp.async ring: the loads of step s+2 are in flight while
+//     step s runs, and the next k-step's fragments load during this one's
+//     MMAs.  Copies are 16 bytes where i_c*elem and the base allow, else 8
+//     or 4; 2-byte types with odd i_c on the channel path copy 2 bytes with
+//     plain loads (a launch configuration of the same kernel).  Index
+//     arithmetic in the copy loops has no divisions.  Shared memory aims at
+//     two CTAs an SM (113 KB each); the chunk shrinks to fit.
+//   - Tiles of 16/32/64 positions x 64 channels take 4 warps (16x16 to
+//     32x32 each); 128 positions take 8 warps of 32 x 32 and are held to
+//     128 registers a thread, two CTAs an SM.
+//   - Where the tile grid is short of the SMs (cv11 and cv12 at batch 16 in
+//     K4, most layers at batch 1), the S <= 4 CTAs of a thread-block cluster
+//     each take 1/S of the (r, chunk) steps of one tile; the leader adds the
+//     others' partial sums through distributed shared memory
+//     (cluster.map_shared_rank) in rank order and writes O.  No split-K
+//     workspace in device memory; two runs give equal bits.
+// The ragged edges (last w-block and h-block, k_c off the 64-channel tile,
+// the last channel chunk) are zero-filled by the copies, never padded in
+// device memory; offsets into I, K and O are 64-bit.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -65,18 +97,20 @@
 
 #include <initializer_list>
 
+#include "mec_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTN = 4;               // output channels per thread
 constexpr int kBN = 16 * kTN;        // output channels per CTA
 constexpr int kGemmBK = 32;          // K3 reduction chunk
-constexpr int kFusedMaxCC = 32;      // K1/K4 channel chunk cap
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr int kFused2MaxPos = 128;   // K4 output positions per sub-tile
-constexpr int kFused2MaxRows = 16;   // K4 output rows per sub-tile
-// K4's target for one CTA's shared memory: two CTAs fit on an SM's 228 KB.
-constexpr size_t kFused2Smem = 96 * 1024;
+// K1/K4 (mec_mma.cuh): K4's sub-tile limits, and the shared memory a CTA
+// aims at, so that two CTAs fit an SM's 228 KB (1 KB each reserved).
+constexpr int kFused2MaxPos = mec_mma::kMaxBM;   // output positions
+constexpr int kFused2MaxRows = 16;               // output rows
+constexpr size_t kMmaSmem = 113 * 1024;
+constexpr int kMaxSplit = 4;                     // CTAs a cluster
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -89,14 +123,7 @@ template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
   return __half2float(v);
 }
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
+using mec_mma::from_f32;
 
 // ---------------------------------------------------------------------------
 // K2: compact lowering.  grid = (n*o_w, ceil(i_h / rows_per_cta)).
@@ -122,216 +149,22 @@ lower_kernel(const S* __restrict__ inp, S* __restrict__ low, int i_h, int i_w,
 }
 
 // ---------------------------------------------------------------------------
-// K1: fused MEC conv.  grid = (n*o_h, ceil(o_w / w_blk), ceil(k_c / kBN)).
-// Per (r, i_c chunk): shared memory holds the input span of one output
-// sub-tile, s_w*(BM-1) + k_w columns x cc channels, and the K slab
-// K[r, 0:k_w, chunk, k tile], k_w x cc x kBN.  The strided, overlapping
-// column windows are read straight out of the span, so the strip is never
-// written anywhere.
+// K1 and K4: the tensor-core MEC conv (csrc/mec_mma.cuh).  Both kernels run
+// the same core; they differ in the CTA's output tile, which the launcher
+// sets: K1 one output row x up to 64 columns, K4 tr rows x tc columns.
+// grid = (n * row blocks * split, ceil(o_w / w_blk), ceil(k_c / 64)),
+// clusters of `split` CTAs along x.
 // ---------------------------------------------------------------------------
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
-fused_kernel(const T* __restrict__ inp, const T* __restrict__ ker,
-             T* __restrict__ out, int i_h, int i_w, int i_c, int k_h, int k_w,
-             int k_c, int s_h, int s_w, int o_h, int o_w, int w_blk, int cc) {
-  constexpr int TM = BM / 16;
-  extern __shared__ float smem[];
-  const int span = s_w * (BM - 1) + k_w;
-  float* s_in = smem;                 // [span][cc]
-  float* s_k = smem + span * cc;      // [k_w][cc][kBN]
-
-  const int64_t nh = blockIdx.x;
-  const int64_t n = nh / o_h;
-  const int h = (int)(nh - n * o_h);
-  const int wb_end = min(((int)blockIdx.y + 1) * w_blk, o_w);
-  const int k0 = blockIdx.z * kBN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  for (int w0 = blockIdx.y * w_blk; w0 < wb_end; w0 += BM) {
-    float acc[TM][kTN];
-#pragma unroll
-    for (int p = 0; p < TM; ++p)
-#pragma unroll
-      for (int q = 0; q < kTN; ++q) acc[p][q] = 0.f;
-    const int col0 = w0 * s_w;
-
-    for (int r = 0; r < k_h; ++r) {
-      const int64_t row_px = (n * i_h + (int64_t)h * s_h + r) * i_w;
-      const T* k_row = ker + (int64_t)r * k_w * i_c * k_c;
-      for (int c0 = 0; c0 < i_c; c0 += cc) {
-        const int ccn = min(cc, i_c - c0);
-        __syncthreads();   // the previous chunk's reads of smem are done
-        for (int e = threadIdx.x; e < span * cc; e += kThreads) {
-          const int col = e / cc;
-          const int c = e - col * cc;
-          const int gcol = col0 + col;
-          float v = 0.f;
-          if (c < ccn && gcol < i_w) v = to_f32(inp[(row_px + gcol) * i_c + c0 + c]);
-          s_in[e] = v;
-        }
-        for (int e = threadIdx.x; e < k_w * cc * kBN; e += kThreads) {
-          const int kk = e % kBN;
-          const int jc = e / kBN;
-          const int j = jc / cc;
-          const int c = jc - j * cc;
-          float v = 0.f;
-          if (c < ccn && k0 + kk < k_c)
-            v = to_f32(k_row[((int64_t)j * i_c + c0 + c) * k_c + k0 + kk]);
-          s_k[e] = v;
-        }
-        __syncthreads();
-        for (int j = 0; j < k_w; ++j) {
-          const float* a_col = s_in + (ty * s_w + j) * cc;
-          const float* b_row = s_k + j * cc * kBN + tx;
-          for (int c = 0; c < ccn; ++c) {
-            float a[TM], b[kTN];
-#pragma unroll
-            for (int p = 0; p < TM; ++p) a[p] = a_col[p * 16 * s_w * cc + c];
-#pragma unroll
-            for (int q = 0; q < kTN; ++q) b[q] = b_row[c * kBN + q * 16];
-#pragma unroll
-            for (int p = 0; p < TM; ++p)
-#pragma unroll
-              for (int q = 0; q < kTN; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int p = 0; p < TM; ++p) {
-      const int w = w0 + ty + 16 * p;
-      if (w >= wb_end) continue;
-      T* o = out + ((nh * o_w) + w) * (int64_t)k_c;
-#pragma unroll
-      for (int q = 0; q < kTN; ++q) {
-        const int k = k0 + tx + 16 * q;
-        if (k < k_c) o[k] = from_f32<T>(acc[p][q]);
-      }
-    }
-  }
+template <typename T, int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN, WM * WN == 8 ? 2 : 1)
+fused_kernel(const __grid_constant__ mec_mma::Params p) {
+  mec_mma::mma_core<T, MT, NT, WM, WN>(p);
 }
 
-// ---------------------------------------------------------------------------
-// K4: h-blocked fused MEC conv.
-// grid = (n*ceil(o_h / oh_blk), ceil(o_w / w_blk), ceil(k_c / kBN)).
-// The CTA walks its oh_blk x w_blk block in sub-tiles of tr x tc output
-// positions; position m = ty + 16*p (p < TM) is output (m / tc, m % tc) of
-// the sub-tile.  Per i_c chunk, shared memory holds the sub-tile's input
-// rows (tr-1)*s_h + k_h x its column span (tc-1)*s_w + k_w x cc channels,
-// staged once; then, per kernel row r, the slab K[r, 0:k_w, chunk, k tile].
-// ---------------------------------------------------------------------------
-template <typename T, int TM>
-__global__ void __launch_bounds__(kThreads)
-fused2_kernel(const T* __restrict__ inp, const T* __restrict__ ker,
-              T* __restrict__ out, int i_h, int i_w, int i_c, int k_h, int k_w,
-              int k_c, int s_h, int s_w, int o_h, int o_w, int n_hblk,
-              int oh_blk, int w_blk, int tr, int tc, int cc) {
-  extern __shared__ float smem[];
-  const int rows_in = (tr - 1) * s_h + k_h;
-  const int span = (tc - 1) * s_w + k_w;
-  const int per_row = span * cc;
-  float* s_in = smem;                       // [rows_in][span][cc]
-  float* s_k = smem + rows_in * per_row;    // [k_w][cc][kBN]
-
-  const int64_t nb = blockIdx.x;
-  const int64_t n = nb / n_hblk;
-  const int h_beg = (int)(nb - n * n_hblk) * oh_blk;
-  const int h_end = min(h_beg + oh_blk, o_h);
-  const int w_beg = blockIdx.y * w_blk;
-  const int w_end = min(w_beg + w_blk, o_w);
-  const int k0 = blockIdx.z * kBN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int tile = tr * tc;
-
-  // Offset of each of this thread's positions in the staged rows (r = 0,
-  // j = 0, c = 0); positions past the sub-tile read offset 0 and are
-  // never written.
-  int off[TM];
-#pragma unroll
-  for (int p = 0; p < TM; ++p) {
-    const int m = ty + 16 * p;
-    const int dr = m / tc;
-    off[p] = m < tile ? (dr * s_h * span + (m - dr * tc) * s_w) * cc : 0;
-  }
-
-  for (int h0 = h_beg; h0 < h_end; h0 += tr) {
-    for (int w0 = w_beg; w0 < w_end; w0 += tc) {
-      float acc[TM][kTN];
-#pragma unroll
-      for (int p = 0; p < TM; ++p)
-#pragma unroll
-        for (int q = 0; q < kTN; ++q) acc[p][q] = 0.f;
-      const int row0 = h0 * s_h;
-      const int col0 = w0 * s_w;
-
-      for (int c0 = 0; c0 < i_c; c0 += cc) {
-        const int ccn = min(cc, i_c - c0);
-        __syncthreads();   // every read of the previous chunk is done
-        for (int e = threadIdx.x; e < rows_in * per_row; e += kThreads) {
-          const int row = e / per_row;
-          const int rem = e - row * per_row;
-          const int col = rem / cc;
-          const int c = rem - col * cc;
-          const int grow = row0 + row;
-          const int gcol = col0 + col;
-          float v = 0.f;
-          if (c < ccn && grow < i_h && gcol < i_w)
-            v = to_f32(inp[((n * i_h + grow) * (int64_t)i_w + gcol) * i_c + c0 + c]);
-          s_in[e] = v;
-        }
-        for (int r = 0; r < k_h; ++r) {
-          if (r > 0) __syncthreads();   // every read of K[r-1]'s slab is done
-          const T* k_row = ker + (int64_t)r * k_w * i_c * k_c;
-          for (int e = threadIdx.x; e < k_w * cc * kBN; e += kThreads) {
-            const int kk = e % kBN;
-            const int jc = e / kBN;
-            const int j = jc / cc;
-            const int c = jc - j * cc;
-            float v = 0.f;
-            if (c < ccn && k0 + kk < k_c)
-              v = to_f32(k_row[((int64_t)j * i_c + c0 + c) * k_c + k0 + kk]);
-            s_k[e] = v;
-          }
-          __syncthreads();
-          const float* a_row = s_in + r * per_row;
-          for (int j = 0; j < k_w; ++j) {
-            const float* a_col = a_row + j * cc;
-            const float* b_row = s_k + j * cc * kBN + tx;
-            for (int c = 0; c < ccn; ++c) {
-              float a[TM], b[kTN];
-#pragma unroll
-              for (int p = 0; p < TM; ++p) a[p] = a_col[off[p] + c];
-#pragma unroll
-              for (int q = 0; q < kTN; ++q) b[q] = b_row[c * kBN + q * 16];
-#pragma unroll
-              for (int p = 0; p < TM; ++p)
-#pragma unroll
-                for (int q = 0; q < kTN; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int p = 0; p < TM; ++p) {
-        const int m = ty + 16 * p;
-        if (m >= tile) continue;
-        const int dr = m / tc;
-        const int h = h0 + dr;
-        const int w = w0 + (m - dr * tc);
-        if (h >= h_end || w >= w_end) continue;
-        T* o = out + ((n * o_h + h) * (int64_t)o_w + w) * k_c;
-#pragma unroll
-        for (int q = 0; q < kTN; ++q) {
-          const int k = k0 + tx + 16 * q;
-          if (k < k_c) o[k] = from_f32<T>(acc[p][q]);
-        }
-      }
-    }
-  }
+template <typename T, int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN, WM * WN == 8 ? 2 : 1)
+fused2_kernel(const __grid_constant__ mec_mma::Params p) {
+  mec_mma::mma_core<T, MT, NT, WM, WN>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -421,136 +254,247 @@ bool fits_int(long long v) { return v >= 0 && v <= 0x7fffffffLL; }
 // so narrow layers (cv12: o_w = 5) do not idle 60 of 64 rows.
 int tile_rows(long long w_blk) { return w_blk <= 16 ? 16 : (w_blk <= 32 ? 32 : 64); }
 
-template <typename T, int BM>
-cudaError_t launch_fused(const void* inp, const void* ker, void* out, long long i_n,
-                         int i_h, int i_w, int i_c, int k_h, int k_w, int k_c,
-                         int s_h, int s_w, int o_h, int o_w, int w_blk,
-                         cudaStream_t stream) {
-  const int span = s_w * (BM - 1) + k_w;
-  const size_t per_c = (size_t)(span + k_w * kBN) * sizeof(float);
-  int cc = (int)(kDefaultSmem / per_c);
-  cc = cc < kFusedMaxCC ? cc : kFusedMaxCC;
-  cc = cc < i_c ? cc : i_c;
-  if (cc >= 8) cc &= ~7;
-  if (cc < 1) cc = 1;
-  const size_t smem = per_c * cc;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)optin) return cudaErrorInvalidValue;
-  if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(fused_kernel<T, BM>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const long long grid_x = i_n * o_h;
-  const long long grid_y = (o_w + w_blk - 1) / w_blk;
-  const long long grid_z = (k_c + kBN - 1) / kBN;
-  if (!fits_int(grid_x) || grid_y > 65535 || grid_z > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)grid_x, (unsigned)grid_y, (unsigned)grid_z);
-  fused_kernel<T, BM><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(inp), static_cast<const T*>(ker), static_cast<T*>(out),
-      i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w, w_blk, cc);
-  return cudaGetLastError();
-}
+constexpr int kMaxDevices = 64;
 
-template <typename T, int TM>
-cudaError_t launch_fused2_tm(const void* inp, const void* ker, void* out, dim3 grid,
-                             size_t smem, int i_h, int i_w, int i_c, int k_h, int k_w,
-                             int k_c, int s_h, int s_w, int o_h, int o_w, int n_hblk,
-                             int oh_blk, int w_blk, int tr, int tc, int cc,
-                             cudaStream_t stream) {
-  if (smem > kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused2_kernel<T, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  fused2_kernel<T, TM><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(inp), static_cast<const T*>(ker), static_cast<T*>(out),
-      i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w, n_hblk, oh_blk, w_blk, tr, tc,
-      cc);
-  return cudaGetLastError();
-}
-
-// K4's shared memory for one staged channel of a tr x tc sub-tile, in bytes.
-size_t fused2_bytes_per_channel(long long tr, long long tc, long long k_h,
-                                long long k_w, long long s_h, long long s_w) {
-  const long long rows_in = (tr - 1) * s_h + k_h;
-  const long long span = (tc - 1) * s_w + k_w;
-  return (size_t)(rows_in * span + k_w * kBN) * sizeof(float);
-}
-
-// The shared memory a block may opt in to on the current device.
-cudaError_t smem_optin(int* optin) {
+// The shared memory a block may opt in to, and the SM count, of the
+// current device, read once per device.
+cudaError_t device_limits(int* optin, int* sms, int* device = nullptr) {
+  static int cached_optin[kMaxDevices], cached_sms[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached_sms[dev] == 0) {
+    int o = 0, m = 0;
+    err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached_optin[dev] = o;
+    cached_sms[dev] = m;
+  }
+  *optin = cached_optin[dev];
+  *sms = cached_sms[dev];
+  if (device) *device = dev;
+  return cudaSuccess;
+}
+
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// K4's smallest ring for a tr x tc sub-tile, in bytes: each stage holds
+// one MMA depth of channels of the tr staged rows (48 B a column: 8 f32 +
+// 16 B of pad, or 16 bf16 + 16 B) and the kernel slab k_w x depth x kBNP
+// (2304 B a kernel column), dtype-independent.
+size_t fused2_min_ring(long long tr, long long tc, long long k_w, long long s_w) {
+  const long long span = (tc - 1) * s_w + k_w;
+  return (size_t)mec_mma::kStages * (size_t)(tr * span * 48 + k_w * 2304);
 }
 
 // K4's sub-tile of an oh_blk x w_blk block: every row of the block up to
-// kFused2MaxRows, then as many columns as keep it within kFused2MaxPos
-// positions.  Halved (columns first) only where one channel of its input
-// rows and kernel slab would not fit the opt-in.  Returns the bytes of one
-// staged channel, or 0 where not even a 1 x 1 sub-tile fits.
-size_t fused2_tile(int oh_blk, int w_blk, int k_h, int k_w, int s_h, int s_w, int optin,
-                   int* tr_out, int* tc_out) {
+// kFused2MaxRows, then as many columns as keep it within the MMA tile's
+// kFused2MaxPos positions.  Halved (columns first) only where the smallest
+// ring would not fit the opt-in.  Returns false where not even a 1 x 1
+// sub-tile fits.
+bool fused2_tile(int oh_blk, int w_blk, int k_w, int s_w, int optin, int* tr_out,
+                 int* tc_out) {
   int tr = oh_blk < kFused2MaxRows ? oh_blk : kFused2MaxRows;
   int tc = kFused2MaxPos / tr;
   tc = tc < w_blk ? tc : w_blk;
-  size_t per_c = fused2_bytes_per_channel(tr, tc, k_h, k_w, s_h, s_w);
-  while (per_c > (size_t)optin && (tr > 1 || tc > 1)) {
+  while (fused2_min_ring(tr, tc, k_w, s_w) > (size_t)optin && (tr > 1 || tc > 1)) {
     if (tc > 1) tc = (tc + 1) / 2; else tr = (tr + 1) / 2;
-    per_c = fused2_bytes_per_channel(tr, tc, k_h, k_w, s_h, s_w);
   }
   *tr_out = tr;
   *tc_out = tc;
-  return per_c > (size_t)optin ? 0 : per_c;
+  return fused2_min_ring(tr, tc, k_w, s_w) <= (size_t)optin;
 }
 
-template <typename T>
-cudaError_t launch_fused2(const void* inp, const void* ker, void* out, long long i_n,
-                          int i_h, int i_w, int i_c, int k_h, int k_w, int k_c,
-                          int s_h, int s_w, int o_h, int o_w, int w_blk, int oh_blk,
-                          cudaStream_t stream) {
-  int optin = 0, tr = 0, tc = 0;
-  cudaError_t err = smem_optin(&optin);
-  if (err != cudaSuccess) return err;
-  const size_t per_c = fused2_tile(oh_blk, w_blk, k_h, k_w, s_h, s_w, optin, &tr, &tc);
-  if (per_c == 0) return cudaErrorInvalidValue;
-  const size_t budget = per_c <= kFused2Smem ? kFused2Smem : (size_t)optin;
-  int cc = (int)(budget / per_c);
-  cc = cc < kFusedMaxCC ? cc : kFusedMaxCC;
-  cc = cc < i_c ? cc : i_c;
-  if (cc >= 8) cc &= ~7;
-  if (cc < 1) cc = 1;
-  const size_t smem = per_c * cc;
+// The widest copy (16, 8 or 4 bytes for cp.async; 2 for a plain copy) that
+// divides a run of `row_bytes` and the base address.
+int copy_width(long long row_bytes, const void* base) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  for (int v = 16; v >= 4; v /= 2)
+    if (row_bytes % v == 0 && a % v == 0) return v;
+  return 2;
+}
 
-  const int n_hblk = (o_h + oh_blk - 1) / oh_blk;
-  const long long grid_x = i_n * n_hblk;
-  const long long grid_y = (o_w + w_blk - 1) / w_blk;
-  const long long grid_z = (k_c + kBN - 1) / kBN;
-  if (!fits_int(grid_x) || grid_y > 65535 || grid_z > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)grid_x, (unsigned)grid_y, (unsigned)grid_z);
-#define MEC_FUSED2_TM(TM)                                                            \
-  case TM:                                                                           \
-    return launch_fused2_tm<T, TM>(inp, ker, out, grid, smem, i_h, i_w, i_c, k_h,   \
-                                   k_w, k_c, s_h, s_w, o_h, o_w, n_hblk, oh_blk,    \
-                                   w_blk, tr, tc, cc, stream);
-  switch ((tr * tc + 15) / 16) {
-    MEC_FUSED2_TM(1)
-    MEC_FUSED2_TM(2)
-    MEC_FUSED2_TM(3)
-    MEC_FUSED2_TM(4)
-    MEC_FUSED2_TM(5)
-    MEC_FUSED2_TM(6)
-    MEC_FUSED2_TM(7)
-    MEC_FUSED2_TM(8)
-    default: return cudaErrorInvalidValue;
+// Threads of a CTA for an MMA tile of bm rows: 8 warps for 128 rows, else 4.
+int mma_threads(int bm) { return bm == 128 ? 256 : 128; }
+
+struct MmaLaunch {
+  mec_mma::Params p;
+  int bm;        // MMA tile rows: 16, 32, 64 or 128 positions
+  size_t smem;   // dynamic shared memory, bytes
+  dim3 grid;
+};
+
+// Everything K1 (k4 = false) or K4 (k4 = true) runs with: the sub-tile,
+// the reduction path and chunk, the copy widths, the cluster split, the
+// shared memory and the grid.
+cudaError_t mma_config(bool k4, int elem, const void* inp, const void* ker, void* out,
+                       long long i_n, int i_h, int i_w, int i_c, int k_h, int k_w, int k_c,
+                       int s_h, int s_w, int o_h, int o_w, int w_blk, int oh_blk,
+                       MmaLaunch* L) {
+  int optin = 0, sms = 0;
+  cudaError_t err = device_limits(&optin, &sms);
+  if (err != cudaSuccess) return err;
+  mec_mma::Params& p = L->p;
+  p = mec_mma::Params{};
+  p.inp = inp;
+  p.ker = ker;
+  p.out = out;
+  p.i_h = i_h; p.i_w = i_w; p.i_c = i_c; p.k_h = k_h; p.k_w = k_w; p.k_c = k_c;
+  p.s_h = s_h; p.s_w = s_w; p.o_h = o_h; p.o_w = o_w;
+  p.w_blk = w_blk;
+  if (k4) {
+    if (!fused2_tile(oh_blk, w_blk, k_w, s_w, optin, &p.tr, &p.tc))
+      return cudaErrorInvalidValue;
+    p.oh_blk = oh_blk;
+  } else {
+    p.tr = 1;
+    p.tc = w_blk < mec_mma::kMaxBM ? w_blk : mec_mma::kMaxBM;
+    p.oh_blk = 1;
   }
-#undef MEC_FUSED2_TM
+  p.n_hblk = (int)ceil_div(o_h, p.oh_blk);
+  const int tile = p.tr * p.tc;
+  L->bm = tile <= 16 ? 16 : (tile <= 32 ? 32 : (tile <= 64 ? 64 : 128));
+  const int threads = mma_threads(L->bm);
+
+  const int depth = elem == 4 ? 8 : 16;   // MMA k: TF32 k8, bf16/f16 k16
+  const int vec = 16 / elem;
+  p.kwic = k_w * i_c;
+  size_t stage = 0;
+  if (i_c <= 16) {   // compact path: reduce over the k_w*i_c run
+    const int kp = round_up(p.kwic, depth);
+    const int real = ((p.tc - 1) * s_w + k_w) * i_c;
+    const int run = round_up(vec - 1 + real + kp - p.kwic, vec);
+    stage = (size_t)(p.tr * run + kp * mec_mma::kBNP) * elem;
+    if (mec_mma::kStages * stage <= (size_t)optin) {
+      p.compact = 1;
+      p.cc = kp;
+      p.nchunk = 1;
+      p.run = run;
+      p.in_elems = p.tr * run;
+      p.k_elems = kp * mec_mma::kBNP;
+      p.base_mis = (int)(reinterpret_cast<uintptr_t>(inp) % 16) / elem;
+    }
+  }
+  if (!p.compact) {   // channel path: chunks of cc channels, k_w windows
+    p.span = (p.tc - 1) * s_w + k_w;
+    auto stage_of = [&](int c) {
+      return (size_t)(p.tr * p.span * (c + vec) + k_w * c * mec_mma::kBNP) * elem;
+    };
+    // cc: a power-of-two multiple of the MMA depth, up to 128 B of
+    // channels a column, halved until the ring fits the target
+    const int cap = 128 / elem;
+    int lcc = 0;
+    while ((1 << lcc) < depth) ++lcc;
+    while ((1 << lcc) < i_c && (1 << lcc) < cap) ++lcc;
+    while ((1 << lcc) > depth && mec_mma::kStages * stage_of(1 << lcc) > kMmaSmem) --lcc;
+    const int cc = 1 << lcc;
+    stage = stage_of(cc);
+    if (mec_mma::kStages * stage > (size_t)optin) return cudaErrorInvalidValue;
+    p.cc = cc;
+    p.lcc = lcc;
+    p.ccp = cc + vec;
+    p.nchunk = (i_c + cc - 1) / cc;
+    p.in_elems = p.tr * p.span * p.ccp;
+    p.k_elems = k_w * cc * mec_mma::kBNP;
+    p.vin = copy_width((long long)i_c * elem, inp);
+    // copies a column (a power of two), and the column walk's stride
+    p.lgc = 0;
+    while ((p.vin << p.lgc) < cc * elem) ++p.lgc;
+    const int step = threads >> p.lgc;
+    p.col_rows = step / p.span;
+    p.col_rem = step % p.span;
+  }
+  p.vk = copy_width((long long)k_c * elem, ker);
+  p.lgk = 0;
+  while ((p.vk << p.lgk) < mec_mma::kBN * elem) ++p.lgk;
+
+  // Split the reduction over a cluster while the grid is short of eight
+  // warps an SM and every rank keeps at least two steps.
+  const long long tiles =
+      i_n * p.n_hblk * ceil_div(o_w, w_blk) * ceil_div(k_c, mec_mma::kBN);
+  const int steps = k_h * p.nchunk;
+  p.split = 1;
+  while (p.split < kMaxSplit && tiles * p.split * (threads / 32) < 8LL * sms &&
+         steps >= 4 * p.split)
+    p.split *= 2;
+
+  L->smem = mec_mma::kStages * stage;
+  const size_t red = (size_t)threads * 32 * sizeof(float);   // 32 sums a thread
+  if (p.split > 1 && L->smem < red) L->smem = red;
+  const long long grid_x = i_n * p.n_hblk * p.split;
+  const long long grid_y = ceil_div(o_w, w_blk);
+  const long long grid_z = ceil_div(k_c, mec_mma::kBN);
+  if (!fits_int(grid_x) || grid_y > 65535 || grid_z > 65535) return cudaErrorInvalidValue;
+  L->grid = dim3((unsigned)grid_x, (unsigned)grid_y, (unsigned)grid_z);
+  return cudaSuccess;
+}
+
+template <typename T, int MT, int NT, int WM, int WN>
+cudaError_t launch_mma_tile(bool k4, const MmaLaunch& L, cudaStream_t stream) {
+  void (*kern)(mec_mma::Params) =
+      k4 ? fused2_kernel<T, MT, NT, WM, WN> : fused_kernel<T, MT, NT, WM, WN>;
+  // the dynamic shared memory each kernel may use, raised only when a
+  // launch needs more than before (per device)
+  static size_t allowed[2][kMaxDevices];
+  int optin = 0, sms = 0, dev = 0;
+  cudaError_t err = device_limits(&optin, &sms, &dev);
+  if (err != cudaSuccess) return err;
+  if (L.smem > allowed[k4][dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L.smem);
+    if (err != cudaSuccess) return err;
+    allowed[k4][dev] = L.smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = L.grid;
+  cfg.blockDim = dim3(32 * WM * WN);
+  cfg.dynamicSmemBytes = L.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)L.p.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = L.p.split > 1 ? 1 : 0;   // a cluster only where the reduction is split
+  err = cudaLaunchKernelEx(&cfg, kern, L.p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Warp layouts (WM x WN warps, each MT m16 x NT n8 tiles) for the four
+// MMA tiles: 128 x 64 (8 warps of 32 x 32), 64 x 64 (4 warps of 32 x 32),
+// 32 x 64 (16 x 32), 16 x 64 (16 x 16).
+template <typename T>
+cudaError_t launch_mma(bool k4, const MmaLaunch& L, cudaStream_t stream) {
+  switch (L.bm) {
+    case 16: return launch_mma_tile<T, 1, 2, 1, 4>(k4, L, stream);
+    case 32: return launch_mma_tile<T, 1, 4, 2, 2>(k4, L, stream);
+    case 64: return launch_mma_tile<T, 2, 4, 2, 2>(k4, L, stream);
+    default: return launch_mma_tile<T, 2, 4, 4, 2>(k4, L, stream);
+  }
+}
+
+cudaError_t run_mma(bool k4, int dtype, const void* inp, const void* ker, void* out,
+                    long long i_n, long long i_h, long long i_w, long long i_c,
+                    long long k_h, long long k_w, long long k_c, long long s_h,
+                    long long s_w, long long o_h, long long o_w, long long w_blk,
+                    long long oh_blk, cudaStream_t stream, MmaLaunch* L) {
+  const int elem = dtype == kF32 ? 4 : 2;
+  if (dtype != kF32 && dtype != kBF16 && dtype != kF16) return cudaErrorInvalidValue;
+  cudaError_t err = mma_config(k4, elem, inp, ker, out, i_n, (int)i_h, (int)i_w, (int)i_c,
+                               (int)k_h, (int)k_w, (int)k_c, (int)s_h, (int)s_w, (int)o_h,
+                               (int)o_w, (int)w_blk, (int)oh_blk, L);
+  if (err != cudaSuccess || out == nullptr) return err;
+  switch (dtype) {
+    case kF32: return launch_mma<float>(k4, *L, stream);
+    case kBF16: return launch_mma<__nv_bfloat16>(k4, *L, stream);
+    default: return launch_mma<__half>(k4, *L, stream);
+  }
 }
 
 template <typename T, int BM>
@@ -631,23 +575,9 @@ int mec_fused(const void* inp, const void* ker, void* out, int dtype, long long 
   if (!dims_ok({i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w, w_blk}) ||
       w_blk > o_w || (o_h - 1) * s_h + k_h > i_h || (o_w - 1) * s_w + k_w > i_w)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bm = tile_rows(w_blk);
-#define MEC_FUSED_ARGS                                                              \
-  inp, ker, out, i_n, (int)i_h, (int)i_w, (int)i_c, (int)k_h, (int)k_w, (int)k_c,  \
-      (int)s_h, (int)s_w, (int)o_h, (int)o_w, (int)w_blk, st
-#define MEC_FUSED_BM(T)                                                             \
-  (bm == 16 ? launch_fused<T, 16>(MEC_FUSED_ARGS)                                  \
-            : bm == 32 ? launch_fused<T, 32>(MEC_FUSED_ARGS)                       \
-                       : launch_fused<T, 64>(MEC_FUSED_ARGS))
-  switch (dtype) {
-    case kF32: return MEC_FUSED_BM(float);
-    case kBF16: return MEC_FUSED_BM(__nv_bfloat16);
-    case kF16: return MEC_FUSED_BM(__half);
-    default: return cudaErrorInvalidValue;
-  }
-#undef MEC_FUSED_BM
-#undef MEC_FUSED_ARGS
+  MmaLaunch L;
+  return run_mma(false, dtype, inp, ker, out, i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w,
+                 o_h, o_w, w_blk, 1, static_cast<cudaStream_t>(stream), &L);
 }
 
 int mec_fused2(const void* inp, const void* ker, void* out, int dtype, long long i_n,
@@ -658,17 +588,9 @@ int mec_fused2(const void* inp, const void* ker, void* out, int dtype, long long
       w_blk > o_w || oh_blk > o_h || (o_h - 1) * s_h + k_h > i_h ||
       (o_w - 1) * s_w + k_w > i_w)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MEC_FUSED2_ARGS                                                             \
-  inp, ker, out, i_n, (int)i_h, (int)i_w, (int)i_c, (int)k_h, (int)k_w, (int)k_c,  \
-      (int)s_h, (int)s_w, (int)o_h, (int)o_w, (int)w_blk, (int)oh_blk, st
-  switch (dtype) {
-    case kF32: return launch_fused2<float>(MEC_FUSED2_ARGS);
-    case kBF16: return launch_fused2<__nv_bfloat16>(MEC_FUSED2_ARGS);
-    case kF16: return launch_fused2<__half>(MEC_FUSED2_ARGS);
-    default: return cudaErrorInvalidValue;
-  }
-#undef MEC_FUSED2_ARGS
+  MmaLaunch L;
+  return run_mma(true, dtype, inp, ker, out, i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w,
+                 o_h, o_w, w_blk, oh_blk, static_cast<cudaStream_t>(stream), &L);
 }
 
 // The tr x tc sub-tile mec_fused2 runs for an oh_blk x w_blk block on the
@@ -676,13 +598,37 @@ int mec_fused2(const void* inp, const void* ker, void* out, int dtype, long long
 int mec_fused2_tile(long long oh_blk, long long w_blk, long long k_h, long long k_w,
                     long long s_h, long long s_w, int* tr, int* tc) {
   if (!dims_ok({oh_blk, w_blk, k_h, k_w, s_h, s_w})) return cudaErrorInvalidValue;
-  int optin = 0;
-  cudaError_t err = smem_optin(&optin);
+  int optin = 0, sms = 0;
+  cudaError_t err = device_limits(&optin, &sms);
   if (err != cudaSuccess) return err;
-  return fused2_tile((int)oh_blk, (int)w_blk, (int)k_h, (int)k_w, (int)s_h, (int)s_w,
-                     optin, tr, tc) == 0
-             ? cudaErrorInvalidValue
-             : cudaSuccess;
+  return fused2_tile((int)oh_blk, (int)w_blk, (int)k_w, (int)s_w, optin, tr, tc)
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// What mec_fused (kernel = 1) or mec_fused2 (kernel = 4) would launch for
+// this geometry on the current device, with 16-byte-aligned operands; it
+// launches nothing.  out[0..9] = tr, tc, MMA tile rows, compact (0/1),
+// chunk (channels, or the padded k_w*i_c run), chunks, cluster split,
+// shared memory bytes, input copy width, kernel copy width.
+int mec_fused_config(int kernel, int dtype, long long i_n, long long i_h, long long i_w,
+                     long long i_c, long long k_h, long long k_w, long long k_c,
+                     long long s_h, long long s_w, long long o_h, long long o_w,
+                     long long w_blk, long long oh_blk, long long* out) {
+  if ((kernel != 1 && kernel != 4) ||
+      !dims_ok({i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w, w_blk, oh_blk}) ||
+      w_blk > o_w || oh_blk > o_h)
+    return cudaErrorInvalidValue;
+  MmaLaunch L;
+  const cudaError_t err =
+      run_mma(kernel == 4, dtype, nullptr, nullptr, nullptr, i_n, i_h, i_w, i_c, k_h, k_w,
+              k_c, s_h, s_w, o_h, o_w, w_blk, kernel == 4 ? oh_blk : 1, nullptr, &L);
+  if (err != cudaSuccess) return err;
+  const mec_mma::Params& p = L.p;
+  const long long vals[10] = {p.tr, p.tc, L.bm, p.compact, p.cc, p.nchunk, p.split,
+                              (long long)L.smem, p.compact ? 16 : p.vin, p.vk};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return cudaSuccess;
 }
 
 int mec_gemm(const void* low, const void* ker, void* out, int dtype, long long i_n,

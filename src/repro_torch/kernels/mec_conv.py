@@ -16,9 +16,13 @@ wrapper              replaces (src/repro/kernels/mec_conv.py)      bound
 ===================  ============================================  ==========
 
 The design notes (what bounds each kernel on the card and what its
-design does about it) head ``csrc/mec_conv.cu``.  The kernels accumulate
-in IEEE f32 and write the output in the input dtype, which fuses the
-TPU wrappers' final casts.
+design does about it) head ``csrc/mec_conv.cu``.  Every kernel
+accumulates in f32 and writes the output in the input dtype, which fuses
+the TPU wrappers' final casts.  K1 and K4 multiply on the tensor cores:
+bf16/f16 products are exact in f32; f32 operands are split into two
+TF32 halves and multiplied as three TF32 products (hi*hi + hi*lo +
+lo*hi), which keeps the f32 contract.  K2, K3 and K5 run IEEE f32 on the
+CUDA cores.
 """
 from __future__ import annotations
 
@@ -43,8 +47,10 @@ def _lib() -> ctypes.CDLL:
     lib.mec_fused2.argtypes = [ptr, ptr, ptr, i32] + [i64] * 13 + [ptr]
     lib.mec_gemm.argtypes = [ptr, ptr, ptr, i32] + [i64] * 9 + [ptr]
     lib.mec_fused2_tile.argtypes = [i64] * 6 + [ctypes.POINTER(i32)] * 2
+    lib.mec_fused_config.argtypes = [i32, i32] + [i64] * 13 + [
+        ctypes.POINTER(i64)]
     for fn in (lib.mec_lower, lib.mec_fused, lib.mec_fused2, lib.mec_gemm,
-               lib.mec_fused2_tile):
+               lib.mec_fused2_tile, lib.mec_fused_config):
         fn.restype = i32
     lib.mec_error_string.argtypes = [i32]
     lib.mec_error_string.restype = ctypes.c_char_p
@@ -235,6 +241,35 @@ def fused2_tile(oh_blk: int, w_blk: int, k_h: int, k_w: int, s_h: int,
         raise RuntimeError(f"mec_fused2_tile: CUDA error {rc} "
                            f"({_lib().mec_error_string(rc).decode()})")
     return tr.value, tc.value
+
+
+#: the fields of :func:`fused_config`, in the C entry's order
+FUSED_CONFIG_FIELDS = ("tr", "tc", "mma_rows", "compact", "chunk", "chunks",
+                       "split", "smem_bytes", "input_copy_bytes",
+                       "kernel_copy_bytes")
+
+
+def fused_config(kernel: int, dtype: torch.dtype, inp_shape, kernel_shape,
+                 stride=1, w_blk: int = 64, oh_blk: int = 8) -> dict:
+    """What K1 (``kernel=1``) or K4 (``kernel=4``) runs for this geometry
+    on the current CUDA device, with 16-byte-aligned operands: the
+    sub-tile (``tr`` x ``tc``), the MMA tile's rows, the reduction path
+    (``compact``: over the k_w*i_c run; else channel chunks), the chunk
+    and the number of chunks, the cluster ``split`` of the reduction, the
+    shared memory and the copy widths.  It launches nothing."""
+    i_n, i_h, i_w, i_c = inp_shape
+    k_h, k_w, _, k_c = kernel_shape
+    s_h, s_w = (stride, stride) if isinstance(stride, int) else stride
+    o_h, o_w = (i_h - k_h) // s_h + 1, (i_w - k_w) // s_w + 1
+    w_blk, oh_blk = min(w_blk, o_w), min(oh_blk, o_h)
+    vals = (ctypes.c_longlong * len(FUSED_CONFIG_FIELDS))()
+    rc = _lib().mec_fused_config(kernel, _DTYPE_CODE[dtype], i_n, i_h, i_w,
+                                 i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w, w_blk,
+                                 oh_blk, vals)
+    if rc != 0:
+        raise RuntimeError(f"mec_fused_config: CUDA error {rc} "
+                           f"({_lib().mec_error_string(rc).decode()})")
+    return dict(zip(FUSED_CONFIG_FIELDS, vals))
 
 
 # ---------------------------------------------------------------------------

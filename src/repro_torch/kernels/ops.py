@@ -11,19 +11,23 @@ from repro_torch.kernels.mec_conv1d import mec_conv1d
 
 #: H100 SXM: streaming multiprocessors
 N_SMS = 132
-#: output channels per CTA (csrc/mec_conv.cu kBN)
+#: output channels per CTA (csrc/mec_conv.cu kBN, csrc/mec_mma.cuh kBN)
 CTA_CHANNELS = 64
-#: the largest output sub-tile a CTA computes at once (kernel tile_rows)
+#: K3: the largest output sub-tile a CTA computes at once (tile_rows)
 CTA_TILE_ROWS = 64
-#: the smallest sub-tile: a block narrower than this idles rows
+#: K3: the smallest sub-tile: a block narrower than this idles rows
 MIN_TILE_ROWS = 16
-#: K4: output positions (rows x columns) per CTA sub-tile, the launcher's
-#: kFused2MaxPos (``mec_conv.fused2_tile`` reads back what it runs)
+#: K1/K4: output positions of the largest MMA tile (mec_mma.cuh kMaxBM);
+#: K4's launcher caps its sub-tile at this many (rows x columns)
 CTA_POSITIONS = 128
 #: K4: output rows per CTA sub-tile, the launcher's kFused2MaxRows
 CTA_ROWS = 16
-#: K4: the picker keeps at least this many positions, 2 per thread row
-MIN_POSITIONS = 32
+#: K1/K4: positions of the smallest MMA tile (one m16 tile)
+MIN_POSITIONS = 16
+#: K1: the picker halves a block only down to two m16 tiles
+MIN_FUSED_COLUMNS = 32
+#: K1/K4: the most CTAs of a cluster that split one tile's reduction
+MAX_SPLIT = 4
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -31,14 +35,14 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def pick_w_blk(o_w: int, k_c: int, i_n: int, o_h: int) -> int:
-    """Output columns per CTA for the K1/K3 kernels on the H100.
+    """Output columns per CTA for the K3 kernel on the H100 (K1 and K4
+    take :func:`pick_fused_w_blk`).
 
     The TPU picker filled a slice of VMEM with the accumulator; on Hopper
     the limits are other ones.  A CTA keeps a (sub-tile x 64-channel) f32
     accumulator in registers, 16 per thread for the 64-row tile, far
-    below the 255-register cap; its shared memory is the K1 input span
-    and kernel slab of one channel chunk, which the kernel sizes to at most
-    48 KB of the 227 KB a block may use.  So the block is the sub-tile
+    below the 255-register cap; its shared memory is a 32-deep slice of
+    the L window and of K, under 25 KB of the 227 KB a block may use.  So the block is the sub-tile
     (at most 64 columns, never wider than o_w) and what remains to size is
     parallelism: the block is halved, down to 16 columns, until the grid
     (n * o_h * ceil(o_w / w_blk) * ceil(k_c / 64) CTAs) covers the 132 SMs
@@ -51,27 +55,49 @@ def pick_w_blk(o_w: int, k_c: int, i_n: int, o_h: int) -> int:
     return blk
 
 
+def pick_fused_w_blk(o_w: int, k_c: int, i_n: int, o_h: int) -> int:
+    """Output columns per CTA for the tensor-core kernels K1 and K4 on the
+    H100 (K3 keeps :func:`pick_w_blk`).
+
+    A K1 CTA computes one output row x ``w_blk`` columns x 64 channels on
+    the tensor cores, in MMA tiles of 16, 32, 64 or 128 positions, with
+    its f32 accumulators in registers.  Every CTA stages the kernel slab
+    of its 64 channels for each of its steps from L2, whatever its tile,
+    so L2 traffic falls as the tile grows: the block is the largest MMA
+    tile (128 columns, never wider than o_w).  Parallelism comes next: the
+    block is halved, down to 32 columns (two m16 tiles), only while even a
+    cluster split of 4 (the launcher's, which fills SMs without narrowing
+    the tile) leaves the grid (n * o_h * ceil(o_w / w_blk) * ceil(k_c /
+    64) CTAs) short of one CTA per SM.
+    """
+    blk = max(1, min(o_w, CTA_POSITIONS))
+    others = i_n * o_h * _ceil_div(k_c, CTA_CHANNELS)
+    while (blk > MIN_FUSED_COLUMNS
+           and MAX_SPLIT * others * _ceil_div(o_w, blk) < N_SMS):
+        blk = max(MIN_FUSED_COLUMNS, _ceil_div(blk, 2))
+    return blk
+
+
 def pick_oh_blk(o_h: int, o_w: int, w_blk: int, k_c: int, i_n: int) -> int:
     """Output rows per CTA for the K4 kernel on the H100, given its
-    ``w_blk`` output columns.
+    ``w_blk`` output columns (from :func:`pick_fused_w_blk`).
 
     A K4 CTA computes a sub-tile of at most 128 output positions (rows x
-    columns) flattened onto its 16 thread rows, so a thread holds up to
-    8 positions x 4 channels: 32 f32 accumulators, far below the
-    255-register cap.  Every row of the block up to 16 shares one staged
-    copy of its input rows, which the kernel sizes against the 96 KB that
-    lets two CTAs share an SM (the 227 KB opt-in where one channel needs
-    more).  So the block takes as many rows as fill 128 positions with
-    ``w_blk`` columns; narrow layers (cv11: 12 columns, cv12: 5) thereby
-    fill the thread rows that K1 leaves idle.  Then parallelism: the
-    rows are halved while the grid (n * ceil(o_h / oh_blk) * ceil(o_w /
-    w_blk) * ceil(k_c / 64) CTAs) is short of one CTA per SM, as long
-    as the block keeps 32 positions (2 per thread row).
+    columns, the largest MMA tile) by 64 channels on the tensor cores;
+    every step stages, for each row of the sub-tile, the input row it
+    needs, and one kernel slab that all of them share.  So the block
+    takes as many rows as fill 128 positions with ``w_blk`` columns (at
+    most 16 rows): narrow layers (cv11: 12 columns, cv12: 5) fill the MMA
+    tile that one output row leaves mostly empty, and the kernel slab is
+    staged once for all of them.  Then parallelism: the rows are halved
+    only while even a cluster split of 4 leaves the grid (n * ceil(o_h /
+    oh_blk) * ceil(o_w / w_blk) * ceil(k_c / 64) CTAs) short of one CTA
+    per SM, as long as the block keeps one m16 tile (16 positions).
     """
     w_blk = max(1, min(w_blk, o_w))
     blk = max(1, min(o_h, CTA_POSITIONS // w_blk, CTA_ROWS))
     others = i_n * _ceil_div(o_w, w_blk) * _ceil_div(k_c, CTA_CHANNELS)
-    while (others * _ceil_div(o_h, blk) < N_SMS
+    while (MAX_SPLIT * others * _ceil_div(o_h, blk) < N_SMS
            and _ceil_div(blk, 2) * w_blk >= MIN_POSITIONS and blk > 1):
         blk = _ceil_div(blk, 2)
     return blk
@@ -96,7 +122,8 @@ def mec_conv2d_cuda(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     o_h = (inp.shape[1] - k_h) // s_h + 1
     o_w = (i_w - k_w) // s_w + 1
     if w_blk is None:
-        w_blk = pick_w_blk(o_w, k_c, inp.shape[0], o_h)
+        pick = pick_w_blk if mode == "lowered" else pick_fused_w_blk
+        w_blk = pick(o_w, k_c, inp.shape[0], o_h)
     elif not 1 <= w_blk <= max(o_w, 1):
         raise ValueError(f"w_blk must be in [1, o_w={o_w}], got {w_blk}")
     if mode == "fused":

@@ -158,10 +158,156 @@ def test_fused2_launcher_runs_the_picked_block(cuda):
         for ih, iw, _, kh, kw, kc, s, *_ in geoms:
             s_h, s_w = _strides(s)
             o_h, o_w = (ih - kh) // s_h + 1, (iw - kw) // s_w + 1
-            w_blk = ops.pick_w_blk(o_w, kc, batch, o_h)
+            w_blk = ops.pick_fused_w_blk(o_w, kc, batch, o_h)
             oh_blk = ops.pick_oh_blk(o_h, o_w, w_blk, kc, batch)
             assert K.fused2_tile(oh_blk, w_blk, kh, kw, s_h, s_w) == \
                 (oh_blk, w_blk), (ih, iw, kh, kw, s, batch)
+
+
+def _fused_pair(x, k, s):
+    """K1 and K4 at the pickers' blocks: (kernel, run, plain, config)."""
+    s_h, s_w = _strides(s)
+    i_n, i_h, i_w, _ = x.shape
+    k_h, k_w, _, k_c = k.shape
+    o_h, o_w = (i_h - k_h) // s_h + 1, (i_w - k_w) // s_w + 1
+    w_blk = ops.pick_fused_w_blk(o_w, k_c, i_n, o_h)
+    oh_blk = ops.pick_oh_blk(o_h, o_w, w_blk, k_c, i_n)
+    return (
+        (1, lambda: K.mec_conv_fused(x, k, s, w_blk=w_blk),
+         lambda: K.mec_conv_fused_plain(x, k, s),
+         K.fused_config(1, x.dtype, x.shape, k.shape, s, w_blk, oh_blk)),
+        (4, lambda: K.mec_conv_fused2(x, k, s, w_blk=w_blk, oh_blk=oh_blk),
+         lambda: K.mec_conv_fused2_plain(x, k, s, oh_blk),
+         K.fused_config(4, x.dtype, x.shape, k.shape, s, w_blk, oh_blk)))
+
+
+def _check_fused_pair(x, k, s, dtype, reduction):
+    """Each of K1 and K4 within the contract against the f64 oracle and 2x
+    it against its plain version; returns their configs."""
+    tol = fwd_tolerance("mec_fused", dtype, reduction)
+    oracle = ref.conv2d_f64(x, k, s)
+    configs = {}
+    for kernel, run, plain, cfg in _fused_pair(x, k, s):
+        y = run()
+        torch.cuda.synchronize()
+        assert y.dtype == x.dtype and y.shape == oracle.shape
+        assert ref.scaled_error(y, oracle) <= tol, (kernel, cfg)
+        assert ref.scaled_error(y, plain()) <= 2 * tol, (kernel, cfg)
+        configs[kernel] = cfg
+    return configs
+
+
+# cv11 and cv12 (Table 2), whose grids are short of the SMs: the launcher
+# splits their reduction across a thread-block cluster.
+SPLIT_LAYERS = {"cv11": (14, 14, 256, 3, 3, 256, 1),
+                "cv12": (7, 7, 512, 3, 3, 512, 1)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("layer", list(SPLIT_LAYERS))
+def test_fused_kernels_split_the_reduction_over_a_cluster(cuda, layer, batch,
+                                                          dtype):
+    """K1 and K4 on cv11 and cv12 at batch 1 and 16: within the contract,
+    with the reduction split across a cluster where the grid is short of
+    the SMs (both kernels at batch 1, K4 at batch 16), and equal to the
+    bit on a second run (the leader adds the partial sums in rank
+    order)."""
+    geom = SPLIT_LAYERS[layer]
+    x, k = _operands(geom, dtype, cuda, batch=batch)
+    configs = _check_fused_pair(x, k, 1, dtype, 9 * geom[2])
+    assert configs[4]["split"] > 1
+    assert batch == 16 or configs[1]["split"] > 1
+    for _, run, _, _ in _fused_pair(x, k, 1):
+        assert torch.equal(run(), run())
+
+
+# (ih, iw, ic, kh, kw, kc, stride): i_c = 3 at s_w = 4 (rows of 12 or 6
+# bytes, window starts off every alignment), an odd i_c past the compact
+# path (2-byte copies in bf16/f16), an i_c whose rows take 8-byte copies.
+UNALIGNED = [(31, 43, 3, 11, 11, 16, 4), (10, 21, 37, 3, 3, 20, 2),
+             (9, 30, 20, 3, 5, 12, (1, 3))]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("geom", UNALIGNED, ids=["ic3_sw4", "ic37", "ic20"])
+def test_fused_kernels_on_unaligned_channels(cuda, geom, dtype):
+    x, k = _operands(geom, dtype, cuda)
+    _check_fused_pair(x, k, _strides(geom[6]), dtype,
+                      geom[2] * geom[3] * geom[4])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("i_c", [4, 32])
+@pytest.mark.parametrize("k_c", [1, 3, 5, 6])
+def test_fused_kernels_with_fewer_channels_than_an_mma_tile(cuda, k_c, i_c,
+                                                            dtype):
+    """k_c below the n8 MMA tile, on the compact (i_c = 4) and the channel
+    (i_c = 32) path."""
+    geom = (10, 11, i_c, 3, 3, k_c, 1)
+    x, k = _operands(geom, dtype, cuda)
+    _check_fused_pair(x, k, 1, dtype, 9 * i_c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("i_c", [3, 40])
+def test_fused_kernels_take_a_misaligned_input_view(cuda, i_c, dtype):
+    """An input that starts one element into its storage: the compact
+    path stages from the 16-byte boundary below each row, the channel path
+    narrows its copies."""
+    shape = (2, 12, 13, i_c)
+    n = 2 * 12 * 13 * i_c
+    g = torch.Generator(cuda).manual_seed(11)
+    flat = torch.randn((n + 1,), generator=g, device=cuda).to(DTYPES[dtype])
+    x = flat[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    k = (torch.randn((3, 3, i_c, 24), generator=g, device=cuda)
+         * (9 * i_c) ** -0.5).to(DTYPES[dtype])
+    _check_fused_pair(x, k, 1, dtype, 9 * i_c)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("i_c", [3, 40])
+def test_fused_kernels_keep_an_inf_to_the_windows_that_hold_it(cuda, i_c, dtype):
+    """An Inf just past the first window of a row, on the compact (i_c = 3,
+    whose MMA depth runs past k_w*i_c into the next columns) and the channel
+    path: the outputs whose windows hold it are not finite, all others are
+    finite and within the contract of the oracle on the input without it."""
+    geom = (10, 12, i_c, 3, 3, 16, 1)
+    x, k = _operands(geom, dtype, cuda)
+    inf_h, inf_w = 2, 5
+    clean = x.clone()
+    clean[0, inf_h, inf_w, 0] = 0
+    x[0, inf_h, inf_w, 0] = float("inf")
+    oracle = ref.conv2d_f64(clean, k, 1)
+    holds = torch.zeros(oracle.shape[:3], dtype=torch.bool, device=cuda)
+    holds[0, inf_h - 2:inf_h + 1, inf_w - 2:inf_w + 1] = True
+    tol = fwd_tolerance("mec_fused", dtype, 9 * i_c)
+    for kernel, run, _, cfg in _fused_pair(x, k, 1):
+        assert cfg["compact"] == (i_c <= 16), (kernel, cfg)
+        y = run()
+        torch.cuda.synchronize()
+        assert not torch.isfinite(y[holds]).any(), (kernel, cfg)
+        assert torch.isfinite(y[~holds]).all(), (kernel, cfg)
+        assert ref.scaled_error(y[~holds], oracle[~holds]) <= tol, (kernel, cfg)
+
+
+def test_fused_kernels_take_inputs_past_2_31_bytes(cuda):
+    """A bf16 input of 2.17 GB: 64-bit offsets.  The last output rows of
+    the last image against the plain version on the rows they read."""
+    g = torch.Generator(cuda).manual_seed(13)
+    x = torch.randn((2, 1030, 1030, 512), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    assert x.numel() * x.element_size() > 2 ** 31
+    k = (torch.randn((3, 3, 512, 8), generator=g, device=cuda)
+         * (9 * 512) ** -0.5).to(torch.bfloat16)
+    tol = fwd_tolerance("mec_fused", "bfloat16", 9 * 512)
+    want = K.mec_conv_fused_plain(x[1:, -6:], k, 1)
+    for kernel, run, _, _ in _fused_pair(x, k, 1):
+        y = run()[1:, -4:]
+        torch.cuda.synchronize()
+        assert ref.scaled_error(y, want) <= 2 * tol, kernel
+        del y
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -174,6 +174,71 @@ def test_plain_versions_against_f64_oracle(geom, dtype):
         assert ref.scaled_error(y4, oracle) <= tol
 
 
+# ---------------------------------------------------------------------------
+# K1/K4's f32 arithmetic: three TF32 products on the tensor cores
+# ---------------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 as bit rounding: round the f32 mantissa to 10 bits,
+    ties away from zero (the 13 dropped bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _three_tf32(plain, x, k, *args):
+    """What K1/K4 compute for f32 operands: each operand split as hi =
+    tf32(v), lo = tf32(v - hi), and the conv taken as lo*hi + hi*lo +
+    hi*hi, three convs of TF32 operands (whose products are exact in f32)
+    each accumulated in f32 by ``plain``."""
+    x_hi, k_hi = _tf32(x), _tf32(k)
+    x_lo, k_lo = _tf32(x - x_hi), _tf32(k - k_hi)
+    return (plain(x_lo, k_hi, *args) + plain(x_hi, k_lo, *args)
+            + plain(x_hi, k_hi, *args))
+
+
+SPLIT_GEOMS = ([(f"sweep{i}", g) for i, g in enumerate(SWEEP)]
+               + list(EDGE_GEOMS.items()) + list(TABLE2_SMALL.items()))
+
+
+def test_tf32_rounding_helper_rounds_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10                       # TF32's unit in the last place
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + ulp * 0.75, 3.0])
+    assert _tf32(x).tolist() == [one + ulp, -(one + ulp), one, one + ulp, 3.0]
+
+
+@pytest.mark.parametrize("name,geom", SPLIT_GEOMS,
+                         ids=[n for n, _ in SPLIT_GEOMS])
+def test_three_tf32_split_holds_the_f32_contract(name, geom):
+    """K1's and K4's plain versions through the three-product split, on
+    the kernel sweep, F1's geometries and k_h < s_h, and the Table-2
+    layers cut to <= 32x32 spatial and <= 8 channels, against the JAX
+    package's oracle ``conv2d_ref``: within the f32 contract."""
+    kh, kw, ic, s = geom[3], geom[4], geom[2], geom[6]
+    jx, jk, tx, tk = _operands(geom, "float32")
+    want = _to_torch(j_conv2d_ref(jx, jk, s))
+    tol = fwd_tolerance("mec_fused", "float32", kh * kw * ic)
+    y1 = _three_tf32(K.mec_conv_fused_plain, tx, tk, s)
+    y4 = _three_tf32(K.mec_conv_fused2_plain, tx, tk, s, 3)
+    assert ref.scaled_error(y1, want) <= tol
+    assert ref.scaled_error(y4, want) <= tol
+
+
+def test_one_tf32_product_misses_the_f32_contract_at_cv11():
+    """Why the kernels spend three products: one TF32 product per
+    multiply-add misses the f32 budget at cv11's reduction (3 x 3 x 256),
+    by more than 10x, where the three-product split keeps it."""
+    geom = (8, 8, 256, 3, 3, 8, 1)
+    jx, jk, tx, tk = _operands(geom, "float32")
+    want = _to_torch(j_conv2d_ref(jx, jk, 1))
+    tol = fwd_tolerance("mec_fused", "float32", 3 * 3 * 256)
+    one = K.mec_conv_fused_plain(_tf32(tx), _tf32(tk), 1)
+    assert ref.scaled_error(one, want) > 10 * tol
+    three = _three_tf32(K.mec_conv_fused_plain, tx, tk, 1)
+    assert ref.scaled_error(three, want) <= tol
+
+
 @pytest.mark.parametrize("mode", ["fused", "fused2", "lowered"])
 @pytest.mark.parametrize("w_blk", [None, 1, 3])
 def test_mec_conv2d_cuda_modes_on_cpu(mode, w_blk):
@@ -243,31 +308,51 @@ def test_pick_w_blk_sizes_for_the_h100(o_w, k_c, i_n, o_h):
     assert ctas >= 1
 
 
+@pytest.mark.parametrize("o_w,k_c,i_n,o_h", [
+    (109, 64, 1, 109), (109, 64, 16, 109), (5, 512, 16, 5), (12, 256, 1, 12),
+    (1, 1, 1, 1), (4096, 8, 1, 1), (54, 64, 1, 54), (26, 128, 16, 26)])
+def test_pick_fused_w_blk_sizes_for_the_h100(o_w, k_c, i_n, o_h):
+    """K1/K4's block is the 128-position MMA tile, halved only while even
+    the launcher's largest cluster split leaves the grid short of one CTA
+    per SM, and never below 32 columns."""
+    blk = ops.pick_fused_w_blk(o_w, k_c, i_n, o_h)
+    full = min(o_w, ops.CTA_POSITIONS)
+    assert 1 <= blk <= full
+    assert blk == full or blk >= ops.MIN_FUSED_COLUMNS
+    if blk < full:
+        # the block before the last halving left the grid short of the SMs
+        prev = min(full, 2 * blk)
+        assert ops.MAX_SPLIT * i_n * o_h * -(-o_w // prev) \
+            * -(-k_c // ops.CTA_CHANNELS) < ops.N_SMS
+
+
 # (o_h, o_w, k_c, i_n): the Table-3 layers at batch 1 and 16, and edges
 @pytest.mark.parametrize("o_h,o_w,k_c,i_n", [
     (109, 109, 64, 1), (109, 109, 64, 16), (54, 54, 64, 16), (26, 26, 128, 16),
     (12, 12, 256, 1), (12, 12, 256, 16), (5, 5, 512, 16), (1, 1, 1, 1),
     (1, 4096, 8, 1), (300, 2, 3, 1)])
 def test_pick_oh_blk_sizes_for_the_h100(o_h, o_w, k_c, i_n):
-    w_blk = ops.pick_w_blk(o_w, k_c, i_n, o_h)
+    w_blk = ops.pick_fused_w_blk(o_w, k_c, i_n, o_h)
     blk = ops.pick_oh_blk(o_h, o_w, w_blk, k_c, i_n)
     assert 1 <= blk <= min(o_h, ops.CTA_ROWS)
     assert blk == 1 or blk * w_blk <= ops.CTA_POSITIONS
     others = i_n * -(-o_w // w_blk) * -(-k_c // ops.CTA_CHANNELS)
     full = max(1, min(o_h, ops.CTA_POSITIONS // w_blk, ops.CTA_ROWS))
     if blk < full:
-        # halved only while the grid was short of one CTA per SM (the block
-        # before the last halving was 2 * blk - 1 or 2 * blk rows)
-        assert others * -(-o_h // (2 * blk)) < ops.N_SMS
+        # halved only while even the largest cluster split left the grid
+        # short of one CTA per SM (the block before the last halving was
+        # 2 * blk - 1 or 2 * blk rows), and never below one m16 MMA tile
+        assert ops.MAX_SPLIT * others * -(-o_h // (2 * blk)) < ops.N_SMS
         assert blk * w_blk >= ops.MIN_POSITIONS
 
 
 def test_pick_oh_blk_fills_narrow_layers():
-    """cv11 and cv12 at batch 16 stack output rows into one CTA: 60 and
-    25 positions, where K1 runs 12 and 5."""
-    assert ops.pick_oh_blk(12, 12, 12, 256, 16) == 5
+    """cv11 and cv12 at batch 16 stack output rows into one CTA: 120 and
+    25 positions, where K1 runs 12 and 5; cv4's 109 columns fill the
+    128-position MMA tile alone."""
+    assert ops.pick_oh_blk(12, 12, 12, 256, 16) == 10
     assert ops.pick_oh_blk(5, 5, 5, 512, 16) == 5
-    assert ops.pick_oh_blk(109, 109, 64, 64, 16) == 2
+    assert ops.pick_oh_blk(109, 109, 109, 64, 16) == 1
 
 
 def test_build_names_sources_and_hashes_them():
