@@ -16,7 +16,7 @@ the script exits non-zero without its last line:
              twelve Table-2 layers at full width, batch 1, in f32, bf16
              and f16; K4's launcher runs the pickers' block as one
              sub-tile.  Then K5 (causal depthwise conv1d) against its plain
-             version and an f64 oracle: the kernel test cases and fault
+             version (to the bit) and an f64 oracle: the kernel test cases and fault
              F2's k_w = 1 in f32, bf16 and f16; the zamba2-7b conv input
              (4, 512, 7296, k_w = 4), a column slice of the in_proj
              output, in all three; and the long_500k input (1, 524288,
@@ -47,20 +47,23 @@ the script exits non-zero without its last line:
              ``conv_impl="lowered"`` (plain L): last-token logits within
              2e-2 of the fused path.  A prefill of 384 tokens plus 128
              decode steps against a prefill of all 512: rel <= 2e-2.  K5
-             on layer 0's real conv input against its plain version.
+             on layer 0's real conv input against its plain version, with
+             16-byte vectors.
              Memory: one K5 call allocates its output and nothing else,
              the lowered conv1d L plus the output.
-7. timing  - each conv2d kernel at each Table-3 layer, batch 1 and 16, and
-             K5 at the zamba2-7b shape, with CUDA events (median of 15
-             after 3 warm-up calls), beside its plain version, one library
-             call and its bound.  K1's and K4's bound is that of their
-             own arithmetic on the tensor cores (three TF32 products a
-             multiply-add), with the CUDA cores' f32 bound beside it; they
-             also get the launch configuration they ran (tile, reduction
-             path, chunk, cluster split), a check that two runs give
-             equal bits, and, at batch 16, their bf16 time beside cuDNN's
-             in bf16, each output first checked against the f64 oracle
-             and the plain version.
+7. timing  - each conv2d kernel at each Table-3 layer, batch 1 and 16,
+             with CUDA events (median of 15 after 3 warm-up calls),
+             beside its plain version, one library call and its bound.
+             K1's, K3's and K4's bound is that of their own arithmetic on
+             the tensor cores (three TF32 products a multiply-add), with
+             the CUDA cores' f32 bound beside it; they also get the launch
+             configuration they ran (tile, reduction path, chunk, cluster
+             split), a check that two runs give equal bits, and, at batch
+             16, their bf16 time beside their library call's in bf16,
+             each output first checked against the f64 oracle and the
+             plain version.  K5 at the zamba2-7b shape on the L2-cold
+             timer (``cold_ms``), beside its plain version, cuDNN, two
+             copies of the same bytes and its bound.
 8. profile - one zamba2-7b prefill and four decode steps traced with
              ``torch.profiler``: device time by kernel, launches, and the
              device's busy share of the host-clock window.
@@ -144,6 +147,10 @@ TRAIN_ARGS = ["--algorithm", "mec_fused2"]
 TRAIN_STEPS = 200
 TIMING_BATCHES = (1, 16)
 WARMUP, ITERS = 3, 15
+# The L2-cold timer (cold_ms): launches between one pair of events, over a
+# ring of operands spanning twice the H100's 50 MB L2.
+COLD_CALLS = 24
+COLD_RING_BYTES = 2 * 50 * 2 ** 20
 DEVICE = "cuda"
 
 # Data-sheet peaks by card name: dense f32 on the CUDA cores, device memory
@@ -222,6 +229,104 @@ def time_ms(fn) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def cold_ms(fn, ring, calls: int = COLD_CALLS) -> dict:
+    """Device time of one call of a short kernel whose operands the L2 does
+    not hold, as its real caller finds them.  ``ring`` is a list of
+    argument tuples that together span at least COLD_RING_BYTES of what
+    the calls read and write; ``calls`` launches, walking the ring (each
+    slot's output is kept until the slot comes round again, so the outputs
+    cycle too), run between one pair of CUDA events, ITERS times.  Before
+    each pair the card sleeps for twice the host's time to enqueue the
+    launches, so the reading holds no host launch overhead.  Returns the
+    median, min and max per call, in ms."""
+    m = len(ring)
+    outs = [None] * m
+
+    def run():
+        for i in range(calls):
+            outs[i % m] = fn(*ring[i % m])
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # the sleep's cycles a millisecond, from one timed sleep
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(10 ** 7 / start.elapsed_time(end) * (2 * host_s * 1e3 + 1))
+    pairs = []
+    for _ in range(ITERS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        run()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    per_call = [s.elapsed_time(e) / calls for s, e in pairs]
+    return {"ms": statistics.median(per_call), "min_ms": min(per_call),
+            "max_ms": max(per_call), "calls": calls, "ring": m}
+
+
+def ring_slots(bytes_per_call: int) -> int:
+    """Slots of a ring whose calls together touch COLD_RING_BYTES."""
+    return max(2, math.ceil(COLD_RING_BYTES / bytes_per_call))
+
+
+def conv1d_timing(C, gen, kw: int, peak_flops: float, peak_bw: float,
+                  check_plain: bool = True) -> dict:
+    """K5, its plain version and cuDNN's depthwise conv1d (one library call
+    on a contiguous (n, c, t) copy, the copy not timed) at the zamba2-7b
+    conv input in bf16, a column slice of the in_proj output as the model
+    passes it, each on the L2-cold timer; K5's output and cuDNN's are
+    checked against the plain version first.  Beside them, two copies of
+    the same bytes with no arithmetic: the slice's copy into a contiguous
+    tensor (``copy_ms``, PyTorch's strided copy kernel) and a clone of a
+    contiguous tensor of the conv's size (``memcpy_ms``, a device-to-device
+    memcpy), what streaming them takes on this card in practice.  ``C`` is
+    the module ``repro_torch.kernels.mec_conv1d``; ``check_plain=False``
+    skips K5's check, for a probe's variant that is wrong by design."""
+    n, t, c = SERVE_BATCH, SERVE_PROMPT, CONV_HI - CONV_LO
+    es = torch.tensor([], dtype=torch.bfloat16).element_size()
+    flops, nbytes = 2 * kw * n * t * c, (2 * n * t * c + kw * c) * es
+    k = torch.randn((kw, c), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    xs = [torch.randn((n, t, IN_PROJ), generator=gen, device=DEVICE,
+                      dtype=torch.bfloat16)[..., CONV_LO:CONV_HI]
+          for _ in range(ring_slots(nbytes))]
+    check(not check_plain or torch.equal(C.mec_conv1d(xs[0], k),
+                                         C.mec_conv1d_plain(xs[0], k)),
+          "K5 at the zamba2-7b shape differs from its plain version")
+    w_c1k = k.t().contiguous().unsqueeze(1)
+    x_ncts = [x.permute(0, 2, 1).contiguous() for x in xs]
+
+    def library_conv1d(x_nct):
+        return F.conv1d(x_nct, w_c1k, groups=c, padding=kw - 1)
+
+    lib_y = library_conv1d(x_ncts[0])[..., :t].permute(0, 2, 1)
+    check(torch.allclose(lib_y.double(), C.mec_conv1d_plain(xs[0], k).double(),
+                         rtol=CONV1D_TOL["bfloat16"], atol=CONV1D_TOL["bfloat16"]),
+          "cuDNN's depthwise conv1d does not compute K5's function")
+    del lib_y
+    timed = {"kernel": cold_ms(lambda x: C.mec_conv1d(x, k), [(x,) for x in xs]),
+             "plain": cold_ms(lambda x: C.mec_conv1d_plain(x, k), [(x,) for x in xs]),
+             "library": cold_ms(library_conv1d, [(x,) for x in x_ncts]),
+             "copy": cold_ms(torch.Tensor.contiguous, [(x,) for x in xs]),
+             "memcpy": cold_ms(torch.Tensor.clone, [(x,) for x in x_ncts])}
+    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
+    return {"shape": [n, t, c, kw], "dtype": "bfloat16", "input_row_stride": IN_PROJ,
+            "ms": timed["kernel"]["ms"], "plain_ms": timed["plain"]["ms"],
+            "library_ms": timed["library"]["ms"], "copy_ms": timed["copy"]["ms"],
+            "memcpy_ms": timed["memcpy"]["ms"],
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "timer": "L2-cold", "cold": timed}
+
+
 def lowered_view(x, k_w, s_w):
     """L as a strided view of I: L[n, w, h, q] = I[n, h, s_w*w, q]."""
     n, ih, iw, ic = x.shape
@@ -263,6 +368,8 @@ def conv1d_case(C, ref, name, dname, x, k, window=None):
     ok_p = torch.allclose(y.double(), plain.double(), rtol=tol, atol=tol)
     check(ok_o and ok_p, f"K5 {name} {dname}: outside rtol = atol = {tol} "
           f"(f64 oracle {ok_o}, plain {ok_p})")
+    check(torch.equal(y, plain), f"K5 {name} {dname}: not equal to its plain "
+          f"version to the bit")
     return {"geom": name, "dtype": dname, "tol": tol,
             "max_abs_err_vs_plain": (y.float() - plain.float()).abs().max().item(),
             "bit_exact_vs_plain": bool(torch.equal(y, plain)),
@@ -369,7 +476,7 @@ def main(argv=None) -> int:
     from repro_torch.models import lm as lm_mod, serve as serve_lib
     from repro_torch.models.layers import f32_accumulation, linear, rms_norm
     from repro_torch.kernels.ops import (mec_conv2d_cuda, pick_fused_w_blk,
-                                         pick_oh_blk, pick_w_blk)
+                                         pick_oh_blk)
     from repro_torch.models.layers import init_conv2d
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -406,7 +513,6 @@ def main(argv=None) -> int:
             spec = spec_of(x, k, (s_h, s_w))
             tol = fwd_tolerance("mec_fused", dname, kh * kw * geom[2])
             oracle = ref.conv2d_f64(x, k, (s_h, s_w))
-            w_blk = pick_w_blk(spec.o_w, kc, batch, spec.o_h)
             f_blk = pick_fused_w_blk(spec.o_w, kc, batch, spec.o_h)
             oh_blk = pick_oh_blk(spec.o_h, spec.o_w, f_blk, kc, batch)
             tile = K.fused2_tile(oh_blk, f_blk, kh, kw, s_h, s_w)
@@ -417,7 +523,7 @@ def main(argv=None) -> int:
             y4 = K.mec_conv_fused2(x, k, (s_h, s_w), w_blk=f_blk, oh_blk=oh_blk)
             low = K.mec_lower(x, kw, s_w)
             kmat = k.reshape(kh, kw * geom[2], kc)
-            y3 = K.mec_gemm(low, kmat, kh, s_h, w_blk=w_blk)
+            y3 = K.mec_gemm(low, kmat, kh, s_h)
             torch.cuda.synchronize()
             check(torch.equal(low, K.mec_lower_plain(x, kw, s_w))
                   and torch.equal(low, ref.lower_ref(x, kw, s_w)),
@@ -753,6 +859,9 @@ def main(argv=None) -> int:
             conv_x = zxbcdt[..., CONV_LO:CONV_HI]
             conv_w = p0["conv_w"].to(conv_x.dtype)
             y = C.mec_conv1d(conv_x, conv_w)
+            vector_bytes = C.vector_bytes(conv_x, conv_w, y)
+            check(vector_bytes == 16, f"K5 takes {vector_bytes}-byte vectors on "
+                  f"layer 0's conv input, not 16")
             plain = C.mec_conv1d_plain(conv_x, conv_w)
             k5_abs_err = (y.float() - plain.float()).abs().max().item()
             check(scaled_err(y, plain) <= CONV1D_TOL["bfloat16"],
@@ -766,7 +875,7 @@ def main(argv=None) -> int:
                           (y.float() - y_low.float()).abs().max().item(),
                       "k5_vs_lowered_elements_differing":
                           int((y != y_low).sum().item()),
-                      "elements": y.numel()}
+                      "elements": y.numel(), "vector_bytes": vector_bytes}
             del y_low
             # Memory: K5 allocates its output; the lowered conv1d L + output.
             out_b = conv_x.numel() * conv_x.element_size()
@@ -810,14 +919,16 @@ def main(argv=None) -> int:
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
     def mma_bound(flops, nbytes, dtype):
-        """K1/K4's bound: their arithmetic on the tensor cores, three TF32
-        products a multiply-add for f32, one bf16 product for bf16."""
+        """K1/K3/K4's bound: their arithmetic on the tensor cores, three
+        TF32 products a multiply-add for f32, one bf16 product for bf16."""
         if dtype == torch.float32:
             return bound(TF32_PRODUCTS * flops, nbytes, peak_tf32)
         return bound(flops, nbytes, peak_bf16)
 
+    # the tensor-core kernels, by the number fused_config knows them by
+    mma_kernels = {"mec_conv_fused": 1, "mec_gemm": 3, "mec_conv_fused2": 4}
     shapes = {n: {} for n in KERNEL_ROWS if n != "mec_conv1d"}
-    shapes_bf16 = {"mec_conv_fused": {}, "mec_conv_fused2": {}}
+    shapes_bf16 = {n: {} for n in mma_kernels}
     pair = {}
     for name in RESNET101:
         geom = CV_LAYERS[name]
@@ -826,95 +937,107 @@ def main(argv=None) -> int:
         for batch in TIMING_BATCHES:
             x, k = make_operands(gen, batch, geom, torch.float32)
             spec = spec_of(x, k, (s_h, s_w))
-            w_blk = pick_w_blk(spec.o_w, kc, batch, spec.o_h)
             f_blk = pick_fused_w_blk(spec.o_w, kc, batch, spec.o_h)
             oh_blk = pick_oh_blk(spec.o_h, spec.o_w, f_blk, kc, batch)
             kmat = k.reshape(kh, kw * ic, kc)
             low = K.mec_lower(x, kw, s_w)
-            k_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            x_nchw = x.permute(0, 3, 1, 2)          # NHWC memory = channels_last
-            k_2d = k.reshape(kh * kw * ic, kc)
+            core = K.gemm_core(low.shape, kmat.shape, kh, s_h)
             es = x.element_size()
             n_in, n_k, n_out = x.numel(), k.numel(), math.prod(spec.out_shape)
             n_low = memory.mec_overhead(spec)
             flops = memory.conv_flops(spec)
 
-            def library_conv():
-                with ieee_f32_conv():
-                    return F.conv2d(x_nchw, k_oihw, stride=(s_h, s_w))
+            def kernel_fns(x, k, low, kmat):
+                """(kernel, plain version, library call) of each conv2d
+                kernel on these operands (the library: cuDNN's conv for
+                K1/K4, f32 with TF32 off; matmul on the ld-aliased windows
+                of L for K3; the strided view's copy for K2)."""
+                x_nchw = x.permute(0, 3, 1, 2)      # NHWC memory = channels_last
+                k_oihw = k.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
 
-            lib_conv_ms = time_ms(library_conv)
-            cases = {
-                "mec_conv_fused": (
-                    lambda: K.mec_conv_fused(x, k, (s_h, s_w), w_blk=f_blk),
-                    lambda: K.mec_conv_fused_plain(x, k, (s_h, s_w)),
-                    lib_conv_ms, bound(flops, (n_in + n_k + n_out) * es)),
-                "mec_lower": (
-                    lambda: K.mec_lower(x, kw, s_w),
-                    lambda: K.mec_lower_plain(x, kw, s_w),
-                    time_ms(lambda: lowered_view(x, kw, s_w).contiguous()),
-                    bound(0, (n_in + n_low) * es)),
-                "mec_gemm": (
-                    lambda: K.mec_gemm(low, kmat, kh, s_h, w_blk=w_blk),
-                    lambda: K.mec_gemm_plain(low, kmat, kh, s_h),
-                    time_ms(lambda: torch.matmul(window_view(low, kh, s_h), k_2d)),
-                    bound(flops, (n_low + n_k + n_out) * es)),
-                "mec_conv_fused2": (
-                    lambda: K.mec_conv_fused2(x, k, (s_h, s_w), w_blk=f_blk,
-                                              oh_blk=oh_blk),
-                    lambda: K.mec_conv_fused2_plain(x, k, (s_h, s_w), oh_blk),
-                    lib_conv_ms, bound(flops, (n_in + n_k + n_out) * es)),
-            }
+                def library_conv():
+                    if x.dtype != torch.float32:
+                        return F.conv2d(x_nchw, k_oihw, stride=(s_h, s_w))
+                    with ieee_f32_conv():
+                        return F.conv2d(x_nchw, k_oihw, stride=(s_h, s_w))
+
+                k_2d = k.reshape(kh * kw * ic, kc)
+                return {
+                    "mec_conv_fused": (
+                        lambda: K.mec_conv_fused(x, k, (s_h, s_w), w_blk=f_blk),
+                        lambda: K.mec_conv_fused_plain(x, k, (s_h, s_w)),
+                        library_conv),
+                    "mec_lower": (
+                        lambda: K.mec_lower(x, kw, s_w),
+                        lambda: K.mec_lower_plain(x, kw, s_w),
+                        lambda: lowered_view(x, kw, s_w).contiguous()),
+                    "mec_gemm": (
+                        lambda: K.mec_gemm(low, kmat, kh, s_h),
+                        lambda: K.mec_gemm_plain(low, kmat, kh, s_h),
+                        lambda: torch.matmul(window_view(low, kh, s_h), k_2d)),
+                    "mec_conv_fused2": (
+                        lambda: K.mec_conv_fused2(x, k, (s_h, s_w), w_blk=f_blk,
+                                                  oh_blk=oh_blk),
+                        lambda: K.mec_conv_fused2_plain(x, k, (s_h, s_w), oh_blk),
+                        library_conv)}
+
+            def config(kname, dtype):
+                if kname == "mec_gemm":
+                    return K.gemm_config(dtype, low.shape, kmat.shape, kh, s_h)
+                return K.fused_config(mma_kernels[kname], dtype, x.shape, k.shape,
+                                      (s_h, s_w), f_blk, oh_blk)
+
+            # each function's own bytes: I (K2 reads it, K1/K4 read it with
+            # K and write O), L (K2 writes it, K3 reads it with K), O
+            nbytes = {"mec_conv_fused": (n_in + n_k + n_out) * es,
+                      "mec_lower": (n_in + n_low) * es,
+                      "mec_gemm": (n_low + n_k + n_out) * es,
+                      "mec_conv_fused2": (n_in + n_k + n_out) * es}
+            fns = kernel_fns(x, k, low, kmat)
+            lib_ms = {kname: time_ms(lib) for kname, (_, _, lib) in fns.items()
+                      if kname != "mec_conv_fused2"}
+            lib_ms["mec_conv_fused2"] = lib_ms["mec_conv_fused"]
             # K4's own traffic: I once plus the halo rows that consecutive
             # h-blocks both read, beside K and O.  The bound counts I once.
             halo = max(0, kh - s_h) / (oh_blk * s_h)
-            fused = {"mec_conv_fused": 1, "mec_conv_fused2": 4}
-            for kname, (fn, plain_fn, lib_ms, (b_ms, b_by)) in cases.items():
+            for kname, (fn, plain_fn, _) in fns.items():
+                b_ms, b_by = bound(flops if kname != "mec_lower" else 0,
+                                   nbytes[kname])
                 rec = {"layer": name, "batch": batch,
-                       "w_blk": f_blk if kname in fused else w_blk,
+                       "w_blk": core["oh_blk"] if kname == "mec_gemm" else f_blk,
                        "ms": time_ms(fn), "plain_ms": time_ms(plain_fn),
-                       "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
-                if kname in fused:
+                       "library_ms": lib_ms[kname], "bound_ms": b_ms, "bound_by": b_by}
+                if kname in mma_kernels:
                     # bound_ms is the tensor cores'; the CUDA cores' f32 one
                     # beside it
-                    m_ms, m_by = mma_bound(flops, (n_in + n_k + n_out) * es,
-                                           torch.float32)
-                    rec.update(bound_ms=m_ms, bound_by=m_by,
-                               cuda_core_bound_ms=b_ms, config=K.fused_config(fused[kname], x.dtype, x.shape,
-                                                     k.shape, (s_h, s_w), f_blk,
-                                                     oh_blk))
+                    m_ms, m_by = mma_bound(flops, nbytes[kname], torch.float32)
+                    rec.update(bound_ms=m_ms, bound_by=m_by, cuda_core_bound_ms=b_ms,
+                               config=config(kname, x.dtype))
                     # deterministic: the cluster's partial sums add in rank order
                     check(torch.equal(fn(), fn()),
                           f"{kname} {name} batch {batch}: two runs differ")
+                if kname == "mec_gemm":
+                    rec["h_blk"] = core["w_blk"]
                 if kname == "mec_conv_fused2":
                     rec["oh_blk"] = oh_blk
                     rec["design_bytes"] = (n_in * (1 + halo) + n_k + n_out) * es
                 shapes[kname][(name, batch)] = rec
                 emit({"phase": "timing", "kernel": kname, **rec})
             if batch == SLICE_BATCH:
-                # K1 and K4 in bf16 beside cuDNN in bf16 (kernel and library
-                # only; the plain version is no yardstick)
-                xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
-                xb_nchw = xb.permute(0, 3, 1, 2)
-                kb_oihw = kb.permute(3, 2, 0, 1).contiguous(
-                    memory_format=torch.channels_last)
-                lib_bf16_ms = time_ms(lambda: F.conv2d(xb_nchw, kb_oihw,
-                                                       stride=(s_h, s_w)))
-                b_ms, b_by = mma_bound(flops, (n_in + n_k + n_out) * 2,
-                                       torch.bfloat16)
-                # checked before they are timed: at batch 16 the pickers
+                # K1, K3 and K4 in bf16 beside their library calls in bf16
+                # (kernel and library only; the plain version is no
+                # yardstick), each output first checked against the f64
+                # oracle and the plain version: at batch 16 the pickers
                 # choose other tiles and splits than the kernels phase saw
+                xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
+                lowb, kmatb = low.to(torch.bfloat16), kmat.to(torch.bfloat16)
+                fns_b = kernel_fns(xb, kb, lowb, kmatb)
                 tol_b = fwd_tolerance("mec_fused", "bfloat16", kh * kw * ic)
                 oracle_b = ref.conv2d_f64(xb, kb, (s_h, s_w))
-                for kname, fn, plain_fn in (
-                        ("mec_conv_fused",
-                         lambda: K.mec_conv_fused(xb, kb, (s_h, s_w), w_blk=f_blk),
-                         lambda: K.mec_conv_fused_plain(xb, kb, (s_h, s_w))),
-                        ("mec_conv_fused2",
-                         lambda: K.mec_conv_fused2(xb, kb, (s_h, s_w), w_blk=f_blk,
-                                                   oh_blk=oh_blk),
-                         lambda: K.mec_conv_fused2_plain(xb, kb, (s_h, s_w),
-                                                         oh_blk))):
+                lib_b = {}
+                for kname in mma_kernels:
+                    fn, plain_fn, lib = fns_b[kname]
                     y = fn()
                     e_o = ref.scaled_error(y, oracle_b)
                     e_p = ref.scaled_error(y, plain_fn())
@@ -925,59 +1048,41 @@ def main(argv=None) -> int:
                     check(e_p <= 2 * tol_b,
                           f"{kname} {name} bf16 batch {batch}: error {e_p} vs "
                           f"plain > {2 * tol_b}")
-                    key = (f"K{fused[kname]}", f"bfloat16@{batch}")
+                    key = (f"K{mma_kernels[kname]}", f"bfloat16@{batch}")
                     worst[key] = max(worst.get(key, 0.0), e_o / tol_b,
                                      e_p / (2 * tol_b))
                     del y
+                    if kname == "mec_conv_fused2":
+                        lib_b[kname] = lib_b["mec_conv_fused"]
+                    else:
+                        lib_b[kname] = time_ms(lib)
+                    b_ms, b_by = mma_bound(flops, nbytes[kname] // es * 2,
+                                           torch.bfloat16)
                     rec = {"layer": name, "batch": batch, "dtype": "bfloat16",
                            "err": [e_o, e_p], "tol": tol_b,
-                           "ms": time_ms(fn), "library_ms": lib_bf16_ms,
+                           "ms": time_ms(fn), "library_ms": lib_b[kname],
                            "bound_ms": b_ms, "bound_by": b_by,
-                           "config": K.fused_config(fused[kname], xb.dtype, xb.shape,
-                                                    kb.shape, (s_h, s_w), f_blk,
-                                                    oh_blk)}
+                           "config": config(kname, torch.bfloat16)}
                     shapes_bf16[kname][name] = rec
                     emit({"phase": "timing", "kernel": kname, **rec})
-                del xb, kb, xb_nchw, kb_oihw, oracle_b
+                del xb, kb, lowb, kmatb, fns_b, oracle_b
             pair[(name, batch)] = {
                 "layer": name, "batch": batch,
                 "ms": time_ms(lambda: mec_conv2d_cuda(x, k, (s_h, s_w),
-                                                      mode="lowered", w_blk=w_blk)),
-                "library_ms": lib_conv_ms}
+                                                      mode="lowered")),
+                "library_ms": lib_ms["mec_conv_fused"]}
             emit({"phase": "timing", "kernel": "mec_lower+mec_gemm",
                   **pair[(name, batch)]})
-            del low
+            del low, fns
     # the kernels phase's worst errors with the bf16 checks at batch 16 added
     emit({"phase": "timing", "worst_err_over_tol": {
         f"{k}/{d}": round(v, 4) for (k, d), v in sorted(worst.items())}})
 
     # K5 at the zamba2-7b conv input in bf16, a column slice of the in_proj
-    # output as the model passes it.  Library: cuDNN's depthwise conv1d on a
-    # contiguous (n, c, t) copy (the copy is not timed).
-    zx = torch.randn((SERVE_BATCH, SERVE_PROMPT, IN_PROJ), generator=gen,
-                     device=DEVICE, dtype=torch.bfloat16)
-    x = zx[..., CONV_LO:CONV_HI]
-    n, t, c = x.shape
-    kw = cfg.conv_width
-    k = torch.randn((kw, c), generator=gen, device=DEVICE, dtype=torch.bfloat16)
-    x_nct = x.permute(0, 2, 1).contiguous()
-    w_c1k = k.t().contiguous().unsqueeze(1)
-
-    def library_conv1d():
-        return F.conv1d(x_nct, w_c1k, groups=c, padding=kw - 1)
-
-    lib_y = library_conv1d()[..., :t].permute(0, 2, 1)
-    check(torch.allclose(lib_y.double(), C.mec_conv1d_plain(x, k).double(),
-                         rtol=CONV1D_TOL["bfloat16"], atol=CONV1D_TOL["bfloat16"]),
-          "cuDNN's depthwise conv1d does not compute K5's function")
-    k5_bound = bound(2 * kw * n * t * c, (2 * n * t * c + kw * c) * x.element_size())
-    k5 = {"shape": [n, t, c, kw], "dtype": "bfloat16", "input_row_stride": x.stride(1),
-          "ms": time_ms(lambda: C.mec_conv1d(x, k)),
-          "plain_ms": time_ms(lambda: C.mec_conv1d_plain(x, k)),
-          "library_ms": time_ms(library_conv1d),
-          "bound_ms": k5_bound[0], "bound_by": k5_bound[1]}
+    # output as the model passes it, on the L2-cold timer (a prefill's
+    # in_proj output, 59.7 MB, is not in the L2 when K5 reads it).
+    k5 = conv1d_timing(C, gen, cfg.conv_width, peak_flops, peak_bw)
     emit({"phase": "timing", "kernel": "mec_conv1d", **k5})
-    del zx, x, x_nct, lib_y
 
     # 8. profile ------------------------------------------------------------
     emit({"phase": "profile", **profile_serving(cfg, args.seed)})
@@ -1006,8 +1111,13 @@ def main(argv=None) -> int:
                 "plain_ms": calls * k5["plain_ms"],
                 "bound_ms": calls * k5["bound_ms"], "bound_by": k5["bound_by"],
                 "library_ms": calls * k5["library_ms"],
+                "timer": k5["timer"], "vector_bytes": layer0["vector_bytes"],
                 "per_call": {f: k5[f] for f in ("ms", "plain_ms", "bound_ms",
-                                                "library_ms")}})
+                                                "library_ms")},
+                "per_call_spread": {f: [k5["cold"][f]["min_ms"], k5["cold"][f]["max_ms"]]
+                                    for f in ("kernel", "plain", "library")},
+                "copy_ms_per_call": k5["copy_ms"],
+                "memcpy_ms_per_call": k5["memcpy_ms"]})
             continue
         recs = [(w, shapes[kname][(n, SLICE_BATCH)]) for n, w in weights[kname].items()]
 
@@ -1024,7 +1134,7 @@ def main(argv=None) -> int:
             "library_ms": total("library_ms")})
         if kname in shapes_bf16:
             # what bound_ms is read against, the CUDA cores' f32 bound, and
-            # the bf16 stack beside cuDNN in bf16
+            # the bf16 times beside the library call's in bf16
             bf = [(w, shapes_bf16[kname][n]) for n, w in weights[kname].items()]
             rows[-1].update({
                 "bound_rate": f"{TF32_PRODUCTS} TF32 tensor-core products a "

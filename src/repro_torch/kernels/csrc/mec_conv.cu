@@ -20,11 +20,25 @@
 //   mec_gemm   <- mec_gemm_pallas / _gemm_kernel          (K3)
 //     O[n, h] = L[n, :, h*s_h*k_w*i_c : +k_h*k_w*i_c] @ K, the paper's
 //     ld-aliasing: the k_h shifted rows of L form one contiguous window per
-//     output column, so the kernel reads it as an ordinary GEMM operand with
-//     leading dimension i_h*k_w*i_c.  IEEE f32 FMAs on the CUDA cores: one
-//     CTA per (n, h, w-block, 64-channel tile), 256 threads as a 16 x 16
-//     grid, each thread TM columns x 4 channels, operands staged in shared
-//     memory as f32.  Bound by operations (f32 FMAs) at the paper's widths.
+//     output column w.  That is a convolution: read L, which is contiguous
+//     (n, o_w, i_h, k_w*i_c), as an NHWC image I' of height o_w, width i_h
+//     and k_w*i_c channels, and kernel_mat (k_h, k_w*i_c, k_c) as the HWIO
+//     kernel K' (1, k_h, k_w*i_c, k_c); then
+//       O[n, h, w, k] = sum_{r, q} L[n, w, h*s_h + r, q] K[r, q, k]
+//                     = conv(I', K', stride (1, s_h))[n, w, h, k],
+//     so K3 runs the K1/K4 core below on I' and K' with the output's two
+//     spatial axes swapped as it writes (no transpose pass): the k_h
+//     overlapping windows of one L row are the k_w' = k_h columns of a
+//     window in I', staged once per channel chunk, ldmatrix pointed at
+//     the overlapping windows in shared memory.  Bound by operations at the
+//     paper's widths, like K1 and K4.  A tile row of the core is one output
+//     column w and a tile column one output row h, so K4's row stacking
+//     fills the MMA tile on narrow layers (cv12: 5 x 5 outputs, cv11:
+//     10 x 12) and stages the kernel slab once for all of them, not once
+//     for each output row.  L's k_w*i_c channels need not be a power of
+//     two (cv4: 448): the last chunk's channels past k_w*i_c are
+//     zero-filled in both A and B, and for k_w*i_c <= 16 the core's compact
+//     path reduces over the k_h*k_w*i_c run of an L row in one step.
 //
 //   mec_fused  <- mec_conv_fused_pallas / _fused_kernel   (K1)
 //     O[n, h, w-block] = sum_r strip(I[n, h*s_h + r]) @ K[r], with the
@@ -40,11 +54,12 @@
 //     fault F1) has no counterpart: each step stages the input rows its
 //     output rows need, so any k_h, s_h (k_h < s_h included) is exact.
 //
-// K1 and K4 share one device core, mec_mma.cuh, and differ only in the
-// tile the launcher gives the CTA.  What bounds them: at the paper's widths,
-// operations; on the card, the tensor cores' rate for the design's own
-// arithmetic (below), then the shared-memory and L2 traffic of restaging
-// the kernel slab for every tile.  What the core does about it:
+// K1, K4 and K3 share one device core, mec_mma.cuh: K1 and K4 differ only
+// in the tile the launcher gives the CTA, K3 in its operands (above).
+// What bounds them: at the paper's widths, operations; on the card, the
+// tensor cores' rate for the design's own arithmetic (below), then the
+// shared-memory and L2 traffic of restaging the kernel slab for every
+// tile.  What the core does about it:
 //   - Tensor cores, f32 accumulators in registers.  bf16/f16:
 //     mma.sync.m16n8k16.  f32: mma.sync.m16n8k8 in TF32 with three products
 //     a multiply-add, hi*hi + hi*lo + lo*hi, hi = cvt.rna.tf32(x), lo =
@@ -54,7 +69,8 @@
 //     adds into its accumulator, which chained over a whole reduction
 //     missed the budget on the card (cv11: 1.6e-5 against 9.2e-6), so each
 //     reduction step's three-product sum is kept apart and added to the f32
-//     sum with IEEE adds (cv11 then reads 4e-7).  wgmma is not used: its
+//     sum with IEEE adds (cv11 then reads 4e-7); on the compact path, whose
+//     one step spans a whole window, each k-step's.  wgmma is not used: its
 //     canonical shared-memory layouts do not take MEC's strided,
 //     overlapping windows without a copy, which is the lowering MEC avoids.
 //   - The lowering stays in shared memory.  A reduction step is a kernel
@@ -101,29 +117,18 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTN = 4;               // output channels per thread
-constexpr int kBN = 16 * kTN;        // output channels per CTA
-constexpr int kGemmBK = 32;          // K3 reduction chunk
-// K1/K4 (mec_mma.cuh): K4's sub-tile limits, and the shared memory a CTA
-// aims at, so that two CTAs fit an SM's 228 KB (1 KB each reserved).
+constexpr int kThreads = 256;        // K2
+// K1/K3/K4 (mec_mma.cuh): the row-stacked sub-tile limits of K4 and K3,
+// and the shared memory a CTA aims at, so that two CTAs fit an SM's 228 KB
+// (1 KB each reserved).
 constexpr int kFused2MaxPos = mec_mma::kMaxBM;   // output positions
 constexpr int kFused2MaxRows = 16;               // output rows
 constexpr size_t kMmaSmem = 113 * 1024;
 constexpr int kMaxSplit = 4;                     // CTAs a cluster
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
-  return __half2float(v);
-}
-
-using mec_mma::from_f32;
+// Which kernel a core launch is (the number the C interface uses too).
+enum Kind { kK1 = 1, kK3 = 3, kK4 = 4 };
 
 // ---------------------------------------------------------------------------
 // K2: compact lowering.  grid = (n*o_w, ceil(i_h / rows_per_cta)).
@@ -149,11 +154,13 @@ lower_kernel(const S* __restrict__ inp, S* __restrict__ low, int i_h, int i_w,
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K4: the tensor-core MEC conv (csrc/mec_mma.cuh).  Both kernels run
-// the same core; they differ in the CTA's output tile, which the launcher
-// sets: K1 one output row x up to 64 columns, K4 tr rows x tc columns.
+// K1, K4 and K3: the tensor-core MEC conv (csrc/mec_mma.cuh).  All three run
+// the same core, as separate kernels so that a profile names them apart.
+// K1 and K4 differ in the CTA's output tile, which the launcher sets: K1
+// one output row x up to 128 columns, K4 tr rows x tc columns; K3 is K4's
+// tiling on L read as the image I' (above), its output written transposed.
 // grid = (n * row blocks * split, ceil(o_w / w_blk), ceil(k_c / 64)),
-// clusters of `split` CTAs along x.
+// clusters of `split` CTAs along x (all in the core's terms).
 // ---------------------------------------------------------------------------
 template <typename T, int MT, int NT, int WM, int WN>
 __global__ void __launch_bounds__(32 * WM * WN, WM * WN == 8 ? 2 : 1)
@@ -167,92 +174,16 @@ fused2_kernel(const __grid_constant__ mec_mma::Params p) {
   mec_mma::mma_core<T, MT, NT, WM, WN>(p);
 }
 
-// ---------------------------------------------------------------------------
-// K3: shifted GEMM over L.  grid = (n*o_h, ceil(o_w / w_blk), ceil(k_c / kBN)).
-// A[w, t] = L[n, w, h*s_h*kwic + t] for t < k_h*kwic (row stride i_h*kwic),
-// B = K as a (k_h*kwic, k_c) matrix.
-// ---------------------------------------------------------------------------
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(const T* __restrict__ low, const T* __restrict__ ker,
-            T* __restrict__ out, int o_w, int i_h, int kwic, int k_h, int k_c,
-            int s_h, int o_h, int w_blk) {
-  constexpr int TM = BM / 16;
-  __shared__ float s_a[kGemmBK][BM + 1];   // +1: conflict-free transposed stores
-  __shared__ float s_b[kGemmBK][kBN];
-
-  const int64_t nh = blockIdx.x;
-  const int64_t n = nh / o_h;
-  const int h = (int)(nh - n * o_h);
-  const int wb_end = min(((int)blockIdx.y + 1) * w_blk, o_w);
-  const int k0 = blockIdx.z * kBN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int64_t red = (int64_t)k_h * kwic;          // window length
-  const int64_t lda = (int64_t)i_h * kwic;          // L row stride per w
-  const T* a_base = low + n * o_w * lda + (int64_t)h * s_h * kwic;
-
-  for (int w0 = blockIdx.y * w_blk; w0 < wb_end; w0 += BM) {
-    float acc[TM][kTN];
-#pragma unroll
-    for (int p = 0; p < TM; ++p)
-#pragma unroll
-      for (int q = 0; q < kTN; ++q) acc[p][q] = 0.f;
-
-    for (int64_t t0 = 0; t0 < red; t0 += kGemmBK) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < BM * kGemmBK; e += kThreads) {
-        const int m = e / kGemmBK;
-        const int t = e % kGemmBK;
-        const int w = w0 + m;
-        float v = 0.f;
-        if (w < wb_end && t0 + t < red) v = to_f32(a_base[(int64_t)w * lda + t0 + t]);
-        s_a[t][m] = v;
-      }
-      for (int e = threadIdx.x; e < kGemmBK * kBN; e += kThreads) {
-        const int t = e / kBN;
-        const int kk = e % kBN;
-        float v = 0.f;
-        if (t0 + t < red && k0 + kk < k_c) v = to_f32(ker[(t0 + t) * k_c + k0 + kk]);
-        s_b[t][kk] = v;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int t = 0; t < kGemmBK; ++t) {
-        float a[TM], b[kTN];
-#pragma unroll
-        for (int p = 0; p < TM; ++p) a[p] = s_a[t][ty + 16 * p];
-#pragma unroll
-        for (int q = 0; q < kTN; ++q) b[q] = s_b[t][tx + 16 * q];
-#pragma unroll
-        for (int p = 0; p < TM; ++p)
-#pragma unroll
-          for (int q = 0; q < kTN; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
-      }
-    }
-
-#pragma unroll
-    for (int p = 0; p < TM; ++p) {
-      const int w = w0 + ty + 16 * p;
-      if (w >= wb_end) continue;
-      T* o = out + ((nh * o_w) + w) * (int64_t)k_c;
-#pragma unroll
-      for (int q = 0; q < kTN; ++q) {
-        const int k = k0 + tx + 16 * q;
-        if (k < k_c) o[k] = from_f32<T>(acc[p][q]);
-      }
-    }
-  }
+template <typename T, int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN, WM * WN == 8 ? 2 : 1)
+gemm_kernel(const __grid_constant__ mec_mma::Params p) {
+  mec_mma::mma_core<T, MT, NT, WM, WN>(p);
 }
 
 // ---------------------------------------------------------------------------
 // Host launchers
 // ---------------------------------------------------------------------------
 bool fits_int(long long v) { return v >= 0 && v <= 0x7fffffffLL; }
-
-// The sub-tile height: the smallest of 16/32/64 columns that covers w_blk,
-// so narrow layers (cv12: o_w = 5) do not idle 60 of 64 rows.
-int tile_rows(long long w_blk) { return w_blk <= 16 ? 16 : (w_blk <= 32 ? 32 : 64); }
 
 constexpr int kMaxDevices = 64;
 
@@ -328,10 +259,11 @@ struct MmaLaunch {
   dim3 grid;
 };
 
-// Everything K1 (k4 = false) or K4 (k4 = true) runs with: the sub-tile,
-// the reduction path and chunk, the copy widths, the cluster split, the
-// shared memory and the grid.
-cudaError_t mma_config(bool k4, int elem, const void* inp, const void* ker, void* out,
+// Everything K1, K4 or K3 runs with, in the core's terms (for K3: the
+// image I' and kernel K'): the sub-tile, the reduction path and chunk, the
+// copy widths, the cluster split, the output's axis order, the shared
+// memory and the grid.
+cudaError_t mma_config(Kind kind, int elem, const void* inp, const void* ker, void* out,
                        long long i_n, int i_h, int i_w, int i_c, int k_h, int k_w, int k_c,
                        int s_h, int s_w, int o_h, int o_w, int w_blk, int oh_blk,
                        MmaLaunch* L) {
@@ -346,15 +278,16 @@ cudaError_t mma_config(bool k4, int elem, const void* inp, const void* ker, void
   p.i_h = i_h; p.i_w = i_w; p.i_c = i_c; p.k_h = k_h; p.k_w = k_w; p.k_c = k_c;
   p.s_h = s_h; p.s_w = s_w; p.o_h = o_h; p.o_w = o_w;
   p.w_blk = w_blk;
-  if (k4) {
-    if (!fused2_tile(oh_blk, w_blk, k_w, s_w, optin, &p.tr, &p.tc))
-      return cudaErrorInvalidValue;
-    p.oh_blk = oh_blk;
-  } else {
+  if (kind == kK1) {
     p.tr = 1;
     p.tc = w_blk < mec_mma::kMaxBM ? w_blk : mec_mma::kMaxBM;
     p.oh_blk = 1;
+  } else {
+    if (!fused2_tile(oh_blk, w_blk, k_w, s_w, optin, &p.tr, &p.tc))
+      return cudaErrorInvalidValue;
+    p.oh_blk = oh_blk;
   }
+  p.swap_hw = kind == kK3;   // K3: the core's h is the output's w
   p.n_hblk = (int)ceil_div(o_h, p.oh_blk);
   const int tile = p.tr * p.tc;
   L->bm = tile <= 16 ? 16 : (tile <= 32 ? 32 : (tile <= 64 ? 64 : 128));
@@ -434,20 +367,22 @@ cudaError_t mma_config(bool k4, int elem, const void* inp, const void* ker, void
 }
 
 template <typename T, int MT, int NT, int WM, int WN>
-cudaError_t launch_mma_tile(bool k4, const MmaLaunch& L, cudaStream_t stream) {
-  void (*kern)(mec_mma::Params) =
-      k4 ? fused2_kernel<T, MT, NT, WM, WN> : fused_kernel<T, MT, NT, WM, WN>;
+cudaError_t launch_mma_tile(Kind kind, const MmaLaunch& L, cudaStream_t stream) {
+  void (*kern)(mec_mma::Params) = kind == kK1   ? fused_kernel<T, MT, NT, WM, WN>
+                                  : kind == kK4 ? fused2_kernel<T, MT, NT, WM, WN>
+                                                : gemm_kernel<T, MT, NT, WM, WN>;
+  const int k = kind == kK1 ? 0 : (kind == kK4 ? 1 : 2);
   // the dynamic shared memory each kernel may use, raised only when a
   // launch needs more than before (per device)
-  static size_t allowed[2][kMaxDevices];
+  static size_t allowed[3][kMaxDevices];
   int optin = 0, sms = 0, dev = 0;
   cudaError_t err = device_limits(&optin, &sms, &dev);
   if (err != cudaSuccess) return err;
-  if (L.smem > allowed[k4][dev]) {
+  if (L.smem > allowed[k][dev]) {
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)L.smem);
     if (err != cudaSuccess) return err;
-    allowed[k4][dev] = L.smem;
+    allowed[k][dev] = L.smem;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = L.grid;
@@ -470,46 +405,31 @@ cudaError_t launch_mma_tile(bool k4, const MmaLaunch& L, cudaStream_t stream) {
 // MMA tiles: 128 x 64 (8 warps of 32 x 32), 64 x 64 (4 warps of 32 x 32),
 // 32 x 64 (16 x 32), 16 x 64 (16 x 16).
 template <typename T>
-cudaError_t launch_mma(bool k4, const MmaLaunch& L, cudaStream_t stream) {
+cudaError_t launch_mma(Kind kind, const MmaLaunch& L, cudaStream_t stream) {
   switch (L.bm) {
-    case 16: return launch_mma_tile<T, 1, 2, 1, 4>(k4, L, stream);
-    case 32: return launch_mma_tile<T, 1, 4, 2, 2>(k4, L, stream);
-    case 64: return launch_mma_tile<T, 2, 4, 2, 2>(k4, L, stream);
-    default: return launch_mma_tile<T, 2, 4, 4, 2>(k4, L, stream);
+    case 16: return launch_mma_tile<T, 1, 2, 1, 4>(kind, L, stream);
+    case 32: return launch_mma_tile<T, 1, 4, 2, 2>(kind, L, stream);
+    case 64: return launch_mma_tile<T, 2, 4, 2, 2>(kind, L, stream);
+    default: return launch_mma_tile<T, 2, 4, 4, 2>(kind, L, stream);
   }
 }
 
-cudaError_t run_mma(bool k4, int dtype, const void* inp, const void* ker, void* out,
+cudaError_t run_mma(Kind kind, int dtype, const void* inp, const void* ker, void* out,
                     long long i_n, long long i_h, long long i_w, long long i_c,
                     long long k_h, long long k_w, long long k_c, long long s_h,
                     long long s_w, long long o_h, long long o_w, long long w_blk,
                     long long oh_blk, cudaStream_t stream, MmaLaunch* L) {
   const int elem = dtype == kF32 ? 4 : 2;
   if (dtype != kF32 && dtype != kBF16 && dtype != kF16) return cudaErrorInvalidValue;
-  cudaError_t err = mma_config(k4, elem, inp, ker, out, i_n, (int)i_h, (int)i_w, (int)i_c,
+  cudaError_t err = mma_config(kind, elem, inp, ker, out, i_n, (int)i_h, (int)i_w, (int)i_c,
                                (int)k_h, (int)k_w, (int)k_c, (int)s_h, (int)s_w, (int)o_h,
                                (int)o_w, (int)w_blk, (int)oh_blk, L);
   if (err != cudaSuccess || out == nullptr) return err;
   switch (dtype) {
-    case kF32: return launch_mma<float>(k4, *L, stream);
-    case kBF16: return launch_mma<__nv_bfloat16>(k4, *L, stream);
-    default: return launch_mma<__half>(k4, *L, stream);
+    case kF32: return launch_mma<float>(kind, *L, stream);
+    case kBF16: return launch_mma<__nv_bfloat16>(kind, *L, stream);
+    default: return launch_mma<__half>(kind, *L, stream);
   }
-}
-
-template <typename T, int BM>
-cudaError_t launch_gemm(const void* low, const void* ker, void* out, long long i_n,
-                        int o_w, int i_h, int kwic, int k_h, int k_c, int s_h, int o_h,
-                        int w_blk, cudaStream_t stream) {
-  const long long grid_x = i_n * o_h;
-  const long long grid_y = (o_w + w_blk - 1) / w_blk;
-  const long long grid_z = (k_c + kBN - 1) / kBN;
-  if (!fits_int(grid_x) || grid_y > 65535 || grid_z > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)grid_x, (unsigned)grid_y, (unsigned)grid_z);
-  gemm_kernel<T, BM><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(low), static_cast<const T*>(ker), static_cast<T*>(out),
-      o_w, i_h, kwic, k_h, k_c, s_h, o_h, w_blk);
-  return cudaGetLastError();
 }
 
 template <typename S>
@@ -576,7 +496,7 @@ int mec_fused(const void* inp, const void* ker, void* out, int dtype, long long 
       w_blk > o_w || (o_h - 1) * s_h + k_h > i_h || (o_w - 1) * s_w + k_w > i_w)
     return cudaErrorInvalidValue;
   MmaLaunch L;
-  return run_mma(false, dtype, inp, ker, out, i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w,
+  return run_mma(kK1, dtype, inp, ker, out, i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w,
                  o_h, o_w, w_blk, 1, static_cast<cudaStream_t>(stream), &L);
 }
 
@@ -589,7 +509,7 @@ int mec_fused2(const void* inp, const void* ker, void* out, int dtype, long long
       (o_w - 1) * s_w + k_w > i_w)
     return cudaErrorInvalidValue;
   MmaLaunch L;
-  return run_mma(true, dtype, inp, ker, out, i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w,
+  return run_mma(kK4, dtype, inp, ker, out, i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w,
                  o_h, o_w, w_blk, oh_blk, static_cast<cudaStream_t>(stream), &L);
 }
 
@@ -606,8 +526,10 @@ int mec_fused2_tile(long long oh_blk, long long w_blk, long long k_h, long long 
              : cudaErrorInvalidValue;
 }
 
-// What mec_fused (kernel = 1) or mec_fused2 (kernel = 4) would launch for
-// this geometry on the current device, with 16-byte-aligned operands; it
+// What mec_fused (kernel = 1), mec_fused2 (kernel = 4) or mec_gemm (kernel
+// = 3, given the core's geometry: I' and K' as in the notes above, w_blk
+// output rows h and oh_blk output columns w per CTA) would launch for this
+// geometry on the current device, with 16-byte-aligned operands; it
 // launches nothing.  out[0..9] = tr, tc, MMA tile rows, compact (0/1),
 // chunk (channels, or the padded k_w*i_c run), chunks, cluster split,
 // shared memory bytes, input copy width, kernel copy width.
@@ -615,14 +537,14 @@ int mec_fused_config(int kernel, int dtype, long long i_n, long long i_h, long l
                      long long i_c, long long k_h, long long k_w, long long k_c,
                      long long s_h, long long s_w, long long o_h, long long o_w,
                      long long w_blk, long long oh_blk, long long* out) {
-  if ((kernel != 1 && kernel != 4) ||
+  if ((kernel != kK1 && kernel != kK3 && kernel != kK4) ||
       !dims_ok({i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w, w_blk, oh_blk}) ||
       w_blk > o_w || oh_blk > o_h)
     return cudaErrorInvalidValue;
   MmaLaunch L;
   const cudaError_t err =
-      run_mma(kernel == 4, dtype, nullptr, nullptr, nullptr, i_n, i_h, i_w, i_c, k_h, k_w,
-              k_c, s_h, s_w, o_h, o_w, w_blk, kernel == 4 ? oh_blk : 1, nullptr, &L);
+      run_mma(static_cast<Kind>(kernel), dtype, nullptr, nullptr, nullptr, i_n, i_h, i_w, i_c,
+              k_h, k_w, k_c, s_h, s_w, o_h, o_w, w_blk, kernel == kK1 ? 1 : oh_blk, nullptr, &L);
   if (err != cudaSuccess) return err;
   const mec_mma::Params& p = L.p;
   const long long vals[10] = {p.tr, p.tc, L.bm, p.compact, p.cc, p.nchunk, p.split,
@@ -631,29 +553,19 @@ int mec_fused_config(int kernel, int dtype, long long i_n, long long i_h, long l
   return cudaSuccess;
 }
 
+// K3: O (n, o_h, o_w, k_c) from L (n, o_w, i_h, kwic) and kernel_mat
+// (k_h, kwic, k_c), w_blk output columns w and h_blk output rows h per CTA:
+// the core on I' (n, o_w, i_h, kwic) and K' (1, k_h, kwic, k_c), stride
+// (1, s_h), whose output (n, o_w, o_h, k_c) is written transposed.
 int mec_gemm(const void* low, const void* ker, void* out, int dtype, long long i_n,
              long long o_w, long long i_h, long long kwic, long long k_h, long long k_c,
-             long long s_h, long long o_h, long long w_blk, void* stream) {
-  if (!dims_ok({i_n, o_w, i_h, kwic, k_h, k_c, s_h, o_h, w_blk}) || w_blk > o_w ||
-      (o_h - 1) * s_h + k_h > i_h)
+             long long s_h, long long o_h, long long w_blk, long long h_blk, void* stream) {
+  if (!dims_ok({i_n, o_w, i_h, kwic, k_h, k_c, s_h, o_h, w_blk, h_blk, k_h * kwic}) ||
+      w_blk > o_w || h_blk > o_h || (o_h - 1) * s_h + k_h > i_h)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bm = tile_rows(w_blk);
-#define MEC_GEMM_ARGS                                                               \
-  low, ker, out, i_n, (int)o_w, (int)i_h, (int)kwic, (int)k_h, (int)k_c, (int)s_h, \
-      (int)o_h, (int)w_blk, st
-#define MEC_GEMM_BM(T)                                                              \
-  (bm == 16 ? launch_gemm<T, 16>(MEC_GEMM_ARGS)                                    \
-            : bm == 32 ? launch_gemm<T, 32>(MEC_GEMM_ARGS)                         \
-                       : launch_gemm<T, 64>(MEC_GEMM_ARGS))
-  switch (dtype) {
-    case kF32: return MEC_GEMM_BM(float);
-    case kBF16: return MEC_GEMM_BM(__nv_bfloat16);
-    case kF16: return MEC_GEMM_BM(__half);
-    default: return cudaErrorInvalidValue;
-  }
-#undef MEC_GEMM_BM
-#undef MEC_GEMM_ARGS
+  MmaLaunch L;
+  return run_mma(kK3, dtype, low, ker, out, i_n, o_w, i_h, kwic, 1, k_h, k_c, 1, s_h, o_w,
+                 o_h, h_blk, w_blk, static_cast<cudaStream_t>(stream), &L);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// The tensor-core core of K1 (fused_kernel) and K4 (fused2_kernel): one
+// The tensor-core core of K1 (fused_kernel), K4 (fused2_kernel) and K3
+// (gemm_kernel, which runs it on L read as an image): one
 // CTA computes an output sub-tile of tr output rows x tc output columns
 // (M = tr*tc <= BM positions) by 64 output channels, as a sum over
 // reduction steps.  Included by mec_conv.cu; the design notes head that
@@ -56,6 +57,10 @@ struct Params {
   int lcc, lgc, col_rows, col_rem, lgk;
   int base_mis;               // compact path: misalignment of inp, elements
   int split;                  // CTAs of a cluster splitting the reduction
+  // 1 (K3): the output is (n, o_w, o_h, k_c), the core's h and w swapped;
+  // 0 (K1, K4): NHWC.  (A flag, not three output strides: the strided
+  // address cost K1 4% on the Table-3 stack, tools/mma_probe.py.)
+  int swap_hw;
 };
 
 // ---------------------------------------------------------------------------
@@ -398,6 +403,20 @@ __device__ __forceinline__ void mma_3xtf32(float (&part)[MT][NT][4], const Frags
     for (int nt = 0; nt < NT; ++nt) mma_tf32(part[mt][nt], a_hi[mt], b_hi[nt][0], b_hi[nt][1]);
 }
 
+// acc += part; part = 0: a TF32 partial sum into the f32 sum, IEEE adds.
+template <int MT, int NT>
+__device__ __forceinline__ void add_part(float (&acc)[MT][NT][4], float (&part)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[mt][nt][i] += part[mt][nt][i];
+        part[mt][nt][i] = 0.f;
+      }
+}
+
 // ---------------------------------------------------------------------------
 // The core
 // ---------------------------------------------------------------------------
@@ -447,10 +466,10 @@ __device__ __forceinline__ void mma_core(const Params& p) {
         a_off[mt] = (dr * p.span + dc * p.s_w) * p.ccp + ld_col;
       }
       // acc: the f32 sum.  TF32 only: part, one step's products (k_w*cc/8
-      // k-steps of three MMAs).  The tensor core truncates when it adds
-      // into its accumulator; chained over a whole reduction that bias
-      // misses the f32 budget, so each step's sum is added to acc with IEEE
-      // f32 adds.
+      // k-steps of three MMAs; on the compact path one k-step).  The tensor
+      // core truncates when it adds into its accumulator; chained over a
+      // whole reduction that bias misses the f32 budget, so each step's sum
+      // is added to acc with IEEE f32 adds.
       float acc[MT][NT][4], part[MT][NT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -520,6 +539,9 @@ __device__ __forceinline__ void mma_core(const Params& p) {
             load_frags<T, MT, NT>(nxt, p, s_in, s_k, a_off, c_off, j_n, kk_n, wn, lane);
           if constexpr (kTF32) {
             mma_3xtf32<MT, NT>(part, cur);
+            // the compact path's one step is a whole window (for K3 all of
+            // k_h*k_w*i_c): its k-steps go into the sum one by one
+            if (p.compact) add_part<MT, NT>(acc, part);
           } else {
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt)
@@ -531,17 +553,7 @@ __device__ __forceinline__ void mma_core(const Params& p) {
           j = j_n;
           kk = kk_n;
         }
-        if constexpr (kTF32) {   // the step is done: into the f32 sum
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                acc[mt][nt][i] += part[mt][nt][i];
-                part[mt][nt][i] = 0.f;
-              }
-        }
+        if constexpr (kTF32) add_part<MT, NT>(acc, part);   // the step is done
       }
       cp_async_wait<0>();
       __syncthreads();   // the ring is free
@@ -589,7 +601,8 @@ __device__ __forceinline__ void mma_core(const Params& p) {
             const int h = h0 + dr;
             const int w = w0 + (m - dr * p.tc);
             if (h >= h_end || w >= w_end) continue;
-            T* o = out + ((n * p.o_h + h) * (int64_t)p.o_w + w) * p.k_c;
+            T* o = out + (p.swap_hw ? (n * p.o_w + w) * (int64_t)p.o_h + h
+                                    : (n * p.o_h + h) * (int64_t)p.o_w + w) * p.k_c;
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
               const int k = k0 + wn * NT * 8 + nt * 8 + 2 * t;

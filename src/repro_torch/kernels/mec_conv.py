@@ -18,11 +18,11 @@ wrapper              replaces (src/repro/kernels/mec_conv.py)      bound
 The design notes (what bounds each kernel on the card and what its
 design does about it) head ``csrc/mec_conv.cu``.  Every kernel
 accumulates in f32 and writes the output in the input dtype, which fuses
-the TPU wrappers' final casts.  K1 and K4 multiply on the tensor cores:
-bf16/f16 products are exact in f32; f32 operands are split into two
-TF32 halves and multiplied as three TF32 products (hi*hi + hi*lo +
-lo*hi), which keeps the f32 contract.  K2, K3 and K5 run IEEE f32 on the
-CUDA cores.
+the TPU wrappers' final casts.  K1, K3 and K4 multiply on the tensor
+cores, through one core: bf16/f16 products are exact in f32; f32 operands
+are split into two TF32 halves and multiplied as three TF32 products
+(hi*hi + hi*lo + lo*hi), which keeps the f32 contract.  K3 runs that core
+on L read as an image (:func:`gemm_core`).  K2 and K5 move bytes.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ def _lib() -> ctypes.CDLL:
     lib.mec_lower.argtypes = [ptr, ptr, i32] + [i64] * 7 + [ptr]
     lib.mec_fused.argtypes = [ptr, ptr, ptr, i32] + [i64] * 12 + [ptr]
     lib.mec_fused2.argtypes = [ptr, ptr, ptr, i32] + [i64] * 13 + [ptr]
-    lib.mec_gemm.argtypes = [ptr, ptr, ptr, i32] + [i64] * 9 + [ptr]
+    lib.mec_gemm.argtypes = [ptr, ptr, ptr, i32] + [i64] * 10 + [ptr]
     lib.mec_fused2_tile.argtypes = [i64] * 6 + [ctypes.POINTER(i32)] * 2
     lib.mec_fused_config.argtypes = [i32, i32] + [i64] * 13 + [
         ctypes.POINTER(i64)]
@@ -251,8 +251,10 @@ FUSED_CONFIG_FIELDS = ("tr", "tc", "mma_rows", "compact", "chunk", "chunks",
 
 def fused_config(kernel: int, dtype: torch.dtype, inp_shape, kernel_shape,
                  stride=1, w_blk: int = 64, oh_blk: int = 8) -> dict:
-    """What K1 (``kernel=1``) or K4 (``kernel=4``) runs for this geometry
-    on the current CUDA device, with 16-byte-aligned operands: the
+    """What K1 (``kernel=1``), K4 (``kernel=4``) or K3 (``kernel=3``, given
+    the core's geometry of :func:`gemm_core`; :func:`gemm_config` passes
+    it) runs for this geometry on the current CUDA device, with
+    16-byte-aligned operands: the
     sub-tile (``tr`` x ``tc``), the MMA tile's rows, the reduction path
     (``compact``: over the k_w*i_c run; else channel chunks), the chunk
     and the number of chunks, the cluster ``split`` of the reduction, the
@@ -287,6 +289,42 @@ def _gemm_geometry(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int,
     return i_n, o_w, i_h, kwic, kernel_mat.shape[2], (i_h - k_h) // s_h + 1
 
 
+def gemm_core(low_shape, kernel_mat_shape, k_h: int, s_h: int,
+              w_blk: int | None = None) -> dict:
+    """K3 as the K1/K4 core runs it.  L (n, o_w, i_h, k_w*i_c), contiguous,
+    is read as an NHWC image I' of height o_w, width i_h and k_w*i_c
+    channels (``inp``), kernel_mat (k_h, k_w*i_c, k_c) as the HWIO kernel
+    K' (1, k_h, k_w*i_c, k_c) (``kernel``), at ``stride`` (1, s_h):
+    O[n, h, w, k] = conv(I', K')[n, w, h, k].  The core's output (n, o_w,
+    o_h, k_c) goes to O with its two spatial axes swapped:
+    ``out_strides`` are the elements between neighbours along the core's
+    n, row (O's w) and column (O's h).  Blocks, in the core's terms:
+    ``oh_blk`` rows (output columns w, the wrapper's ``w_blk``) and
+    ``w_blk`` columns (output rows h) a CTA; K4's pickers choose both on
+    this transposed geometry, ``w_blk`` given (clamped to o_w) where not
+    None."""
+    # ops imports this module for its wrappers; its pickers come at call time
+    from repro_torch.kernels.ops import pick_fused_w_blk, pick_oh_blk
+    i_n, o_w, i_h, kwic = low_shape
+    k_c = kernel_mat_shape[2]
+    o_h = (i_h - k_h) // s_h + 1
+    h_blk = pick_fused_w_blk(o_h, k_c, i_n, o_w)
+    rows = pick_oh_blk(o_w, o_h, h_blk, k_c, i_n) if w_blk is None else min(w_blk, o_w)
+    return {"inp": (i_n, o_w, i_h, kwic), "kernel": (1, k_h, kwic, k_c),
+            "stride": (1, s_h), "out_shape": (i_n, o_w, o_h, k_c),
+            "out_strides": (o_h * o_w * k_c, k_c, o_w * k_c),
+            "oh_blk": rows, "w_blk": h_blk}
+
+
+def gemm_config(dtype: torch.dtype, low_shape, kernel_mat_shape, k_h: int,
+                s_h: int, w_blk: int | None = None) -> dict:
+    """What K3 runs (:func:`fused_config`'s fields) for L of ``low_shape``
+    on the current CUDA device; it launches nothing."""
+    core = gemm_core(low_shape, kernel_mat_shape, k_h, s_h, w_blk)
+    return fused_config(3, dtype, core["inp"], core["kernel"], core["stride"],
+                        core["w_blk"], core["oh_blk"])
+
+
 def mec_gemm_plain(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int,
                    s_h: int) -> torch.Tensor:
     """O[n, h] = sum_r L[n, :, h*s_h + r, :] @ K[r], f32 accumulation, one
@@ -303,22 +341,24 @@ def mec_gemm_plain(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int,
 
 
 def mec_gemm(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int, s_h: int,
-             w_blk: int = 64) -> torch.Tensor:
+             w_blk: int | None = None) -> torch.Tensor:
     """The o_h shifted GEMMs over a materialized L (paper-faithful path):
     low (n, o_w, i_h, k_w*i_c) from :func:`mec_lower`, kernel_mat
-    (k_h, k_w*i_c, k_c).  Returns O (n, o_h, o_w, k_c) in low.dtype."""
+    (k_h, k_w*i_c, k_c), w_blk output columns per CTA (clamped to o_w;
+    None: K4's picker on :func:`gemm_core`'s geometry).  Returns O (n, o_h,
+    o_w, k_c) in low.dtype."""
     i_n, o_w, i_h, kwic, k_c, o_h = _gemm_geometry(low, kernel_mat, k_h, s_h)
-    if w_blk < 1:
+    if w_blk is not None and w_blk < 1:
         raise ValueError(f"w_blk must be >= 1, got {w_blk}")
-    w_blk = min(w_blk, o_w)
     if _on_cpu(low, kernel_mat):
         return mec_gemm_plain(low, kernel_mat, k_h, s_h)
+    core = gemm_core(low.shape, kernel_mat.shape, k_h, s_h, w_blk)
     low = low.contiguous()
     kernel_mat = kernel_mat.to(low.dtype).contiguous()
     out = torch.empty((i_n, o_h, o_w, k_c), dtype=low.dtype, device=low.device)
     _launch("mec_gemm", low.device, low.data_ptr(), kernel_mat.data_ptr(),
             out.data_ptr(), _DTYPE_CODE[low.dtype], i_n, o_w, i_h, kwic, k_h,
-            k_c, s_h, o_h, w_blk)
+            k_c, s_h, o_h, core["oh_blk"], core["w_blk"])
     mec_gemm.launches += 1
     return out
 

@@ -15,7 +15,9 @@ wrapper         replaces (src/repro/kernels/mec_conv1d.py)     bound
 
 The design notes head ``csrc/mec_conv1d.cu``.  The kernel sums in IEEE
 f32 over the k_w taps in order, rounding each product and each add, which
-is the plain version's arithmetic: the two agree to the bit.
+is the plain version's arithmetic: the two agree to the bit.  It moves
+whole vectors of channels, as wide as :func:`vector_bytes` finds the
+operands allow.
 """
 from __future__ import annotations
 
@@ -30,13 +32,16 @@ from repro_torch.kernels.mec_conv import _DTYPE_CODE, _on_cpu
 
 #: the largest kernel width the CUDA source instantiates (its kMaxKw)
 MAX_KW = 8
+#: the vector widths, in bytes, the CUDA source instantiates beside one
+#: element, widest first
+VECTOR_BYTES = (16, 8, 4)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("mec_conv1d")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mec_conv1d.argtypes = [ptr, ptr, ptr, i32] + [i64] * 6 + [ptr]
+    lib.mec_conv1d.argtypes = [ptr, ptr, ptr, i32] + [i64] * 7 + [ptr]
     lib.mec_conv1d.restype = i32
     lib.mec_conv1d_max_kw.argtypes = []
     lib.mec_conv1d_max_kw.restype = i32
@@ -53,6 +58,21 @@ def mec_conv1d_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """The kernel's function in PyTorch: the shift-add conv of
     ``core.mec.mec_conv1d_shift`` (causal) with the kernel in x's dtype."""
     return mec_conv1d_shift(x, kernel.to(x.dtype), causal=True)
+
+
+def vector_bytes(x: torch.Tensor, kernel: torch.Tensor, out: torch.Tensor) -> int:
+    """The widest vector K5 can move for these operands: 16, 8 or 4 bytes,
+    else one element.  It must divide, in bytes, the addresses of x, the
+    kernel and the output, x's batch and time strides, and c (the row
+    stride of the kernel and the output).  At the zamba2-7b conv input (a
+    slice from column 7168 of a 14576-wide bf16 row, c = 7296) that is 16."""
+    es = x.element_size()
+    need = (x.data_ptr(), kernel.data_ptr(), out.data_ptr(), x.stride(0) * es,
+            x.stride(1) * es, x.shape[2] * es)
+    for vb in VECTOR_BYTES:
+        if all(v % vb == 0 for v in need):
+            return vb
+    return es
 
 
 def mec_conv1d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -83,7 +103,7 @@ def mec_conv1d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.mec_conv1d(x.data_ptr(), kernel.data_ptr(), out.data_ptr(),
                             _DTYPE_CODE[x.dtype], n, t, c, k_w, x.stride(0),
-                            x.stride(1), stream)
+                            x.stride(1), vector_bytes(x, kernel, out), stream)
     if rc != 0:
         raise RuntimeError(f"mec_conv1d: CUDA error {rc} "
                            f"({lib.mec_conv1d_error_string(rc).decode()})")

@@ -11,13 +11,9 @@ from repro_torch.kernels.mec_conv1d import mec_conv1d
 
 #: H100 SXM: streaming multiprocessors
 N_SMS = 132
-#: output channels per CTA (csrc/mec_conv.cu kBN, csrc/mec_mma.cuh kBN)
+#: output channels per CTA (csrc/mec_mma.cuh kBN)
 CTA_CHANNELS = 64
-#: K3: the largest output sub-tile a CTA computes at once (tile_rows)
-CTA_TILE_ROWS = 64
-#: K3: the smallest sub-tile: a block narrower than this idles rows
-MIN_TILE_ROWS = 16
-#: K1/K4: output positions of the largest MMA tile (mec_mma.cuh kMaxBM);
+#: K1/K3/K4: output positions of the largest MMA tile (mec_mma.cuh kMaxBM);
 #: K4's launcher caps its sub-tile at this many (rows x columns)
 CTA_POSITIONS = 128
 #: K4: output rows per CTA sub-tile, the launcher's kFused2MaxRows
@@ -34,30 +30,10 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def pick_w_blk(o_w: int, k_c: int, i_n: int, o_h: int) -> int:
-    """Output columns per CTA for the K3 kernel on the H100 (K1 and K4
-    take :func:`pick_fused_w_blk`).
-
-    The TPU picker filled a slice of VMEM with the accumulator; on Hopper
-    the limits are other ones.  A CTA keeps a (sub-tile x 64-channel) f32
-    accumulator in registers, 16 per thread for the 64-row tile, far
-    below the 255-register cap; its shared memory is a 32-deep slice of
-    the L window and of K, under 25 KB of the 227 KB a block may use.  So the block is the sub-tile
-    (at most 64 columns, never wider than o_w) and what remains to size is
-    parallelism: the block is halved, down to 16 columns, until the grid
-    (n * o_h * ceil(o_w / w_blk) * ceil(k_c / 64) CTAs) covers the 132 SMs
-    twice.
-    """
-    blk = max(1, min(o_w, CTA_TILE_ROWS))
-    others = i_n * o_h * _ceil_div(k_c, CTA_CHANNELS)
-    while blk > MIN_TILE_ROWS and others * _ceil_div(o_w, blk) < 2 * N_SMS:
-        blk = _ceil_div(blk, 2)
-    return blk
-
-
 def pick_fused_w_blk(o_w: int, k_c: int, i_n: int, o_h: int) -> int:
     """Output columns per CTA for the tensor-core kernels K1 and K4 on the
-    H100 (K3 keeps :func:`pick_w_blk`).
+    H100 (K3 takes it on its transposed geometry, where the columns are
+    output rows h: ``mec_conv.gemm_core``).
 
     A K1 CTA computes one output row x ``w_blk`` columns x 64 channels on
     the tensor cores, in MMA tiles of 16, 32, 64 or 128 positions, with
@@ -80,7 +56,9 @@ def pick_fused_w_blk(o_w: int, k_c: int, i_n: int, o_h: int) -> int:
 
 def pick_oh_blk(o_h: int, o_w: int, w_blk: int, k_c: int, i_n: int) -> int:
     """Output rows per CTA for the K4 kernel on the H100, given its
-    ``w_blk`` output columns (from :func:`pick_fused_w_blk`).
+    ``w_blk`` output columns (from :func:`pick_fused_w_blk`).  K3 takes it
+    on its transposed geometry, where the rows are output columns w
+    (``mec_conv.gemm_core``).
 
     A K4 CTA computes a sub-tile of at most 128 output positions (rows x
     columns, the largest MMA tile) by 64 channels on the tensor cores;
@@ -112,9 +90,10 @@ def mec_conv2d_cuda(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     memory, Eq. 3 memory observable; K3 runs the shifted GEMMs); mode=
     'fused' is K1, the lowering fused into the GEMM; mode='fused2' is K4,
     the fused conv h-blocked over oh_blk output rows per CTA.  w_blk is
-    output columns per CTA, :func:`pick_w_blk` when None; K4's output
-    rows per CTA come from :func:`pick_oh_blk`.  CPU tensors run the
-    kernels' plain versions.
+    output columns per CTA; when None, :func:`pick_fused_w_blk` for K1 and
+    K4, and K3's own pick (``mec_conv.gemm_core``); K4's output rows per
+    CTA come from :func:`pick_oh_blk`.  CPU tensors run the kernels' plain
+    versions.
     """
     s_h, s_w = normalize_stride(stride)
     i_w, i_c = inp.shape[2], inp.shape[3]
@@ -122,8 +101,8 @@ def mec_conv2d_cuda(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     o_h = (inp.shape[1] - k_h) // s_h + 1
     o_w = (i_w - k_w) // s_w + 1
     if w_blk is None:
-        pick = pick_w_blk if mode == "lowered" else pick_fused_w_blk
-        w_blk = pick(o_w, k_c, inp.shape[0], o_h)
+        if mode != "lowered":
+            w_blk = pick_fused_w_blk(o_w, k_c, inp.shape[0], o_h)
     elif not 1 <= w_blk <= max(o_w, 1):
         raise ValueError(f"w_blk must be in [1, o_w={o_w}], got {w_blk}")
     if mode == "fused":

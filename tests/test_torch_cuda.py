@@ -338,6 +338,107 @@ def test_gemm_kernel_matches_plain(cuda, geom, dtype):
     assert ref.scaled_error(y, K.mec_gemm_plain(low, kmat, kh, s_h)) <= tol
 
 
+# K3 at its pickers' blocks: (name, (ih, iw, ic, kh, kw, kc, stride), batch)
+# for tests/test_kernels.py SWEEP, fault F1's geometries and k_h < s_h at
+# batch 2, Table 2's cv1-cv12 at batch 1, and cv11 and cv12 at batch 16.
+GEMM_CASES = ([(f"sweep{i}", g[:7], 2) for i, g in enumerate(GEOMS[:8])]
+              + [(n, g[:7], 2) for n, g in zip(FUSED2_IDS[-6:-2], FUSED2_GEOMS[-6:-2])]
+              + [(f"cv{i + 1}", g, 1) for i, g in enumerate(TABLE2)]
+              + [("cv11", TABLE2[10], 16), ("cv12", TABLE2[11], 16)])
+
+
+def _gemm_operands(geom, dtype, device, batch):
+    """L (the plain lowering of the seeded input) and kernel_mat."""
+    x, k = _operands(geom, dtype, device, batch)
+    kh, kw, ic, kc = geom[3], geom[4], geom[2], geom[5]
+    return (K.mec_lower_plain(x, kw, _strides(geom[6])[1]),
+            k.reshape(kh, kw * ic, kc), x, k)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name,geom,batch", GEMM_CASES,
+                         ids=[f"{n}-b{b}" for n, _, b in GEMM_CASES])
+def test_gemm_kernel_holds_the_contract(cuda, name, geom, batch, dtype):
+    """K3 (the tensor-core core on L read as an image) at its pickers'
+    blocks: one launch, within the contract against the f64 oracle and 2x
+    it against its plain version."""
+    kh, s_h = geom[3], _strides(geom[6])[0]
+    low, kmat, x, k = _gemm_operands(geom, dtype, cuda, batch)
+    before = K.mec_gemm.launches
+    y = K.mec_gemm(low, kmat, kh, s_h)
+    torch.cuda.synchronize()
+    assert K.mec_gemm.launches == before + 1
+    assert y.dtype == x.dtype and y.is_contiguous()
+    tol = fwd_tolerance("mec_lowered", dtype, kh * geom[4] * geom[2])
+    oracle = ref.conv2d_f64(x, k, _strides(geom[6]))
+    assert y.shape == oracle.shape
+    assert ref.scaled_error(y, oracle) <= tol
+    assert ref.scaled_error(y, K.mec_gemm_plain(low, kmat, kh, s_h)) <= 2 * tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("layer", list(SPLIT_LAYERS))
+def test_gemm_kernel_splits_the_reduction_over_a_cluster(cuda, layer, batch, dtype):
+    """K3 on cv11 and cv12 at batch 1 and 16: the grid is short of the SMs,
+    so a cluster splits the reduction; within the contract, and equal to
+    the bit on a second run."""
+    geom = SPLIT_LAYERS[layer]
+    low, kmat, x, k = _gemm_operands(geom, dtype, cuda, batch)
+    assert K.gemm_config(x.dtype, low.shape, kmat.shape, 3, 1)["split"] > 1
+    y = K.mec_gemm(low, kmat, 3, 1)
+    tol = fwd_tolerance("mec_lowered", dtype, 9 * geom[2])
+    assert ref.scaled_error(y, ref.conv2d_f64(x, k, 1)) <= tol
+    assert torch.equal(y, K.mec_gemm(low, kmat, 3, 1))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("i_c", [3, 40])
+def test_gemm_kernel_keeps_an_inf_to_the_windows_that_hold_it(cuda, i_c, dtype):
+    """An Inf in L just past the first output row's window (row 3 of a
+    3-row kernel), on the compact path (k_w*i_c = 9, whose MMA depth runs
+    past the window into the next rows of L) and the channel path: the
+    outputs whose windows hold it are not finite, all others are finite
+    and within the contract of the oracle on L without it."""
+    geom = (10, 12, i_c, 3, 3, 16, 1)
+    low, kmat, _, _ = _gemm_operands(geom, dtype, cuda, 2)
+    inf_w, inf_row = 4, 3
+    clean = low.clone()
+    clean[0, inf_w, inf_row, 0] = 0
+    low[0, inf_w, inf_row, 0] = float("inf")
+    assert K.gemm_config(low.dtype, low.shape, kmat.shape, 3, 1)["compact"] == (3 * i_c <= 16)
+    y = K.mec_gemm(low, kmat, 3, 1)
+    torch.cuda.synchronize()
+    oracle = K.mec_gemm_plain(clean.double(), kmat.double(), 3, 1)
+    holds = torch.zeros(oracle.shape[:3], dtype=torch.bool, device=cuda)
+    holds[0, inf_row - 2:inf_row + 1, inf_w] = True        # output rows 1 .. 3
+    assert not torch.isfinite(y[holds]).any()
+    assert torch.isfinite(y[~holds]).all()
+    assert ref.scaled_error(y[~holds], oracle[~holds]) <= \
+        fwd_tolerance("mec_lowered", dtype, 9 * i_c)
+
+
+@pytest.mark.parametrize("layer", list(SPLIT_LAYERS))
+def test_mec_lowered_allocates_l_and_o(cuda, layer):
+    """mode="lowered" at batch 16 allocates the compact L (paper Eq. 3)
+    and O and nothing else: K3 keeps no workspace (2 MiB of slack for the
+    allocator's rounding)."""
+    x, k = _operands(SPLIT_LAYERS[layer], "float32", cuda, batch=16)
+    i_n, i_h, i_w, i_c = x.shape
+    k_h, k_w, _, k_c = k.shape
+    o_h, o_w = i_h - k_h + 1, i_w - k_w + 1
+    need = (i_n * o_w * i_h * k_w * i_c + i_n * o_h * o_w * k_c) * 4
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    y = ops.mec_conv2d_cuda(x, k, 1, mode="lowered")
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {**NO_LAUNCHES, "mec_lower": 1, "mec_gemm": 1}
+    assert need <= torch.cuda.max_memory_allocated() - base <= need + (2 << 20)
+    del y
+
+
 def test_kernels_take_non_contiguous_operands(cuda):
     x, k = _operands((12, 14, 6, 3, 3, 10, 1), "float32", cuda)
     x_t = x.transpose(1, 2).contiguous().transpose(1, 2)    # same values
@@ -454,6 +555,32 @@ def test_conv1d_kernel_at_the_zamba2_shape_on_a_column_slice(cuda, dtype):
     k = torch.randn((4, 7296), generator=g, device=cuda).to(DTYPES[dtype])
     y = C.mec_conv1d(x, k)
     assert torch.equal(y, C.mec_conv1d_plain(x.contiguous(), k))
+
+
+# (dtype, first column, c, vector bytes): the zamba2 column slice (columns
+# 7168 .. 14463 of a 14576-wide row), slices moved by 1, 2 and 4 elements,
+# and a c off the 16-byte vector: every vector width of every dtype
+VECTOR_CASES = [(d, lo, c, vb) for d in ("bfloat16", "float16")
+                for lo, c, vb in ((7168, 7296, 16), (7169, 7296, 2), (7170, 7296, 4),
+                                  (7172, 7296, 8), (7168, 7297, 2), (7168, 7300, 8))]
+VECTOR_CASES += [("float32", lo, c, vb)
+                 for lo, c, vb in ((7168, 7296, 16), (7169, 7296, 4), (7170, 7296, 8),
+                                   (7168, 7298, 8), (7168, 7297, 4))]
+
+
+@pytest.mark.parametrize("dtype,lo,c,vb", VECTOR_CASES)
+def test_conv1d_kernel_at_every_vector_width(cuda, dtype, lo, c, vb):
+    """A column slice of a (4, 512, 14576) row, as the Mamba2 block passes
+    it, at the vector width its alignment allows: equal to the plain
+    version to the bit for every k_w of 1..8."""
+    g = torch.Generator(cuda).manual_seed(lo + c)
+    row = torch.randn((4, 512, 14576), generator=g, device=cuda).to(DTYPES[dtype])
+    x = row[..., lo:lo + c]
+    for k_w in range(1, C.MAX_KW + 1):
+        k = torch.randn((k_w, c), generator=g, device=cuda).to(DTYPES[dtype])
+        y = C.mec_conv1d(x, k)
+        assert C.vector_bytes(x, k, y) == vb
+        assert torch.equal(y, C.mec_conv1d_plain(x.contiguous(), k)), k_w
 
 
 def test_conv1d_kernel_refuses_what_it_does_not_take(cuda):

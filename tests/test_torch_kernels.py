@@ -175,6 +175,88 @@ def test_plain_versions_against_f64_oracle(geom, dtype):
 
 
 # ---------------------------------------------------------------------------
+# K3 as the K1/K4 core: the shifted GEMM over L is a conv of L read as an
+# image I' (height o_w, width i_h, k_w*i_c channels) with kernel_mat read as
+# K' (1, k_h, k_w*i_c, k_c), stride (1, s_h), output axes h and w swapped
+# ---------------------------------------------------------------------------
+
+# Table 3's layers (ResNet-101) at narrow widths, as TABLE2_SMALL
+TABLE3_SMALL = {name: TABLE2_SMALL[name]
+                for name in ("cv4", "cv9", "cv10", "cv11", "cv12")}
+GEMM_GEOMS = ([(f"sweep{i}", g) for i, g in enumerate(SWEEP)]
+              + list(EDGE_GEOMS.items()) + list(TABLE3_SMALL.items()))
+
+
+def _gemm_as_core(low, kmat, k_h, s_h):
+    """K3's function as the core computes it: ``mec_conv_fused_plain`` on
+    L and kernel_mat viewed as :func:`gemm_core` says, its output written
+    through the core's output strides into O (n, o_h, o_w, k_c)."""
+    core = K.gemm_core(low.shape, kmat.shape, k_h, s_h)
+    y = K.mec_conv_fused_plain(low.view(core["inp"]), kmat.view(core["kernel"]),
+                               core["stride"])
+    assert tuple(y.shape) == core["out_shape"]
+    i_n, o_w, o_h, k_c = core["out_shape"]
+    out = torch.empty(i_n * o_h * o_w * k_c, dtype=y.dtype)
+    out.as_strided(core["out_shape"], core["out_strides"] + (1,)).copy_(y)
+    return out.view(i_n, o_h, o_w, k_c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,geom", GEMM_GEOMS, ids=[n for n, _ in GEMM_GEOMS])
+def test_gemm_is_the_core_on_l_read_as_an_image(name, geom, dtype):
+    """The core's conv on (L as I', kernel_mat as K', stride (1, s_h)),
+    written through its swapped output strides, against the JAX package's
+    ``mec_gemm_pallas`` in interpret mode (2x the contract; not on F1's
+    geometries and k_h < s_h, which K3's TPU kernel does not reach
+    differently) and its oracle ``conv2d_ref`` (the contract)."""
+    ih, iw, ic, kh, kw, kc, s = geom
+    s_h, s_w = _strides(s)
+    jx, jk, tx, tk = _operands(geom, dtype)
+    tol = fwd_tolerance("mec_lowered", dtype, kh * kw * ic)
+    low = K.mec_lower_plain(tx, kw, s_w)
+    got = _gemm_as_core(low, tk.reshape(kh, kw * ic, kc), kh, s_h)
+    assert got.dtype == tx.dtype
+    j_low = j_lower_ref(jx, kw, s_w)
+    j_out = mec_gemm_pallas(j_low, jk.reshape(kh, kw * ic, kc), kh, s_h, w_blk=8,
+                            interpret=True)
+    assert tuple(got.shape) == j_out.shape
+    assert ref.scaled_error(got, _to_torch(j_out)) <= 2 * tol
+    assert ref.scaled_error(got, _to_torch(j_conv2d_ref(jx, jk, s))) <= tol
+
+
+# (low shape, k_h, k_c, s_h, w_blk): Table 3's cv12, cv11 and cv4 at batch
+# 16, cv4 at batch 1, SWEEP[3] with a given block, cv1's 33 channels of L
+GEMM_CORE_CASES = [((16, 5, 7, 1536), 3, 512, 1, None),
+                   ((16, 12, 14, 768), 3, 256, 1, None),
+                   ((16, 109, 224, 448), 7, 64, 2, None),
+                   ((1, 109, 224, 448), 7, 64, 2, None),
+                   ((2, 3, 11, 10), 4, 3, 2, 8),
+                   ((1, 55, 227, 33), 11, 96, 4, 20)]
+
+
+@pytest.mark.parametrize("low_shape,k_h,k_c,s_h,w_blk", GEMM_CORE_CASES)
+def test_gemm_core_maps_l_onto_the_core(low_shape, k_h, k_c, s_h, w_blk):
+    """:func:`gemm_core`: I' is L, K' is kernel_mat with a unit first axis,
+    stride (1, s_h); the core's (n, o_w, o_h, k_c) output strides are O's
+    with h and w swapped; the core's rows are w_blk output columns (K4's
+    row picker where None), its columns h_blk output rows (K4's column
+    picker), both on the transposed geometry."""
+    i_n, o_w, i_h, kwic = low_shape
+    o_h = (i_h - k_h) // s_h + 1
+    core = K.gemm_core(low_shape, (k_h, kwic, k_c), k_h, s_h, w_blk)
+    assert core["inp"] == low_shape
+    assert core["kernel"] == (1, k_h, kwic, k_c)
+    assert core["stride"] == (1, s_h)
+    assert core["out_shape"] == (i_n, o_w, o_h, k_c)
+    o = torch.empty((i_n, o_h, o_w, k_c), device="meta")
+    assert core["out_strides"] + (1,) == o.permute(0, 2, 1, 3).stride()
+    h_blk = ops.pick_fused_w_blk(o_h, k_c, i_n, o_w)
+    assert core["w_blk"] == h_blk
+    assert core["oh_blk"] == (ops.pick_oh_blk(o_w, o_h, h_blk, k_c, i_n)
+                              if w_blk is None else min(w_blk, o_w))
+
+
+# ---------------------------------------------------------------------------
 # K1/K4's f32 arithmetic: three TF32 products on the tensor cores
 # ---------------------------------------------------------------------------
 
@@ -294,18 +376,46 @@ def test_cpu_path_launches_no_kernel():
                                  "mec_gemm": 0, "mec_conv_fused2": 0}
 
 
-@pytest.mark.parametrize("o_w,k_c,i_n,o_h", [
-    (109, 64, 1, 109), (109, 64, 16, 109), (5, 512, 16, 5), (12, 256, 1, 12),
-    (1, 1, 1, 1), (4096, 8, 1, 1), (54, 64, 1, 54), (26, 128, 16, 26)])
-def test_pick_w_blk_sizes_for_the_h100(o_w, k_c, i_n, o_h):
-    blk = ops.pick_w_blk(o_w, k_c, i_n, o_h)
-    assert 1 <= blk <= min(o_w, ops.CTA_TILE_ROWS)
-    ctas = i_n * o_h * -(-o_w // blk) * -(-k_c // ops.CTA_CHANNELS)
-    # halved only while the grid is short of two waves of 132 SMs
-    if blk > ops.MIN_TILE_ROWS and blk < min(o_w, ops.CTA_TILE_ROWS):
-        prev = -(-o_w // (2 * blk - 1))
-        assert i_n * o_h * prev * -(-k_c // ops.CTA_CHANNELS) < 2 * ops.N_SMS
-    assert ctas >= 1
+# (o_h, o_w, k_c, i_n): the Table-3 layers at batch 1 and 16, then edges:
+# one output, one output row of 4096 columns, one column of 4096 rows
+@pytest.mark.parametrize("o_h,o_w,k_c,i_n", [
+    (109, 109, 64, 1), (109, 109, 64, 16), (54, 54, 64, 1), (54, 54, 64, 16),
+    (26, 26, 128, 1), (26, 26, 128, 16), (12, 12, 256, 1), (12, 12, 256, 16),
+    (5, 5, 512, 1), (5, 5, 512, 16), (1, 1, 1, 1), (1, 4096, 8, 1),
+    (4096, 1, 8, 1)])
+def test_gemm_blocks_size_for_the_h100(o_h, o_w, k_c, i_n):
+    """K3's blocks are K4's pickers on the transposed geometry: a CTA takes
+    up to 16 output columns w (the core's rows) by output rows h (its
+    columns) within the 128-position MMA tile; the columns are halved only
+    while even a cluster split of 4 leaves the grid short of the SMs, the
+    rows only while that holds and the block keeps one m16 tile."""
+    core = K.gemm_core((i_n, o_w, o_h, 8), (1, 8, k_c), 1, 1)
+    rows, cols = core["oh_blk"], core["w_blk"]
+    assert 1 <= rows <= min(o_w, ops.CTA_ROWS)
+    assert 1 <= cols <= min(o_h, ops.CTA_POSITIONS)
+    assert rows == 1 or rows * cols <= ops.CTA_POSITIONS
+    full_cols = min(o_h, ops.CTA_POSITIONS)
+    if cols < full_cols:
+        assert cols >= ops.MIN_FUSED_COLUMNS
+        assert ops.MAX_SPLIT * i_n * o_w * -(-o_h // min(full_cols, 2 * cols)) \
+            * -(-k_c // ops.CTA_CHANNELS) < ops.N_SMS
+    full_rows = max(1, min(o_w, ops.CTA_POSITIONS // cols, ops.CTA_ROWS))
+    if rows < full_rows:
+        others = i_n * -(-o_h // cols) * -(-k_c // ops.CTA_CHANNELS)
+        assert ops.MAX_SPLIT * others * -(-o_w // (2 * rows)) < ops.N_SMS
+        assert rows * cols >= ops.MIN_POSITIONS
+
+
+def test_gemm_blocks_stack_narrow_layers():
+    """At batch 16, K3 stacks output columns into one CTA as K4 stacks
+    rows: cv12's 5 x 5 and cv11's 10 x 12 outputs (columns x rows) fill
+    an MMA tile, cv4 takes one column of all 109 rows."""
+    def blocks(o, k_c):
+        core = K.gemm_core((16, o, o, 8), (1, 8, k_c), 1, 1)
+        return core["oh_blk"], core["w_blk"]
+    assert blocks(5, 512) == (5, 5)
+    assert blocks(12, 256) == (10, 12)
+    assert blocks(109, 64) == (1, 109)
 
 
 @pytest.mark.parametrize("o_w,k_c,i_n,o_h", [
@@ -456,3 +566,29 @@ def test_conv1d_cpu_path_launches_no_kernel():
     ops.mec_conv1d_cuda(tx, tk)
     C.mec_conv1d(tx[:, ::2], tk)
     assert C.mec_conv1d.launches == 0
+
+
+# (dtype, first column of the slice, its width c, the vector in bytes): the
+# zamba2-7b conv input (columns 7168 .. 14463 of a 14576-wide row), the
+# slice moved by 1, 2 and 4 elements, c off a multiple of 8, and f32
+VECTOR_CASES = [("bfloat16", 7168, 7296, 16), ("bfloat16", 7169, 7296, 2),
+                ("bfloat16", 7170, 7296, 4), ("bfloat16", 7172, 7296, 8),
+                ("bfloat16", 7168, 7300, 8), ("bfloat16", 7168, 7298, 4),
+                ("bfloat16", 7168, 7297, 2), ("float16", 7168, 7296, 16),
+                ("float32", 7168, 7296, 16), ("float32", 7169, 7296, 4),
+                ("float32", 7170, 7296, 8), ("float32", 7168, 7298, 8)]
+
+
+@pytest.mark.parametrize("dtype,lo,c,want", VECTOR_CASES)
+def test_conv1d_vector_bytes(dtype, lo, c, want):
+    """K5's vector is the widest of 16, 8 and 4 bytes that divides the
+    addresses, x's strides and c in bytes, else one element."""
+    td = DTYPES[dtype][1]
+    row = torch.empty((4, 512, 14576), dtype=td)
+    assert row.data_ptr() % 16 == 0
+    x = row[..., lo:lo + c]
+    k, out = torch.empty((4, c), dtype=td), torch.empty((4, 512, c), dtype=td)
+    assert C.vector_bytes(x, k, out) == want
+    # a time stride off the vector narrows it too
+    assert C.vector_bytes(row[:, :, :c].as_strided(x.shape, (512 * 14576, 14575, 1)),
+                          k, out) == x.element_size()

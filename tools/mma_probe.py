@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where K1's and K4's time goes on the card: time kernels built from
-variants of their source, each with one part of the work taken out.
+"""Where K1's, K3's and K4's time goes on the card: time kernels built
+from variants of their source, each with one part of the work taken out.
 
     python3 tools/mma_probe.py [--variants base,no_mma,...]
                                [--layers cv4,cv11] [--dtypes float32,bfloat16]
@@ -8,8 +8,9 @@ variants of their source, each with one part of the work taken out.
 Run from the repository root on a machine with a CUDA card and nvcc.
 Each variant is a copy of ``src/repro_torch/kernels/csrc`` with textual
 edits, compiled by nvcc (all variants at once) into
-``build/probe/<variant>/``.  Only ``base`` computes the convolution; the
-others time a mutilated kernel and their outputs are meaningless:
+``build/probe/<variant>/``.  Only ``base`` and ``strides`` compute the
+convolution; the others time a mutilated kernel and their outputs are
+meaningless:
 
   base        the kernels as they are
   no_mma      no tensor-core products (fragments, copies, syncs remain)
@@ -18,10 +19,13 @@ others time a mutilated kernel and their outputs are meaningless:
   one_step    each CTA runs one reduction step: the fixed cost a tile
   warp64x32   16-bit types at 128 rows as 4 warps of 64 x 32, not 8 of
               32 x 32
+  strides     the output address from three output strides in the
+              parameters (n, row, column), not NHWC or its h/w swap
 
 For each Table-3 layer at batch 16 and each dtype it prints one JSON line
-per variant with K1's and K4's device time a call (``torch.profiler``,
-kernel self time over 10 calls) and, for ``base``, cuDNN's.  Imports torch
+per variant with K1's, K3's and K4's device time a call (``torch.profiler``,
+kernel self time over 10 calls; K3 on the layer's L from ``mec_lower``, at
+the blocks ``mec_gemm`` picks) and, for ``base``, cuDNN's.  Imports torch
 and the port only.
 """
 from __future__ import annotations
@@ -77,10 +81,22 @@ VARIANTS = {
          "int mma_threads(int bm, int elem) { return bm == 128 && elem == 4 ? 256 : 128; }"),
         ("mec_conv.cu", "  const int threads = mma_threads(L->bm);",
          "  const int threads = mma_threads(L->bm, elem);"),
-        ("mec_conv.cu", "    default: return launch_mma_tile<T, 2, 4, 4, 2>(k4, L, stream);",
+        ("mec_conv.cu", "    default: return launch_mma_tile<T, 2, 4, 4, 2>(kind, L, stream);",
          "    default:\n"
-         "      if (sizeof(T) == 2) return launch_mma_tile<T, 4, 4, 2, 2>(k4, L, stream);\n"
-         "      return launch_mma_tile<T, 2, 4, 4, 2>(k4, L, stream);"),
+         "      if (sizeof(T) == 2) return launch_mma_tile<T, 4, 4, 2, 2>(kind, L, stream);\n"
+         "      return launch_mma_tile<T, 2, 4, 4, 2>(kind, L, stream);"),
+    ],
+    "strides": [
+        ("mec_mma.cuh", "  int swap_hw;", "  int swap_hw;\n  int64_t out_sn, out_sh, out_sw;"),
+        ("mec_conv.cu", "  p.swap_hw = kind == kK3;",
+         "  p.swap_hw = kind == kK3;\n"
+         "  p.out_sn = (int64_t)o_h * o_w * k_c;\n"
+         "  p.out_sh = kind == kK3 ? k_c : (int64_t)o_w * k_c;\n"
+         "  p.out_sw = kind == kK3 ? (int64_t)o_h * k_c : k_c;"),
+        ("mec_mma.cuh",
+         "            T* o = out + (p.swap_hw ? (n * p.o_w + w) * (int64_t)p.o_h + h\n"
+         "                                    : (n * p.o_h + h) * (int64_t)p.o_w + w) * p.k_c;",
+         "            T* o = out + n * p.out_sn + h * p.out_sh + w * p.out_sw;"),
     ],
 }
 
@@ -171,12 +187,14 @@ def main(argv=None) -> int:
             x = torch.randn((BATCH, ih, iw, ic), generator=gen, device="cuda").to(dtype)
             k = (torch.randn((kh, kw, ic, kc), generator=gen, device="cuda")
                  * (kh * kw * ic) ** -0.5).to(dtype)
+            low, kmat = K.mec_lower_plain(x, kw, s), k.reshape(kh, kw * ic, kc)
             for name in names:
                 use_library(libs[name])
                 row = {"variant": name, "layer": layer, "batch": BATCH, "dtype": dname,
                        "K1_ms": device_ms(lambda: K.mec_conv_fused(x, k, s, w_blk=w_blk)),
                        "K4_ms": device_ms(lambda: K.mec_conv_fused2(
-                           x, k, s, w_blk=w_blk, oh_blk=oh_blk))}
+                           x, k, s, w_blk=w_blk, oh_blk=oh_blk)),
+                       "K3_ms": device_ms(lambda: K.mec_gemm(low, kmat, kh, s))}
                 if name == "base":
                     x_nchw = x.permute(0, 3, 1, 2)
                     k_oihw = k.permute(3, 2, 0, 1).contiguous(
