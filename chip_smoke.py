@@ -21,7 +21,11 @@ the script exits non-zero without its last line:
              (4, 512, 7296, k_w = 4), a column slice of the in_proj
              output, in all three; and the long_500k input (1, 524288,
              7296) in bf16, past 2^31 elements, on its first and last
-             4096 steps.
+             4096 steps; K5's runtime-k_w path (k_w > 8, fault F5) at
+             k_w = 9, 16 and 33, to the bit.  Then mixed operand dtypes
+             (fault F4: bf16 x f32, f32 x bf16, f16 x bf16): K1, K4,
+             K2+K3 and K5 equal to the bit to their f32 runs on the
+             promoted operands, cast to the input's dtype.
 4. slice   - the inference path: the 34 convolutions of the ResNet-101
              Table-3 stack at batch 16 through ``conv2d(algorithm="auto")``
              (K1), then each of its five layers through ``mec_lowered``
@@ -30,6 +34,21 @@ the script exits non-zero without its last line:
              then the device memory each path allocates against paper
              Eq. 3 (``mec_lowered`` holds the compact L beside O, K1 and K4
              only O).
+4b. plan   - the planner: ``tune_measured`` (the measured policy of
+             ``plan_conv2d(mode="measured")``) races every algorithm on
+             each of the five Table-3 layers at batch 16, in f32 and bf16,
+             and tunes the winner's knob; no kernel may be skipped.  Each
+             plan round-trips through its JSON and a fresh plan cache on
+             one file.  The 34-conv stack then runs through
+             ``conv2d(plan=)``: outputs against the f64 oracle within
+             their plan's contract, launches per kernel equal to the
+             convs planned for it, and the stack timed beside ``auto``
+             (K1), all-``direct`` and cuDNN (per-call events around the
+             stack, and its device time alone).  The calibration store
+             holds the trials, fits, and leaves ``auto`` on CUDA at K1;
+             the trainer runs with ``--algorithm auto`` (its plans
+             resolved once, acc > 0.8).  Plan cache and calibration live
+             in a temporary directory made for the run.
 5. train   - the training path: (a) each of the five Table-3 layers at
              batch 16 through ``conv2d(algorithm="mec_fused2")`` (K4)
              forward and the MEC VJP backward, loss sum(out^2), output and
@@ -63,7 +82,8 @@ the script exits non-zero without its last line:
              each output first checked against the f64 oracle and the
              plain version.  K5 at the zamba2-7b shape on the L2-cold
              timer (``cold_ms``), beside its plain version, cuDNN, two
-             copies of the same bytes and its bound.
+             copies of the same bytes and its bound, and again at k_w = 16
+             (its runtime-k_w path).
 8. profile - one zamba2-7b prefill and four decode steps traced with
              ``torch.profiler``: device time by kernel, launches, and the
              device's busy share of the host-clock window.
@@ -74,12 +94,16 @@ and ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -132,6 +156,18 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 CONV1D_CASES = [(10, 5, 4), (1024, 256, 4), (33, 7, 3), (512, 64, 2),
                 (5, 3, 4), (10, 5, 1), (1024, 8, 1)]
 CONV1D_TOL = {"float32": 2e-4, "bfloat16": 4e-2, "float16": 4e-2}
+# K5's runtime-k_w path (k_w above the specialised 8, fault F5): (t, c, k_w)
+CONV1D_ANY_KW = [(1024, 256, 9), (100, 130, 16), (512, 64, 33)]
+ANY_KW_TIMED = 16
+# fault F4: (input dtype, kernel dtype), and the conv2d geometry they run on
+MIXED = [("bfloat16", "float32"), ("float32", "bfloat16"),
+         ("float16", "bfloat16")]
+MIXED_GEOM = (14, 14, 256, 3, 3, 256, 1)
+# the plan phase: measured races and the planned stack, in these dtypes
+PLAN_DTYPES = ("float32", "bfloat16")
+PLAN_ITERS, PLAN_WARMUP = 10, 2
+# the kernel paths no measured race may skip
+PLAN_KERNEL_ALGOS = ("mec_fused", "mec_fused2", "mec_lowered")
 # zamba2-7b served: batch, prompt, generated tokens; the Mamba2 conv input
 # is columns 7168 .. 14463 (d_in .. 2 d_in + 2 N) of a 14576-wide row.
 SERVE_ARCH = "zamba2-7b"
@@ -235,10 +271,11 @@ def cold_ms(fn, ring, calls: int = COLD_CALLS) -> dict:
     argument tuples that together span at least COLD_RING_BYTES of what
     the calls read and write; ``calls`` launches, walking the ring (each
     slot's output is kept until the slot comes round again, so the outputs
-    cycle too), run between one pair of CUDA events, ITERS times.  Before
-    each pair the card sleeps for twice the host's time to enqueue the
-    launches, so the reading holds no host launch overhead.  Returns the
+    cycle too), run between one pair of CUDA events, ITERS times, with the
+    host's enqueue hidden behind a sleep of the card
+    (``bench.harness.slept_event_ms``, the planner's timer).  Returns the
     median, min and max per call, in ms."""
+    from repro_torch.bench.harness import slept_event_ms
     m = len(ring)
     outs = [None] * m
 
@@ -247,28 +284,7 @@ def cold_ms(fn, ring, calls: int = COLD_CALLS) -> dict:
             outs[i % m] = fn(*ring[i % m])
 
     run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    # the sleep's cycles a millisecond, from one timed sleep
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    torch.cuda._sleep(10 ** 7)
-    end.record()
-    torch.cuda.synchronize()
-    cycles = int(10 ** 7 / start.elapsed_time(end) * (2 * host_s * 1e3 + 1))
-    pairs = []
-    for _ in range(ITERS):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(cycles)
-        start.record()
-        run()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    per_call = [s.elapsed_time(e) / calls for s, e in pairs]
+    per_call = [ms / calls for ms in slept_event_ms(run, ITERS, 1.0)]
     return {"ms": statistics.median(per_call), "min_ms": min(per_call),
             "max_ms": max(per_call), "calls": calls, "ring": m}
 
@@ -434,6 +450,190 @@ def profile_serving(cfg, seed: int, decode_steps: int = 4) -> dict:
     return out
 
 
+def plan_phase(stack) -> dict:
+    """The planner on the card (phase 4b): measured plans for each layer of
+    ``stack`` (the slice phase's (name, x, w, stride, spec) convs) in each
+    of PLAN_DTYPES, their round trips, the stack through ``conv2d(plan=)``
+    against the f64 oracle with its launch counts, its time beside
+    ``auto`` and all-``direct``, the calibration store, and the trainer
+    with ``--algorithm auto``.  Returns the planned stacks by dtype."""
+    import contextlib
+    import io
+    from repro_torch.core.conv_api import conv2d
+    from repro_torch.core.numerics import fwd_tolerance
+    from repro_torch.core.direct import ieee_f32_conv
+    from repro_torch.examples import train_cnn
+    from repro_torch.kernels import mec_conv as K, ref
+    from repro_torch.launch.costmodel import pick_conv2d_algorithm
+    from repro_torch.plan import (CalibrationStore, ConvPlan, PlanCache,
+                                  current_calibration, plan_conv2d,
+                                  reset_calibration_cache, spec_key)
+    from repro_torch.plan.convplan import tune_measured
+
+    layers = {}
+    for name, _, _, _, spec in stack:
+        layers.setdefault(name, spec)
+    plans = {}
+    for dname in PLAN_DTYPES:
+        for name, spec in layers.items():
+            t0 = time.perf_counter()
+            plan, detail = tune_measured(spec, dname, iters=PLAN_ITERS,
+                                         warmup=PLAN_WARMUP)
+            seconds = time.perf_counter() - t0
+            lost = sorted(a for a in detail["skipped"]
+                          if a.split("[")[0] in PLAN_KERNEL_ALGOS)
+            check(not lost, f"plan {name} {dname}: the race lost {lost}: "
+                  f"{detail['skipped']}")
+            check(set(PLAN_KERNEL_ALGOS) <= set(detail["candidate_us"]),
+                  f"plan {name} {dname}: timed {sorted(detail['candidate_us'])}")
+            check((plan.backend, plan.mode, plan.dtype) == ("cuda", "measured", dname),
+                  f"plan {name} {dname}: {plan}")
+            check(ConvPlan.from_json(plan.to_json()) == plan,
+                  f"plan {name} {dname}: JSON round trip")
+            tuning = detail["tuning"]
+            row = {"layer": name, "dtype": dname, "spec": spec_key(spec),
+                   "analytic": detail["analytic_algorithm"],
+                   "candidate_us": detail["candidate_us"],
+                   "candidate_rel_spread": {a: st["us_rel_spread"] for a, st
+                                            in detail["candidate_stats"].items()},
+                   "skipped": detail["skipped"],
+                   "tuning": None if tuning is None else {
+                       "knob": tuning["knob"], "default": tuning["default"],
+                       "picked": tuning["picked"],
+                       "trials_us": {lbl: t["us_median"]
+                                     for lbl, t in tuning["trials"].items()}},
+                   "algorithm": plan.algorithm, "solution": plan.solution,
+                   "w_blk": plan.w_blk, "seconds": round(seconds, 3)}
+            emit({"phase": "plan", **row})
+            plans[(name, dname)] = plan
+    # the user's entry point runs the same policy
+    entry = plan_conv2d(layers["cv11"], dtype="float32", mode="measured",
+                        iters=PLAN_ITERS, warmup=PLAN_WARMUP)
+    check(entry.mode == "measured" and entry.backend == "cuda",
+          f"plan_conv2d(mode='measured'): {entry}")
+    # a fresh plan cache on one file holds every plan
+    cache_file = Path(os.environ["REPRO_TORCH_PLAN_CACHE_DIR"]) / "measured.json"
+    writer = PlanCache(cache_file)
+    for plan in plans.values():
+        writer.put(plan.cache_key(), plan)
+    reader = PlanCache(cache_file)
+    check(all(reader.get(p.cache_key()) == p for p in plans.values())
+          and writer.io_errors == reader.io_errors == 0,
+          f"plans through a fresh cache on {cache_file}")
+
+    # the 34-conv stack through conv2d(plan=)
+    stacks = {}
+    for dname in PLAN_DTYPES:
+        dtype = DTYPES[dname]
+        xs, convs = {}, []
+        for name, x, w, s, spec in stack:
+            xs.setdefault(name, x.to(dtype))
+            convs.append((name, xs[name], w.to(dtype), s, spec,
+                          plans[(name, dname)]))
+        expected = {fn.__name__: 0 for fn in K.KERNELS}
+        runs = {"mec_fused": ("mec_conv_fused",),
+                "mec_fused2": ("mec_conv_fused2",),
+                "mec_lowered": ("mec_lower", "mec_gemm")}
+        for *_, plan in convs:
+            for kname in runs.get(plan.algorithm, ()):
+                expected[kname] += 1
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        outs = [conv2d(x, w, stride=s, padding="VALID", plan=plan)
+                for _, x, w, s, _, plan in convs]
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        check(counts == expected, f"planned stack {dname} launched {counts}, "
+              f"its plans {expected}")
+        worst = 0.0
+        for (name, x, w, s, spec, plan), y in zip(convs, outs):
+            tol = fwd_tolerance(plan.algorithm, dname,
+                                spec.k_h * spec.k_w * spec.i_c)
+            e = ref.scaled_error(y, ref.conv2d_f64(x, w, s))
+            check(tuple(y.shape) == spec.out_shape and y.dtype == dtype
+                  and math.isfinite(e) and e <= tol,
+                  f"planned stack {name} {dname} ({plan.algorithm}): error "
+                  f"{e} vs f64 > tol {tol}")
+            worst = max(worst, e / tol)
+        del outs
+
+        def run(**kw):
+            return lambda: [conv2d(x, w, stride=s, padding="VALID", **kw)
+                            for _, x, w, s, _, _ in convs]
+
+        def planned():
+            return [conv2d(x, w, stride=s, padding="VALID", plan=plan)
+                    for _, x, w, s, _, plan in convs]
+
+        lib_ops = [(x.permute(0, 3, 1, 2),        # NHWC memory = channels_last
+                    w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
+                    s) for _, x, w, s, _, _ in convs]
+
+        def library():
+            with ieee_f32_conv():
+                return [F.conv2d(x, k, stride=s) for x, k, s in lib_ops]
+
+        paths = {"planned": planned, "auto": run(algorithm="auto"),
+                 "direct": run(algorithm="direct"), "library": library}
+        stacks[dname] = {
+            "convs": len(convs),
+            "plans": {n: plans[(n, dname)].algorithm for n in layers},
+            "w_blk": {n: plans[(n, dname)].w_blk for n in layers},
+            "launches": counts, "worst_err_over_tol": worst,
+            # CUDA events around the 34 calls (the host's enqueue included)
+            **{f"{p}_ms": time_ms(fn) for p, fn in paths.items()},
+            # the device's time alone: the host's enqueue hidden behind a
+            # sleep (cold_ms's timer on a one-slot ring, so the L2 is warm)
+            "device_ms": {p: cold_ms(fn, [()], calls=1)["ms"]
+                          for p, fn in paths.items()}}
+        emit({"phase": "plan", "stack": dname, **stacks[dname]})
+
+    # the calibration store holds the trials, fits, and leaves auto at K1
+    calib = CalibrationStore(backend="cuda").load()
+    cells = calib.time_cells()
+    check(all(set(PLAN_KERNEL_ALGOS) <= set(cells.get(spec_key(spec), {}))
+              for spec in layers.values()),
+          f"the calibration store holds {sorted(cells)}")
+    fit = calib.fit()
+    env_file = Path(os.environ["REPRO_TORCH_CALIBRATION"])
+    env_file.write_text(json.dumps(calib.to_dict()))
+    reset_calibration_cache()
+    check(current_calibration("cuda") is not None,
+          "the fitted calibration is not the ambient one")
+    for spec in layers.values():
+        for calibration in ("ambient", calib):
+            got = pick_conv2d_algorithm(spec, "cuda", calibration=calibration)
+            check(got == "mec_fused", f"auto on CUDA with a fitted store: {got}")
+
+    # the trainer, with one plan per layer resolved once
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        acc = train_cnn.main(["--algorithm", "auto"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    print(log.getvalue(), file=sys.stderr, end="", flush=True)
+    train_counts = K.launch_counts()
+    plan_lines = [ln for ln in log.getvalue().splitlines() if " plan[" in ln]
+    check(acc > 0.8, f"train_cnn --algorithm auto: final accuracy {acc}")
+    check(len(plan_lines) == 3, f"train_cnn printed plans {plan_lines}")
+    check(train_counts == {"mec_conv_fused": 3 * TRAIN_STEPS, "mec_lower": 0,
+                           "mec_gemm": 0, "mec_conv_fused2": 0},
+          f"train_cnn --algorithm auto launched {train_counts}")
+    out = {"phase": "plan", "stacks": stacks,
+           "calibration": {"cells": len(cells),
+                           "samples": sum(len(v) for v in calib.time_samples.values()),
+                           "time_constants": fit["time_constants"],
+                           "decisions": fit["decisions"]},
+           "train_cnn_auto": {"plans": plan_lines, "final_acc": acc,
+                              "launches": train_counts,
+                              "seconds": round(train_s, 3)}}
+    emit(out)
+    return stacks
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -455,6 +655,12 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "peak_f32_flops": peak_flops,
           "peak_bytes_per_s": peak_bw, "peak_tf32_flops": peak_tf32,
           "peak_bf16_flops": peak_bf16, "peak_source": peak_label})
+    # A plan cache or calibration left on the machine must not decide a
+    # pick: both live in a directory made for this run.
+    plan_dir = tempfile.mkdtemp(prefix="chip_smoke-plans-")
+    atexit.register(shutil.rmtree, plan_dir, True)
+    os.environ["REPRO_TORCH_PLAN_CACHE_DIR"] = str(Path(plan_dir) / "plans")
+    os.environ["REPRO_TORCH_CALIBRATION"] = str(Path(plan_dir) / "calibration.json")
     # The plain versions and the oracle use cuBLAS/cuDNN: keep f32 IEEE.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -478,6 +684,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ops import (mec_conv2d_cuda, pick_fused_w_blk,
                                          pick_oh_blk)
     from repro_torch.models.layers import init_conv2d
+    from repro_torch.plan import global_plan_cache, plan_cache_key
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     check(not bad, f"the port loaded {bad}")
@@ -575,6 +782,13 @@ def main(argv=None) -> int:
         conv1d_rows.append(conv1d_case(C, ref, f"long_500k_{window[0]}",
                                        "bfloat16", x, k, window))
     del x, k
+    # K5's runtime-k_w path (fault F5), to the bit like the others
+    for dname, dtype in DTYPES.items():
+        for t, c, kw in CONV1D_ANY_KW:
+            x = torch.randn((2, t, c), generator=gen, device=DEVICE).to(dtype)
+            k = torch.randn((kw, c), generator=gen, device=DEVICE).to(dtype)
+            conv1d_rows.append(conv1d_case(C, ref, f"t{t}_c{c}_kw{kw}", dname,
+                                           x, k))
     torch.cuda.empty_cache()
     for row in conv1d_rows:
         emit({"phase": "kernels", "kernel": "K5", **row}, sys.stderr)
@@ -583,6 +797,39 @@ def main(argv=None) -> int:
           "worst_scaled_err_vs_f64": {
               d: max(r["scaled_err_vs_f64"] for r in conv1d_rows if r["dtype"] == d)
               for d in DTYPES}})
+
+    # Mixed operand dtypes (fault F4): K1, K4, K2+K3 and K5 run their f32
+    # instance on both operands promoted, equal to the bit to that run cast
+    # to the input's dtype, and within the input dtype's contract of f64.
+    mixed = []
+    for xd, kd in MIXED:
+        x, _ = make_operands(gen, 2, MIXED_GEOM, DTYPES[xd])
+        _, k = make_operands(gen, 2, MIXED_GEOM, DTYPES[kd])
+        oracle = ref.conv2d_f64(x, k, 1)
+        row = {"phase": "kernels", "mixed": [xd, kd]}
+        for mode in ("fused", "fused2", "lowered"):
+            y = mec_conv2d_cuda(x, k, 1, mode=mode)
+            want = mec_conv2d_cuda(x.float(), k.float(), 1, mode=mode).to(x.dtype)
+            tol = fwd_tolerance("mec_" + mode, xd, 9 * MIXED_GEOM[2])
+            e = ref.scaled_error(y, oracle)
+            check(y.dtype == x.dtype and torch.equal(y, want) and e <= tol,
+                  f"{mode} on {xd} x {kd}: not its f32 run on promoted "
+                  f"operands, or error {e} > tol {tol}")
+            row[mode] = e
+        for kw in (4, 9):
+            x1 = torch.randn((2, 1024, 256), generator=gen, device=DEVICE).to(DTYPES[xd])
+            k1 = torch.randn((kw, 256), generator=gen, device=DEVICE).to(DTYPES[kd])
+            y1 = C.mec_conv1d(x1, k1)
+            check(y1.dtype == x1.dtype
+                  and torch.equal(y1, C.mec_conv1d(x1.float(), k1.float()).to(x1.dtype))
+                  and torch.equal(y1, C.mec_conv1d_plain(x1, k1)),
+                  f"K5 k_w={kw} on {xd} x {kd}: not its f32 run on promoted operands")
+        row["K5"] = "equal bits"
+        mixed.append(row)
+        emit(row, sys.stderr)
+    del x, k, oracle, y, want, x1, k1, y1
+    emit({"phase": "kernels", "mixed_dtypes": len(mixed) * 5,
+          "equal_to_promoted_f32_run": True})
 
     # 4. slice: the main path ----------------------------------------------
     stack = []
@@ -608,6 +855,11 @@ def main(argv=None) -> int:
     check(auto_counts["mec_conv_fused"] >= len(stack)
           and auto_counts["mec_lower"] == 0 and auto_counts["mec_gemm"] == 0,
           f"auto path launched {auto_counts}")
+    for name, _, _, _, spec in stack:
+        hit = global_plan_cache().get(plan_cache_key(spec, "float32", "cuda"))
+        check(hit is not None and hit.algorithm == "mec_fused" and hit.w_blk
+              == pick_fused_w_blk(spec.o_w, spec.k_c, spec.i_n, spec.o_h),
+              f"auto's cached plan for {name}: {hit}")
 
     lowered = [(n, x, w, s, spec) for i, (n, x, w, s, spec) in enumerate(stack)
                if i == 0 or stack[i - 1][0] != n]
@@ -683,6 +935,9 @@ def main(argv=None) -> int:
           "lowered_seconds": round(lowered_s, 4),
           "max_scaled_err": scaled, "max_abs_err_vs_plain": abs_err,
           "memory": mem})
+
+    # 4b. plan: the planner ------------------------------------------------
+    planned = plan_phase(stack)
 
     # 5. train: the training path ------------------------------------------
     # (a) each distinct layer: K4 forward, MEC VJP backward, against f64
@@ -1083,6 +1338,10 @@ def main(argv=None) -> int:
     # in_proj output, 59.7 MB, is not in the L2 when K5 reads it).
     k5 = conv1d_timing(C, gen, cfg.conv_width, peak_flops, peak_bw)
     emit({"phase": "timing", "kernel": "mec_conv1d", **k5})
+    # and its runtime-k_w path at the same shape (no model reaches it)
+    k5_any = conv1d_timing(C, gen, ANY_KW_TIMED, peak_flops, peak_bw)
+    emit({"phase": "timing", "kernel": "mec_conv1d", "path": "runtime k_w",
+          **k5_any})
 
     # 8. profile ------------------------------------------------------------
     emit({"phase": "profile", **profile_serving(cfg, args.seed)})
@@ -1117,7 +1376,10 @@ def main(argv=None) -> int:
                 "per_call_spread": {f: [k5["cold"][f]["min_ms"], k5["cold"][f]["max_ms"]]
                                     for f in ("kernel", "plain", "library")},
                 "copy_ms_per_call": k5["copy_ms"],
-                "memcpy_ms_per_call": k5["memcpy_ms"]})
+                "memcpy_ms_per_call": k5["memcpy_ms"],
+                "any_kw": {"k_w": ANY_KW_TIMED,
+                           **{f: k5_any[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                     "library_ms")}}})
             continue
         recs = [(w, shapes[kname][(n, SLICE_BATCH)]) for n, w in weights[kname].items()]
 
@@ -1147,6 +1409,10 @@ def main(argv=None) -> int:
                                      f"{peak_bf16 / 1e12:g} TFLOP/s"}})
     rows[list(KERNEL_ROWS).index("mec_conv_fused2")]["train_cnn_launches"] = \
         cnn_counts["mec_conv_fused2"]
+    for row in rows:
+        if row["name"] != "mec_conv1d":
+            row["planned_stack_launches"] = {
+                d: planned[d]["launches"][row["name"]] for d in PLAN_DTYPES}
     rows[list(KERNEL_ROWS).index("mec_gemm")]["lowered_pair"] = {
         "ms": sum(pair[(n, SLICE_BATCH)]["ms"] for n in RESNET101),
         "library_ms": sum(pair[(n, SLICE_BATCH)]["library_ms"] for n in RESNET101)}

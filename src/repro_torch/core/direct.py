@@ -38,7 +38,12 @@ def accum_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def direct_conv2d(inp: torch.Tensor, kernel: torch.Tensor,
                   stride=1) -> torch.Tensor:
-    """inp (n, h, w, c) pre-padded; kernel (k_h, k_w, i_c, k_c); VALID."""
+    """inp (n, h, w, c) pre-padded; kernel (k_h, k_w, i_c, k_c); VALID.
+    Operands of two dtypes raise ``TypeError``, as the JAX package's
+    direct convolution does."""
+    if inp.dtype != kernel.dtype:
+        raise TypeError(f"direct_conv2d requires arguments to have the same "
+                        f"dtypes, got {inp.dtype} and {kernel.dtype}")
     s = normalize_stride(stride)
     acc = accum_dtype(inp.dtype)
     x = inp.permute(0, 3, 1, 2).to(acc)           # NCHW

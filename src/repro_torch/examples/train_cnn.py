@@ -20,13 +20,14 @@ import time
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import conv2d_layer, init_conv2d
+from repro_torch.models.layers import (conv2d_layer, init_conv2d,
+                                       plan_conv2d_layer)
 from repro_torch.optim import adamw
 
 
-def conv_layer(p, x, stride=1, algorithm="mec"):
+def conv_layer(p, x, stride=1, algorithm="mec", plan=None):
     return torch.relu(conv2d_layer(p, x, stride=stride, padding="SAME",
-                                   algorithm=algorithm))
+                                   algorithm=algorithm, plan=plan))
 
 
 def init_model(generator: torch.Generator, width: int, device="cuda") -> dict:
@@ -42,12 +43,27 @@ def init_model(generator: torch.Generator, width: int, device="cuda") -> dict:
     }
 
 
-def forward(p, imgs, algorithm="mec"):
-    x = conv_layer(p["c1"], imgs, 2, algorithm)
-    x = conv_layer(p["c2"], x, 2, algorithm)
-    x = conv_layer(p["c3"], x, 2, algorithm)
+def forward(p, imgs, algorithm="mec", plans=None):
+    plans = plans or {}
+    x = conv_layer(p["c1"], imgs, 2, algorithm, plans.get("c1"))
+    x = conv_layer(p["c2"], x, 2, algorithm, plans.get("c2"))
+    x = conv_layer(p["c3"], x, 2, algorithm, plans.get("c3"))
     x = x.mean(dim=(1, 2))
     return x @ p["head"]["w"] + p["head"]["b"]
+
+
+def resolve_plans(params, batch, size=32, mode="cached"):
+    """algorithm="auto": the ConvPlan of each conv layer is resolved once
+    here, on the parameters' device, and every training step replays it;
+    the plan cache keeps the decisions across runs."""
+    plans = {}
+    for name in ("c1", "c2", "c3"):
+        c_in = params[name]["w"].shape[2]
+        plans[name] = plan_conv2d_layer(params[name],
+                                        (batch, size, size, c_in),
+                                        stride=2, padding="SAME", mode=mode)
+        size //= 2
+    return plans
 
 
 def make_batch(generator: torch.Generator, batch: int, size: int = 32):
@@ -66,20 +82,22 @@ def make_batch(generator: torch.Generator, batch: int, size: int = 32):
     return noise + blob[..., None], labels
 
 
-def loss_and_grads(params, imgs, labels, algorithm="mec"):
+def loss_and_grads(params, imgs, labels, algorithm="mec", plans=None):
     """(loss, logits, grads): mean cross-entropy of ``forward`` and its
     gradient for every parameter, by autograd."""
     live = adamw.tree_map(lambda p: p.detach().requires_grad_(), params)
-    logits = forward(live, imgs, algorithm)
+    logits = forward(live, imgs, algorithm, plans)
     loss = -F.log_softmax(logits, dim=-1)[
         torch.arange(labels.shape[0], device=labels.device), labels].mean()
     loss.backward()
     return loss.detach(), logits.detach(), adamw.tree_map(lambda p: p.grad, live)
 
 
-def train_step(params, opt, imgs, labels, opt_cfg, algorithm="mec"):
+def train_step(params, opt, imgs, labels, opt_cfg, algorithm="mec",
+               plans=None):
     """One step: (new params, new optimizer state, loss, accuracy)."""
-    loss, logits, grads = loss_and_grads(params, imgs, labels, algorithm)
+    loss, logits, grads = loss_and_grads(params, imgs, labels, algorithm,
+                                         plans)
     acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
     params, opt, _ = adamw.update(opt_cfg, grads, opt, params)
     return params, opt, loss, acc
@@ -103,11 +121,12 @@ def main(argv=None):
     n_params = sum(x.numel() for x in adamw.tree_leaves(params))
     print(f"[train_cnn] {n_params/1e3:.1f}k params, every conv via "
           f"conv2d(algorithm={args.algorithm!r})")
+    plans = None
     if args.algorithm == "auto":
-        # The JAX trainer resolves one ConvPlan per layer here; the planner
-        # is not ported yet (ROADMAP Queue 1 item 6), so conv2d's own
-        # algorithm="auto" picks per call.
-        print("[train_cnn] auto: conv2d picks per call (no ConvPlan yet)")
+        plans = resolve_plans(params, args.batch)
+        for name, pl in plans.items():
+            print(f"[train_cnn] {name} plan[{pl.mode}]: {pl.algorithm} "
+                  f"(solution={pl.solution}, w_blk={pl.w_blk})")
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=10, weight_decay=0.01)
     opt = adamw.init(params)
@@ -117,7 +136,7 @@ def main(argv=None):
     for i in range(args.steps):
         imgs, labels = make_batch(data, args.batch)
         params, opt, loss, acc = train_step(params, opt, imgs, labels,
-                                            opt_cfg, args.algorithm)
+                                            opt_cfg, args.algorithm, plans)
         if i % 25 == 0 or i == args.steps - 1:
             print(f"[train_cnn] step {i:4d} loss {float(loss):.4f} "
                   f"acc {float(acc):.2f}")

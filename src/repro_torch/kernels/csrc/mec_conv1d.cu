@@ -54,6 +54,16 @@
 //     0; there is no second view, and k_w = 1 reads no history at all.
 //   - Offsets are 64-bit: the long_500k shape (1, 524288, 7296) holds
 //     3.8e9 elements, past 2^31.
+//   - k_w above kMaxKw (fault F5: the TPU kernel takes any k_w up to its
+//     time block + 1) runs conv1d_any_kw_kernel, one instance per dtype,
+//     k_w a runtime argument.  A thread owns one channel over kTimeTile
+//     steps and keeps the tile's kTimeTile sums and a window of
+//     kTimeTile inputs in registers; tap j multiplies the window by the
+//     weight and slides it one step, so each tap reads one input and one
+//     weight (zero outside 0 .. t-1), and each sum takes its taps j = 0 ..
+//     k_w-1 in order with the same roundings: equal bits to the plain
+//     version, like the specialised instances.  No model reaches it (every
+//     config has k_w = 4); it moves one element a thread, not vectors.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -65,7 +75,7 @@ namespace {
 
 constexpr int kThreads = 128;   // vectors per CTA
 constexpr int kTimeTile = 16;   // time steps per thread
-constexpr int kMaxKw = 8;       // largest kernel width instantiated
+constexpr int kMaxKw = 8;       // largest kernel width of the specialised instances
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -197,6 +207,61 @@ conv1d_kernel(const T* __restrict__ x, const T* __restrict__ ker, T* __restrict_
   }
 }
 
+// k_w above kMaxKw: thread g takes channel g % c of time tile (g / c) %
+// tiles of batch row g / (c * tiles), channels fastest.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+conv1d_any_kw_kernel(const T* __restrict__ x, const T* __restrict__ ker, T* __restrict__ out,
+                     int64_t t, int64_t c, int64_t k_w, int64_t stride_n, int64_t stride_t,
+                     int64_t tiles, int64_t total) {
+  using B = typename Bits<T>::type;
+  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (g >= total) return;
+  int64_t ch, tile, n;
+  thread_place(g, c, tiles, total, &ch, &tile, &n);
+  const int64_t t0 = tile * kTimeTile;
+  const int64_t first = t0 - (k_w - 1);   // the input step of tap 0, output t0
+  const B* xr = reinterpret_cast<const B*>(x) + n * stride_n + ch;
+  const B* kr = reinterpret_cast<const B*>(ker) + ch;
+  B* outr = reinterpret_cast<B*>(out) + n * t * c + ch;
+  // win[i] is the input of tap j for output step t0 + i (zero outside
+  // 0 .. t-1): it slides one step a tap, so each tap reads one input and
+  // one weight, and every sum takes its taps in order.
+  float acc[kTimeTile], win[kTimeTile];
+#pragma unroll
+  for (int i = 0; i < kTimeTile; ++i) {
+    const int64_t u = first + i;
+    acc[i] = 0.0f;
+    win[i] = (u >= 0 && u < t) ? to_f32<T>(__ldg(xr + u * stride_t)) : 0.0f;
+  }
+  for (int64_t j = 0; j < k_w; ++j) {
+    const float w = to_f32<T>(__ldg(kr + j * c));
+#pragma unroll
+    for (int i = 0; i < kTimeTile; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(win[i], w));
+#pragma unroll
+    for (int i = 0; i + 1 < kTimeTile; ++i) win[i] = win[i + 1];
+    const int64_t u = first + j + kTimeTile;
+    win[kTimeTile - 1] = (u >= 0 && u < t) ? to_f32<T>(__ldg(xr + u * stride_t)) : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kTimeTile; ++i)
+    if (t0 + i < t) outr[(t0 + i) * c] = from_f32<T>(acc[i]);
+}
+
+template <typename T>
+cudaError_t launch_any_kw(const void* x, const void* ker, void* out, long long n,
+                          long long t, long long c, long long k_w, long long stride_n,
+                          long long stride_t, cudaStream_t stream) {
+  const long long tiles = (t + kTimeTile - 1) / kTimeTile;
+  const long long total = n * tiles * c;
+  const long long grid = (total + kThreads - 1) / kThreads;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  conv1d_any_kw_kernel<T><<<(unsigned)grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(ker), static_cast<T*>(out), t, c, k_w,
+      stride_n, stride_t, tiles, total);
+  return cudaGetLastError();
+}
+
 template <typename T, int KW, int VB>
 cudaError_t launch_kw(const void* x, const void* ker, void* out, long long n, long long t,
                       long long c, long long stride_n, long long stride_t,
@@ -236,6 +301,8 @@ template <typename T>
 cudaError_t launch(const void* x, const void* ker, void* out, long long n, long long t,
                    long long c, long long k_w, long long stride_n, long long stride_t,
                    long long vec_bytes, cudaStream_t stream) {
+  if (k_w > kMaxKw)
+    return launch_any_kw<T>(x, ker, out, n, t, c, k_w, stride_n, stride_t, stream);
   // vec_bytes must divide every address and row the vectors meet
   const long long es = sizeof(T);
   for (long long v : {(long long)reinterpret_cast<uintptr_t>(x),
@@ -260,7 +327,8 @@ cudaError_t launch(const void* x, const void* ker, void* out, long long n, long 
 // ---------------------------------------------------------------------------
 // C interface, loaded with ctypes.  Pointers and the stream are void*, every
 // size and stride (in elements) a long long; vec_bytes is the vector width
-// (16, 8 or 4 bytes, or one element).  Returns the cudaError_t of the
+// (16, 8 or 4 bytes, or one element) of the specialised instances (k_w <=
+// kMaxKw); above that it is not read.  Returns the cudaError_t of the
 // launch.
 // ---------------------------------------------------------------------------
 extern "C" {
@@ -274,7 +342,7 @@ int mec_conv1d_max_kw() { return kMaxKw; }
 int mec_conv1d(const void* x, const void* ker, void* out, int dtype, long long n,
                long long t, long long c, long long k_w, long long stride_n,
                long long stride_t, long long vec_bytes, void* stream) {
-  if (n < 1 || t < 1 || c < 1 || k_w < 1 || k_w > kMaxKw || stride_n < 0 || stride_t < 0)
+  if (n < 1 || t < 1 || c < 1 || k_w < 1 || stride_n < 0 || stride_t < 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

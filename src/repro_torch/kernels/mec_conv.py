@@ -18,7 +18,11 @@ wrapper              replaces (src/repro/kernels/mec_conv.py)      bound
 The design notes (what bounds each kernel on the card and what its
 design does about it) head ``csrc/mec_conv.cu``.  Every kernel
 accumulates in f32 and writes the output in the input dtype, which fuses
-the TPU wrappers' final casts.  K1, K3 and K4 multiply on the tensor
+the TPU wrappers' final casts.  An input and a kernel of two dtypes are
+both promoted (``torch.promote_types``) before the kernel or its plain
+version, as the TPU kernels multiply by the kernel in its own dtype: a
+bf16 input with an f32 kernel runs the f32 instance, and the output comes
+back in the input's dtype.  K1, K3 and K4 multiply on the tensor
 cores, through one core: bf16/f16 products are exact in f32; f32 operands
 are split into two TF32 halves and multiplied as three TF32 products
 (hi*hi + hi*lo + lo*hi), which keeps the f32 contract.  K3 runs that core
@@ -36,6 +40,9 @@ from repro_torch.core.direct import accum_dtype
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: ``cudaErrorInvalidValue``: what the launchers return for a configuration
+#: they do not take
+_CUDA_ERROR_INVALID_VALUE = 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,7 +66,8 @@ def _lib() -> ctypes.CDLL:
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     """True for CPU operands (plain version); False for CUDA operands
-    (kernel).  Raises on mixed or other devices and unsupported dtypes."""
+    (kernel).  Raises on mixed or other devices, and where the operands'
+    promoted dtype has no kernel instance."""
     device = tensors[0].device
     for t in tensors[1:]:
         if t.device != device:
@@ -70,10 +78,25 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     if device.type != "cuda":
         raise ValueError(f"MEC kernels run on cuda (or cpu, plain version); "
                          f"got {device}")
-    if tensors[0].dtype not in _DTYPE_CODE:
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    if dtype not in _DTYPE_CODE:
         raise TypeError(f"MEC kernels take float32/bfloat16/float16, got "
-                        f"{tensors[0].dtype}")
+                        f"{dtype}")
     return False
+
+
+class LaunchRefused(RuntimeError):
+    """The launcher does not take this configuration, by design (a dtype it
+    has no instance for, a tile that does not fit shared memory, a grid past
+    the card's limits).  A failure to build or load the kernels, or any other
+    CUDA error, is a plain ``RuntimeError``."""
+
+
+def _promote(inp: torch.Tensor, kernel: torch.Tensor):
+    """Both operands in ``torch.promote_types`` of their dtypes (no copy
+    when they agree)."""
+    common = torch.promote_types(inp.dtype, kernel.dtype)
+    return inp.to(common), kernel.to(common)
 
 
 def _launch(fn_name: str, device: torch.device, *args) -> None:
@@ -130,9 +153,10 @@ def mec_conv_fused_plain(inp: torch.Tensor, kernel: torch.Tensor,
     """O[n, h] = sum_r strip(I[n, h*s_h + r]) @ K[r], f32 accumulation,
     one cast to the input dtype."""
     spec = spec_of(inp, kernel, stride)
+    out_dtype = inp.dtype
+    inp, kernel = _promote(inp, kernel)
     acc = accum_dtype(inp.dtype)
-    k_mat = kernel.to(inp.dtype).reshape(spec.k_h, spec.k_w * spec.i_c,
-                                         spec.k_c).to(acc)
+    k_mat = kernel.reshape(spec.k_h, spec.k_w * spec.i_c, spec.k_c).to(acc)
     out = None
     for r in range(spec.k_h):
         rows = inp[:, r:r + spec.s_h * (spec.o_h - 1) + 1:spec.s_h]
@@ -140,7 +164,7 @@ def mec_conv_fused_plain(inp: torch.Tensor, kernel: torch.Tensor,
         strip = strip.reshape(spec.i_n, spec.o_h, spec.o_w, -1).to(acc)
         term = torch.matmul(strip, k_mat[r])
         out = term if out is None else out + term
-    return out.to(inp.dtype)
+    return out.to(out_dtype)
 
 
 def mec_conv_fused(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
@@ -155,15 +179,16 @@ def mec_conv_fused(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     w_blk = min(w_blk, spec.o_w)
     if _on_cpu(inp, kernel):
         return mec_conv_fused_plain(inp, kernel, (spec.s_h, spec.s_w))
-    inp = inp.contiguous()
-    kernel = kernel.to(inp.dtype).contiguous()
+    out_dtype = inp.dtype
+    inp, kernel = _promote(inp, kernel)
+    inp, kernel = inp.contiguous(), kernel.contiguous()
     out = torch.empty(spec.out_shape, dtype=inp.dtype, device=inp.device)
     _launch("mec_fused", inp.device, inp.data_ptr(), kernel.data_ptr(),
             out.data_ptr(), _DTYPE_CODE[inp.dtype], spec.i_n, spec.i_h,
             spec.i_w, spec.i_c, spec.k_h, spec.k_w, spec.k_c, spec.s_h,
             spec.s_w, spec.o_h, spec.o_w, w_blk)
     mec_conv_fused.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 mec_conv_fused.launches = 0
@@ -182,9 +207,10 @@ def mec_conv_fused2_plain(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     spec = spec_of(inp, kernel, stride)
     if oh_blk < 1:
         raise ValueError(f"oh_blk must be >= 1, got {oh_blk}")
+    out_dtype = inp.dtype
+    inp, kernel = _promote(inp, kernel)
     acc = accum_dtype(inp.dtype)
-    k_mat = kernel.to(inp.dtype).reshape(spec.k_h, spec.k_w * spec.i_c,
-                                         spec.k_c).to(acc)
+    k_mat = kernel.reshape(spec.k_h, spec.k_w * spec.i_c, spec.k_c).to(acc)
     blocks = []
     for h0 in range(0, spec.o_h, oh_blk):
         rows = min(oh_blk, spec.o_h - h0)
@@ -197,7 +223,7 @@ def mec_conv_fused2_plain(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
             term = torch.matmul(strip, k_mat[r])
             out = term if out is None else out + term
         blocks.append(out)
-    return torch.cat(blocks, dim=1).to(inp.dtype)
+    return torch.cat(blocks, dim=1).to(out_dtype)
 
 
 def mec_conv_fused2(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
@@ -215,15 +241,16 @@ def mec_conv_fused2(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     if _on_cpu(inp, kernel):
         return mec_conv_fused2_plain(inp, kernel, (spec.s_h, spec.s_w),
                                      oh_blk=oh_blk)
-    inp = inp.contiguous()
-    kernel = kernel.to(inp.dtype).contiguous()
+    out_dtype = inp.dtype
+    inp, kernel = _promote(inp, kernel)
+    inp, kernel = inp.contiguous(), kernel.contiguous()
     out = torch.empty(spec.out_shape, dtype=inp.dtype, device=inp.device)
     _launch("mec_fused2", inp.device, inp.data_ptr(), kernel.data_ptr(),
             out.data_ptr(), _DTYPE_CODE[inp.dtype], spec.i_n, spec.i_h,
             spec.i_w, spec.i_c, spec.k_h, spec.k_w, spec.k_c, spec.s_h,
             spec.s_w, spec.o_h, spec.o_w, w_blk, oh_blk)
     mec_conv_fused2.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 mec_conv_fused2.launches = 0
@@ -258,16 +285,23 @@ def fused_config(kernel: int, dtype: torch.dtype, inp_shape, kernel_shape,
     sub-tile (``tr`` x ``tc``), the MMA tile's rows, the reduction path
     (``compact``: over the k_w*i_c run; else channel chunks), the chunk
     and the number of chunks, the cluster ``split`` of the reduction, the
-    shared memory and the copy widths.  It launches nothing."""
+    shared memory and the copy widths.  It launches nothing.  Raises
+    :class:`LaunchRefused` where the launcher would refuse the
+    configuration, ``RuntimeError`` on any other failure."""
     i_n, i_h, i_w, i_c = inp_shape
     k_h, k_w, _, k_c = kernel_shape
     s_h, s_w = (stride, stride) if isinstance(stride, int) else stride
     o_h, o_w = (i_h - k_h) // s_h + 1, (i_w - k_w) // s_w + 1
     w_blk, oh_blk = min(w_blk, o_w), min(oh_blk, o_h)
+    if dtype not in _DTYPE_CODE:
+        raise LaunchRefused(f"mec_fused_config: no instance for {dtype}")
     vals = (ctypes.c_longlong * len(FUSED_CONFIG_FIELDS))()
     rc = _lib().mec_fused_config(kernel, _DTYPE_CODE[dtype], i_n, i_h, i_w,
                                  i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w, w_blk,
                                  oh_blk, vals)
+    if rc == _CUDA_ERROR_INVALID_VALUE:
+        raise LaunchRefused(f"mec_fused_config: configuration refused "
+                            f"({_lib().mec_error_string(rc).decode()})")
     if rc != 0:
         raise RuntimeError(f"mec_fused_config: CUDA error {rc} "
                            f"({_lib().mec_error_string(rc).decode()})")
@@ -330,14 +364,16 @@ def mec_gemm_plain(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int,
     """O[n, h] = sum_r L[n, :, h*s_h + r, :] @ K[r], f32 accumulation, one
     cast to L's dtype."""
     _, _, _, _, _, o_h = _gemm_geometry(low, kernel_mat, k_h, s_h)
+    out_dtype = low.dtype
+    low, kernel_mat = _promote(low, kernel_mat)
     acc = accum_dtype(low.dtype)
-    k_mat = kernel_mat.to(low.dtype).to(acc)
+    k_mat = kernel_mat.to(acc)
     out = None
     for r in range(k_h):
         rows = low[:, :, r:r + s_h * (o_h - 1) + 1:s_h]   # (n, o_w, o_h, kwic)
         term = torch.matmul(rows.to(acc), k_mat[r])
         out = term if out is None else out + term
-    return out.permute(0, 2, 1, 3).to(low.dtype).contiguous()
+    return out.permute(0, 2, 1, 3).to(out_dtype).contiguous()
 
 
 def mec_gemm(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int, s_h: int,
@@ -353,14 +389,15 @@ def mec_gemm(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int, s_h: int,
     if _on_cpu(low, kernel_mat):
         return mec_gemm_plain(low, kernel_mat, k_h, s_h)
     core = gemm_core(low.shape, kernel_mat.shape, k_h, s_h, w_blk)
-    low = low.contiguous()
-    kernel_mat = kernel_mat.to(low.dtype).contiguous()
+    out_dtype = low.dtype
+    low, kernel_mat = _promote(low, kernel_mat)
+    low, kernel_mat = low.contiguous(), kernel_mat.contiguous()
     out = torch.empty((i_n, o_h, o_w, k_c), dtype=low.dtype, device=low.device)
     _launch("mec_gemm", low.device, low.data_ptr(), kernel_mat.data_ptr(),
             out.data_ptr(), _DTYPE_CODE[low.dtype], i_n, o_w, i_h, kwic, k_h,
             k_c, s_h, o_h, core["oh_blk"], core["w_blk"])
     mec_gemm.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 mec_gemm.launches = 0

@@ -2,10 +2,16 @@
 its plain version.
 
 ``mec_conv1d`` launches ``conv1d_kernel`` of ``csrc/mec_conv1d.cu`` for a
-CUDA tensor, and computes the same function with its plain PyTorch
-version for a CPU tensor; any other device, mixed devices or another
-dtype than f32/bf16/f16 raise.  There is no fallback from a CUDA tensor
-to the plain version.  ``mec_conv1d.launches`` counts its launches.
+CUDA tensor (``conv1d_any_kw_kernel`` for k_w above :data:`MAX_KW`), and
+computes the same function with its plain PyTorch version for a CPU
+tensor; any other device, mixed devices or another dtype than
+f32/bf16/f16 raise.  There is no fallback from a CUDA tensor to the plain
+version.  ``mec_conv1d.launches`` counts its launches.
+
+Operands of two dtypes compute the JAX package's function, which
+multiplies by the kernel in its own dtype: both are promoted to
+``torch.promote_types`` of the two (a bf16 input with an f32 kernel runs
+the f32 instance) and the output comes back in the input's dtype.
 
 ==============  =============================================  =====
 wrapper         replaces (src/repro/kernels/mec_conv1d.py)     bound
@@ -30,7 +36,8 @@ from repro_torch.core.mec import mec_conv1d_shift
 from repro_torch.kernels import build
 from repro_torch.kernels.mec_conv import _DTYPE_CODE, _on_cpu
 
-#: the largest kernel width the CUDA source instantiates (its kMaxKw)
+#: the largest kernel width of the CUDA source's specialised instances (its
+#: kMaxKw); above it one instance per dtype takes k_w at run time
 MAX_KW = 8
 #: the vector widths, in bytes, the CUDA source instantiates beside one
 #: element, widest first
@@ -54,10 +61,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _promoted(x: torch.Tensor, kernel: torch.Tensor):
+    common = torch.promote_types(x.dtype, kernel.dtype)
+    return x.to(common), kernel.to(common)
+
+
 def mec_conv1d_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """The kernel's function in PyTorch: the shift-add conv of
-    ``core.mec.mec_conv1d_shift`` (causal) with the kernel in x's dtype."""
-    return mec_conv1d_shift(x, kernel.to(x.dtype), causal=True)
+    ``core.mec.mec_conv1d_shift`` (causal) on both operands promoted to
+    their common dtype, returned in x's dtype."""
+    xp, kp = _promoted(x, kernel)
+    return mec_conv1d_shift(xp, kp, causal=True).to(x.dtype)
 
 
 def vector_bytes(x: torch.Tensor, kernel: torch.Tensor, out: torch.Tensor) -> int:
@@ -76,10 +90,11 @@ def vector_bytes(x: torch.Tensor, kernel: torch.Tensor, out: torch.Tensor) -> in
 
 
 def mec_conv1d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Causal depthwise conv1d: x (n, t, c), kernel (k_w, c), cast to x's
-    dtype.  Returns (n, t, c) contiguous in x.dtype.  x may be strided along
-    its batch and time axes (the kernel reads its strides); an x whose
-    channels are not contiguous is copied first."""
+    """Causal depthwise conv1d: x (n, t, c), kernel (k_w, c), any k_w >= 1,
+    both promoted to their common dtype.  Returns (n, t, c) contiguous in
+    x.dtype.  x may be strided along its batch and time axes (the kernel
+    reads its strides); an x whose channels are not contiguous, or whose
+    dtype is promoted, is copied first."""
     if x.dim() != 3 or kernel.dim() != 2 or kernel.shape[1] != x.shape[2]:
         raise ValueError(f"x {tuple(x.shape)} and kernel {tuple(kernel.shape)}"
                          f" are not (n, t, c) and (k_w, c)")
@@ -88,15 +103,15 @@ def mec_conv1d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     if min(n, t, c, k_w) < 1:
         raise ValueError(f"empty conv1d: x {tuple(x.shape)}, kernel "
                          f"{tuple(kernel.shape)}")
+    out_dtype = x.dtype
+    x, kernel = _promoted(x, kernel)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"K5 takes float32/bfloat16/float16, got {x.dtype}")
     if _on_cpu(x, kernel):
-        return mec_conv1d_plain(x, kernel)
-    if k_w > MAX_KW:
-        raise ValueError(f"K5 takes k_w <= {MAX_KW}, got {k_w}")
+        return mec_conv1d_plain(x, kernel).to(out_dtype)
     if x.stride(2) != 1:
         x = x.contiguous()
-    kernel = kernel.to(x.dtype).contiguous()
+    kernel = kernel.contiguous()
     out = torch.empty((n, t, c), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -108,7 +123,7 @@ def mec_conv1d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"mec_conv1d: CUDA error {rc} "
                            f"({lib.mec_conv1d_error_string(rc).decode()})")
     mec_conv1d.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 mec_conv1d.launches = 0

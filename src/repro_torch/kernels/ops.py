@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.convspec import normalize_stride
+from repro_torch.kernels import mec_conv
 from repro_torch.kernels.mec_conv import (mec_conv_fused, mec_conv_fused2,
                                           mec_gemm, mec_lower)
 from repro_torch.kernels.mec_conv1d import mec_conv1d
@@ -81,6 +82,52 @@ def pick_oh_blk(o_h: int, o_w: int, w_blk: int, k_c: int, i_n: int) -> int:
     return blk
 
 
+def _geometry(inp_shape, kernel_shape, stride):
+    """(i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w)."""
+    i_n, i_h, i_w, i_c = inp_shape
+    k_h, k_w, _, k_c = kernel_shape
+    s_h, s_w = normalize_stride(stride)
+    return (i_n, i_h, i_w, i_c, k_h, k_w, k_c, s_h, s_w,
+            (i_h - k_h) // s_h + 1, (i_w - k_w) // s_w + 1)
+
+
+def default_w_blk(mode: str, inp_shape, kernel_shape, stride=1) -> int:
+    """The block :func:`mec_conv2d_cuda` runs when given none: output
+    columns per CTA, :func:`pick_fused_w_blk` for K1 (``mode="fused"``)
+    and K4 (``"fused2"``), K3's own pick on its transposed geometry
+    (``mec_conv.gemm_core``) for ``"lowered"``."""
+    i_n, i_h, _, i_c, k_h, k_w, k_c, s_h, _, o_h, o_w = _geometry(
+        inp_shape, kernel_shape, stride)
+    if mode == "lowered":
+        kwic = k_w * i_c
+        return mec_conv.gemm_core((i_n, o_w, i_h, kwic), (k_h, kwic, k_c),
+                                  k_h, s_h)["oh_blk"]
+    if mode not in ("fused", "fused2"):
+        raise ValueError(f"unknown mode {mode!r}")
+    return pick_fused_w_blk(o_w, k_c, i_n, o_h)
+
+
+def launch_config(mode: str, dtype: torch.dtype, inp_shape, kernel_shape,
+                  stride=1, w_blk: int | None = None) -> dict:
+    """What :func:`mec_conv2d_cuda` would launch for this geometry on the
+    current CUDA device (``mec_conv.fused_config``'s fields for K1, K4 or
+    K3), ``w_blk`` None for :func:`default_w_blk`; it launches nothing.
+    Raises ``mec_conv.LaunchRefused`` where the launcher would refuse the
+    configuration."""
+    i_n, i_h, _, i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w = _geometry(
+        inp_shape, kernel_shape, stride)
+    if w_blk is None:
+        w_blk = default_w_blk(mode, inp_shape, kernel_shape, stride)
+    if mode == "lowered":
+        kwic = k_w * i_c
+        return mec_conv.gemm_config(dtype, (i_n, o_w, i_h, kwic),
+                                    (k_h, kwic, k_c), k_h, s_h, w_blk)
+    oh_blk = pick_oh_blk(o_h, o_w, w_blk, k_c, i_n)
+    return mec_conv.fused_config(1 if mode == "fused" else 4, dtype,
+                                 inp_shape, kernel_shape, (s_h, s_w), w_blk,
+                                 oh_blk)
+
+
 def mec_conv2d_cuda(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
                     mode: str = "fused", w_blk: int | None = None
                     ) -> torch.Tensor:
@@ -90,31 +137,28 @@ def mec_conv2d_cuda(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     memory, Eq. 3 memory observable; K3 runs the shifted GEMMs); mode=
     'fused' is K1, the lowering fused into the GEMM; mode='fused2' is K4,
     the fused conv h-blocked over oh_blk output rows per CTA.  w_blk is
-    output columns per CTA; when None, :func:`pick_fused_w_blk` for K1 and
-    K4, and K3's own pick (``mec_conv.gemm_core``); K4's output rows per
-    CTA come from :func:`pick_oh_blk`.  CPU tensors run the kernels' plain
-    versions.
+    output columns per CTA; when None, :func:`default_w_blk`; K4's output
+    rows per CTA come from :func:`pick_oh_blk`.  CPU tensors run the
+    kernels' plain versions.  Operands of two dtypes are promoted by the
+    kernels' wrappers, and the output is in the input's dtype.
     """
     s_h, s_w = normalize_stride(stride)
-    i_w, i_c = inp.shape[2], inp.shape[3]
-    k_h, k_w, _, k_c = kernel.shape
-    o_h = (inp.shape[1] - k_h) // s_h + 1
-    o_w = (i_w - k_w) // s_w + 1
+    i_n, _, _, i_c, k_h, k_w, k_c, _, _, o_h, o_w = _geometry(
+        inp.shape, kernel.shape, stride)
     if w_blk is None:
-        if mode != "lowered":
-            w_blk = pick_fused_w_blk(o_w, k_c, inp.shape[0], o_h)
+        w_blk = default_w_blk(mode, inp.shape, kernel.shape, stride)
     elif not 1 <= w_blk <= max(o_w, 1):
         raise ValueError(f"w_blk must be in [1, o_w={o_w}], got {w_blk}")
     if mode == "fused":
         return mec_conv_fused(inp, kernel, (s_h, s_w), w_blk=w_blk)
     if mode == "fused2":
-        oh_blk = pick_oh_blk(o_h, o_w, w_blk, k_c, inp.shape[0])
+        oh_blk = pick_oh_blk(o_h, o_w, w_blk, k_c, i_n)
         return mec_conv_fused2(inp, kernel, (s_h, s_w), w_blk=w_blk,
                                oh_blk=oh_blk)
     if mode == "lowered":
         low = mec_lower(inp, k_w, s_w)
-        kernel_mat = kernel.to(inp.dtype).reshape(k_h, k_w * i_c, k_c)
-        return mec_gemm(low, kernel_mat, k_h, s_h, w_blk=w_blk)
+        return mec_gemm(low, kernel.reshape(k_h, k_w * i_c, k_c), k_h, s_h,
+                        w_blk=w_blk)
     raise ValueError(f"unknown mode {mode!r}")
 
 

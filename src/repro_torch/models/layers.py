@@ -103,14 +103,33 @@ def init_conv2d(generator: torch.Generator, k_h: int, k_w: int, c_in: int,
 
 
 def conv2d_layer(p: dict, x: torch.Tensor, *, stride=1, padding="SAME",
-                 algorithm: str = "auto") -> torch.Tensor:
+                 algorithm: str = "auto", plan=None) -> torch.Tensor:
     """One conv block through the front-end (``core.conv_api.conv2d``):
-    the weights follow the activations' dtype, then the bias is added."""
+    the weights follow the activations' dtype, then the bias is added.
+    plan (a resolved ``repro_torch.plan.ConvPlan``) wins over algorithm:
+    resolve it once with :func:`plan_conv2d_layer` instead of per step."""
     y = conv2d(x, p["w"].to(x.dtype), stride=stride, padding=padding,
-               algorithm=algorithm)
+               algorithm=algorithm, plan=plan)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def plan_conv2d_layer(p: dict, x_shape: Tuple[int, ...], *, stride=1,
+                      padding="SAME", dtype=torch.float32,
+                      mode: str = "cached", backend: Optional[str] = None):
+    """Resolve the layer's ConvPlan once, at construction: x_shape and
+    dtype describe the activations the layer will see (the weights follow
+    their dtype, as :func:`conv2d_layer` casts them), backend the device
+    type they will live on (default: the weights').  Pass the frozen plan
+    to every ``conv2d_layer(..., plan=)`` step, so a training or serving
+    loop never re-derives, or re-measures, the decision per call."""
+    from repro_torch.core.conv_api import conv2d_spec
+    from repro_torch.plan import plan_conv2d
+    spec = conv2d_spec(torch.empty(tuple(x_shape), device="meta"), p["w"],
+                       stride=stride, padding=padding)
+    return plan_conv2d(spec, dtype=dtype, mode=mode,
+                       backend=backend or p["w"].device.type)
 
 
 def swiglu(x: torch.Tensor, p: dict) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels, its conv2d and its serving path on the card.
+"""The port's CUDA kernels, its conv2d, its planner and its serving path
+on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA card: the
 kernels have no CPU mode (on the CPU the wrappers run their plain
@@ -19,7 +20,10 @@ tolerance (``numerics.grad_tolerance``) against f64 autograd through
 ``F.conv2d``.  K5 (the conv1d) sums in the plain version's order with the
 same roundings, so it must equal its plain version to the bit; against the
 f64 oracle it is held to ``tests/test_kernels.py``'s tolerance (2e-4 in
-f32, 4e-2 below, rtol and atol).  The smoke-size zamba2 served on the card
+f32, 4e-2 below, rtol and atol).  On operands of two dtypes (fault F4)
+K1-K5 must equal, to the bit, their f32 runs on the promoted operands
+cast back.  A plan on the card must run bit for bit what the kwargs
+path runs.  The smoke-size zamba2 served on the card
 is held to the same served on the CPU at 1e-4, scale-normalized, in f32.
 """
 import numpy as np
@@ -75,6 +79,21 @@ FUSED2_IDS = IDS + ["f1_7x7", "f1_6x6", "f1_9x9", "kh_lt_sh", "ragged_h",
                     "rows_gt_16"]
 NO_LAUNCHES = {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0,
                "mec_conv_fused2": 0}
+
+
+@pytest.fixture(autouse=True)
+def plan_env(tmp_path, monkeypatch):
+    """``algorithm="auto"`` resolves through the plan cache: keep it, and
+    the calibration store, under tmp_path (decided per test; no card
+    needed)."""
+    from repro_torch import plan
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE_DIR", str(tmp_path / "plans"))
+    monkeypatch.setenv("REPRO_TORCH_CALIBRATION", str(tmp_path / "off.json"))
+    plan.reset_global_plan_cache()
+    plan.reset_calibration_cache()
+    yield
+    plan.reset_global_plan_cache()
+    plan.reset_calibration_cache()
 
 
 @pytest.fixture
@@ -499,6 +518,123 @@ def test_mec_backward_on_the_card_matches_f64_autograd(cuda, stride, algorithm):
         grad_tolerance(algorithm, "float32", i_n * o_h * o_w)
 
 
+# ---------------------------------------------------------------------------
+# the planner on the card
+# ---------------------------------------------------------------------------
+
+PLAN_ALGOS = ("direct", "im2col", "fft", "winograd", "mec", "mec_lowered",
+              "mec_fused", "mec_fused2")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("algorithm", PLAN_ALGOS)
+def test_conv2d_plan_on_the_card_is_the_kwargs_path(cuda, algorithm, dtype):
+    """A plan on CUDA operands runs the planned kernels with the plan's
+    block: bit for bit the kwargs path for the MEC kernels, and for every
+    algorithm within its contract of f64 (fft and winograd included)."""
+    from repro_torch.core import conv2d_spec
+    from repro_torch.plan import ConvPlan, plan_conv2d
+    from repro_torch.plan.convplan import _kernel_w_blk
+    x, k = _operands((15, 17, 8, 3, 3, 24, 1), dtype, cuda)
+    spec = conv2d_spec(x, k, padding="SAME")
+    plan = ConvPlan(spec=spec, dtype=dtype, algorithm=algorithm,
+                    w_blk=_kernel_w_blk(spec, algorithm), backend="cuda")
+    K.reset_launch_counts()
+    y = conv2d(x, k, padding="SAME", plan=plan)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    want = conv2d(x, k, padding="SAME", algorithm=algorithm)
+    if algorithm in ("mec_fused", "mec_fused2", "mec_lowered"):
+        assert torch.equal(y, want)
+        assert sum(counts.values()) == (2 if algorithm == "mec_lowered" else 1)
+    else:
+        assert counts == NO_LAUNCHES
+    from repro_torch.core.conv_api import apply_padding
+    oracle = ref.conv2d_f64(apply_padding(x, 3, 3, 1, 1, "SAME"), k, 1)
+    assert ref.scaled_error(y, oracle) <= fwd_tolerance(algorithm, dtype, 72)
+    with pytest.raises(ValueError, match="backend mismatch"):
+        conv2d(x.cpu(), k.cpu(), padding="SAME", plan=plan)
+    assert plan_conv2d(spec, dtype=dtype).algorithm == "mec_fused"
+
+
+def test_measured_plan_on_the_card_times_every_kernel(cuda):
+    """The measured race on the card times every candidate, skips none of
+    K1, K2+K3 and K4, and records its trials in the calibration store;
+    the plan it returns runs."""
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.plan import CalibrationStore
+    from repro_torch.plan.convplan import tune_measured
+    spec = ConvSpec(4, 16, 16, 32, 3, 3, 64)
+    plan, detail = tune_measured(spec, "bfloat16", iters=3)
+    assert set(detail["candidate_us"]) == set(PLAN_ALGOS)
+    assert detail["skipped"] == {}
+    assert detail["analytic_algorithm"] == "mec_fused"
+    assert (plan.backend, plan.mode, plan.dtype) == ("cuda", "measured",
+                                                     "bfloat16")
+    stored = CalibrationStore(backend="cuda").load()
+    assert set(stored.cell_times(spec)) == set(PLAN_ALGOS)
+    x, k = _operands((16, 16, 32, 3, 3, 64, 1), "bfloat16", cuda, batch=4)
+    y = conv2d(x, k, plan=plan)
+    assert ref.scaled_error(y, ref.conv2d_f64(x, k, 1)) <= \
+        fwd_tolerance(plan.algorithm, "bfloat16", 3 * 3 * 32)
+
+
+def test_launcher_gate_on_the_card_refuses_only_by_design(cuda):
+    """The planner's launcher gate on the card: a plan the launcher takes
+    passes, a dtype it has no instance for is refused with a reason (and
+    so skipped by the race), and ``ops.launch_config``'s default block is
+    the one the executor runs."""
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.plan.convplan import ConvPlan, _kernel_w_blk, launcher_check
+    spec = ConvSpec(16, 14, 14, 256, 3, 3, 256)
+    for alg, mode in (("mec_fused", "fused"), ("mec_fused2", "fused2"),
+                      ("mec_lowered", "lowered")):
+        w_blk = _kernel_w_blk(spec, alg)
+        ok = ConvPlan(spec=spec, dtype="float32", algorithm=alg, w_blk=w_blk,
+                      backend="cuda")
+        assert launcher_check(ok) is None
+        shapes = ((16, 14, 14, 256), (3, 3, 256, 256), 1)
+        assert ops.launch_config(mode, torch.float32, *shapes) == \
+            ops.launch_config(mode, torch.float32, *shapes, w_blk=w_blk)
+        f64 = ConvPlan(spec=spec, dtype="float64", algorithm=alg, w_blk=w_blk,
+                       backend="cuda")
+        assert "no instance" in launcher_check(f64)
+
+
+@pytest.mark.parametrize("algorithm", ["mec_fused", "mec_fused2", "mec_lowered"])
+def test_measured_race_on_the_card_raises_when_a_kernel_fails(cuda, monkeypatch,
+                                                              algorithm):
+    """A kernel whose launch fails on the card stops the measured race with
+    the failure; the race does not pick another algorithm."""
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.plan.convplan import tune_measured
+
+    def fail(*a, **kw):
+        raise RuntimeError("mec_fused: CUDA error 700 (an illegal memory access)")
+
+    monkeypatch.setattr(K, "_launch", fail)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tune_measured(ConvSpec(4, 16, 16, 32, 3, 3, 64), "bfloat16", iters=1,
+                      candidates=("direct", algorithm), record=False)
+
+
+def test_auto_on_the_card_plans_k1_through_the_cache(cuda):
+    """``auto`` on CUDA operands resolves through the plan cache to K1
+    with the block K1's launcher picks, and the plan lands on disk."""
+    from repro_torch.core import conv2d_spec
+    from repro_torch.plan import PlanCache, global_plan_cache
+    x, k = _operands((14, 14, 256, 3, 3, 256, 1), "float32", cuda, batch=16)
+    spec = conv2d_spec(x, k)
+    K.reset_launch_counts()
+    conv2d(x, k)
+    assert K.launch_counts() == {**NO_LAUNCHES, "mec_conv_fused": 1}
+    key = "16x14x14x256-k3x3x256-s1x1|float32|cuda"
+    hit = global_plan_cache().get(key)
+    assert (hit.algorithm, hit.w_blk) == (
+        "mec_fused", ops.pick_fused_w_blk(spec.o_w, 256, 16, spec.o_h))
+    assert PlanCache().get(key) == hit
+
+
 def test_mixed_devices_raise(cuda):
     x, k = _operands((9, 9, 4, 3, 3, 6, 1), "float32", cuda)
     with pytest.raises(ValueError, match="kernel on"):
@@ -587,10 +723,102 @@ def test_conv1d_kernel_refuses_what_it_does_not_take(cuda):
     x, k = _conv1d_operands(10, 5, 4, "float32", cuda)
     with pytest.raises(ValueError, match="different devices"):
         C.mec_conv1d(x, k.cpu())
-    with pytest.raises(ValueError, match="k_w <= 8"):
-        C.mec_conv1d(x, torch.zeros((9, 5), device=cuda))
     with pytest.raises(TypeError):
         C.mec_conv1d(x.double(), k.double())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k_w", [9, 16, 33])
+@pytest.mark.parametrize("layout", ["contiguous", "column_slice"])
+def test_conv1d_kernel_above_max_kw_equals_plain_fault_f5(cuda, layout, k_w,
+                                                          dtype):
+    """Above MAX_KW (fault F5) K5 takes k_w at run time and still equals
+    its plain version to the bit, on a contiguous input with a ragged
+    time tile and channels off the CTA, and on a column slice."""
+    assert k_w > C.MAX_KW
+    g = torch.Generator(cuda).manual_seed(k_w)
+    if layout == "contiguous":
+        x = torch.randn((2, 100, 130), generator=g, device=cuda).to(DTYPES[dtype])
+    else:
+        row = torch.randn((2, 77, 300), generator=g, device=cuda).to(DTYPES[dtype])
+        x = row[..., 40:261]
+    k = torch.randn((k_w, x.shape[2]), generator=g, device=cuda).to(DTYPES[dtype])
+    before = C.mec_conv1d.launches
+    y = C.mec_conv1d(x, k)
+    torch.cuda.synchronize()
+    assert C.mec_conv1d.launches == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape and y.is_contiguous()
+    assert torch.equal(y, C.mec_conv1d_plain(x.contiguous(), k))
+    assert _within(y, ref.conv1d_ref(x.double(), k.double()), CONV1D_TOL[dtype])
+
+
+# (x dtype, kernel dtype): fault F4's pairs
+MIXED = [("bfloat16", "float32"), ("float32", "bfloat16"), ("float16", "bfloat16")]
+
+
+@pytest.mark.parametrize("k_w", [4, 9])
+@pytest.mark.parametrize("x_dtype,k_dtype", MIXED)
+def test_conv1d_kernel_on_mixed_dtypes_fault_f4(cuda, x_dtype, k_dtype, k_w):
+    """x and kernel of two dtypes: K5 runs on both promoted (the f32
+    instance), equal to the bit to that run cast to x's dtype and to the
+    plain version on the same operands."""
+    x, _ = _conv1d_operands(1024, 256, k_w, x_dtype, cuda)
+    _, k = _conv1d_operands(1024, 256, k_w, k_dtype, cuda)
+    y = C.mec_conv1d(x, k)
+    assert y.dtype == x.dtype
+    assert torch.equal(y, C.mec_conv1d(x.float(), k.float()).to(x.dtype))
+    assert torch.equal(y, C.mec_conv1d_plain(x, k))
+
+
+@pytest.mark.parametrize("x_dtype,k_dtype", MIXED)
+@pytest.mark.parametrize("mode,launched", [
+    ("fused", {"mec_conv_fused": 1}), ("fused2", {"mec_conv_fused2": 1}),
+    ("lowered", {"mec_lower": 1, "mec_gemm": 1})])
+def test_conv2d_kernels_on_mixed_dtypes_fault_f4(cuda, mode, launched, x_dtype,
+                                                 k_dtype):
+    """K1, K4 and K2+K3 on an input and a kernel of two dtypes run the f32
+    instance on both promoted: equal to the bit to that run cast to the
+    input's dtype, within the input dtype's contract of f64."""
+    x, _ = _operands((15, 17, 8, 3, 3, 24, 1), x_dtype, cuda)
+    _, k = _operands((15, 17, 8, 3, 3, 24, 1), k_dtype, cuda)
+    K.reset_launch_counts()
+    y = ops.mec_conv2d_cuda(x, k, 1, mode=mode)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {**NO_LAUNCHES, **launched}
+    assert y.dtype == x.dtype
+    assert torch.equal(y, ops.mec_conv2d_cuda(x.float(), k.float(), 1,
+                                              mode=mode).to(x.dtype))
+    assert ref.scaled_error(y, ref.conv2d_f64(x, k, 1)) <= \
+        fwd_tolerance("mec_" + mode, x_dtype, 3 * 3 * 8)
+
+
+@pytest.mark.parametrize("x_dtype,k_dtype", MIXED)
+@pytest.mark.parametrize("wrapper", ["fused", "fused2", "gemm"])
+def test_conv2d_wrappers_on_mixed_dtypes_fault_f4(cuda, wrapper, x_dtype, k_dtype):
+    """K1, K4 and K3 through their own wrappers on an input and a kernel of
+    two dtypes promote both: one launch of the f32 instance, equal to the
+    bit to the run on promoted operands cast to the input's dtype, within
+    the input dtype's contract of f64."""
+    x, _ = _operands((15, 17, 8, 3, 3, 24, 1), x_dtype, cuda)
+    _, k = _operands((15, 17, 8, 3, 3, 24, 1), k_dtype, cuda)
+    if wrapper == "gemm":
+        low = K.mec_lower(x, 3, 1)
+
+        def run(x, k):
+            return K.mec_gemm(low.to(x.dtype), k.reshape(3, 24, 24), 3, 1)
+    else:
+        fn = K.mec_conv_fused if wrapper == "fused" else K.mec_conv_fused2
+
+        def run(x, k):
+            return fn(x, k, 1, w_blk=16)
+    K.reset_launch_counts()
+    y = run(x, k)
+    torch.cuda.synchronize()
+    assert sum(K.launch_counts().values()) == 1
+    assert y.dtype == x.dtype
+    assert torch.equal(y, run(x.float(), k.float()).to(x.dtype))
+    assert ref.scaled_error(y, ref.conv2d_f64(x, k, 1)) <= \
+        fwd_tolerance("mec_fused", x_dtype, 3 * 3 * 8)
 
 
 # ---------------------------------------------------------------------------

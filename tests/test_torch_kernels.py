@@ -538,6 +538,93 @@ def test_conv1d_takes_a_strided_input(dtype):
         rtol=CONV1D_TOL[dtype], atol=CONV1D_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k_w", [9, 16])
+@pytest.mark.parametrize("t,c", [(1024, 256), (33, 7)])
+def test_conv1d_plain_above_max_kw_matches_pallas_fault_f5(t, c, k_w, dtype):
+    """Above MAX_KW, where the CUDA wrapper used to refuse (fault F5), the
+    plain version still computes the Pallas kernel's function."""
+    assert k_w > C.MAX_KW
+    jx, jk, tx, tk = _conv1d_operands(t, c, k_w, dtype)
+    j_out = mec_conv1d_tpu(jx, jk, interpret=True)
+    t_out = C.mec_conv1d(tx, tk)
+    assert t_out.dtype == tx.dtype and tuple(t_out.shape) == j_out.shape
+    tol = CONV1D_TOL[dtype]
+    np.testing.assert_allclose(t_out.to(torch.float32).numpy(),
+                               np.asarray(j_out, np.float32), rtol=tol,
+                               atol=tol)
+
+
+# (x dtype, kernel dtype): fault F4's pairs
+MIXED_CONV1D = [("bfloat16", "float32"), ("float32", "bfloat16"),
+                ("float16", "bfloat16")]
+
+
+@pytest.mark.parametrize("k_w", [4, 9])
+@pytest.mark.parametrize("x_dtype,k_dtype", MIXED_CONV1D)
+def test_conv1d_on_mixed_dtypes_matches_pallas_fault_f4(x_dtype, k_dtype, k_w):
+    """x and kernel of two dtypes: K5's plain version promotes both and
+    returns x's dtype, the Pallas kernel's function (it multiplies by the
+    kernel in its own dtype).  A sub-f32 output equals the Pallas kernel's
+    on all but a few elements (the kernel cast to x's dtype, the port's
+    rule before, made 36% differ at k_w = 4)."""
+    rng = np.random.RandomState(17 + k_w)
+    x = rng.randn(2, 1024, 256).astype(np.float32)
+    k = rng.randn(k_w, 256).astype(np.float32)
+    jx = jnp.asarray(x, DTYPES[x_dtype][0])
+    jk = jnp.asarray(k, DTYPES[k_dtype][0])
+    tx = torch.from_numpy(x).to(DTYPES[x_dtype][1])
+    tk = torch.from_numpy(k).to(DTYPES[k_dtype][1])
+    j_out = np.array(mec_conv1d_tpu(jx, jk, interpret=True), np.float32)
+    t_out = C.mec_conv1d(tx, tk)
+    assert t_out.dtype == tx.dtype and t_out.is_contiguous()
+    common = torch.promote_types(tx.dtype, tk.dtype)
+    assert torch.equal(t_out, C.mec_conv1d_plain(tx.to(common), tk.to(common))
+                       .to(tx.dtype))
+    tol = CONV1D_TOL[x_dtype]
+    np.testing.assert_allclose(t_out.float().numpy(), j_out, rtol=tol,
+                               atol=tol)
+    if x_dtype != "float32":
+        assert (t_out.float().numpy() != j_out).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("geom", [SWEEP[2], SWEEP[3]], ids=["s1", "s23"])
+@pytest.mark.parametrize("x_dtype,k_dtype", MIXED_CONV1D)
+@pytest.mark.parametrize("wrapper", ["fused", "fused2", "gemm"])
+def test_conv2d_wrappers_on_mixed_dtypes_match_pallas_fault_f4(
+        wrapper, x_dtype, k_dtype, geom):
+    """K1, K4 and K3 through their own wrappers on an input and a kernel of
+    two dtypes (the plain versions): both operands promoted, the output in
+    the input's dtype, equal to the bit to the run on promoted operands
+    and within the input dtype's contract of the Pallas kernel in
+    interpret mode, which multiplies by the kernel in its own dtype."""
+    ih, iw, ic, kh, kw, kc, s = geom
+    s_h, s_w = _strides(s)
+    jx, _, tx, _ = _operands(geom, x_dtype)
+    _, jk, _, tk = _operands(geom, k_dtype)
+    common = torch.promote_types(tx.dtype, tk.dtype)
+    if wrapper == "gemm":
+        def run(x, k):
+            return K.mec_gemm(K.mec_lower(x, kw, s_w),
+                              k.reshape(kh, kw * ic, kc), kh, s_h)
+        j_out = mec_gemm_pallas(mec_lower_pallas(jx, kw, s_w, interpret=True),
+                                jk.reshape(kh, kw * ic, kc), kh, s_h,
+                                w_blk=8, interpret=True)
+    else:
+        fn = K.mec_conv_fused if wrapper == "fused" else K.mec_conv_fused2
+        pallas = mec_conv_fused_pallas if wrapper == "fused" \
+            else mec_conv_fused2_pallas
+
+        def run(x, k):
+            return fn(x, k, (s_h, s_w), w_blk=8)
+        j_out = pallas(jx, jk, (s_h, s_w), w_blk=8, interpret=True)
+    t_out = run(tx, tk)
+    assert t_out.dtype == tx.dtype and tuple(t_out.shape) == j_out.shape
+    assert torch.equal(t_out, run(tx.to(common), tk.to(common)).to(tx.dtype))
+    assert ref.scaled_error(t_out, _to_torch(j_out)) <= \
+        2 * fwd_tolerance("mec_fused", x_dtype, kh * kw * ic)
+
+
 def test_conv1d_plain_against_f64_oracle():
     _, _, tx, tk = _conv1d_operands(1024, 256, 4, "float32")
     oracle = ref.conv1d_ref(tx.double(), tk.double())

@@ -41,6 +41,8 @@ from repro_torch.models.layers import conv2d_layer, init_conv2d  # noqa: E402
 
 ALGOS = ["direct", "im2col", "mec", "mec_lowered", "mec_fused", "mec_fused2",
          "auto"]
+PLAN_ENV = ("REPRO_TORCH_PLAN_CACHE_DIR", "REPRO_TORCH_CALIBRATION",
+            "REPRO_PLAN_CACHE_DIR", "REPRO_CALIBRATION")
 MEC_ALGOS = ["mec", "mec_lowered", "mec_fused", "mec_fused2"]
 PADDINGS = {"VALID": "VALID", "SAME": "SAME", "explicit": ((1, 2), (0, 3))}
 STRIDES = {"s1": 1, "s2": 2, "s2x3": (2, 3)}
@@ -48,6 +50,23 @@ STRIDES = {"s1": 1, "s2": 2, "s2x3": (2, 3)}
 GEOM = (2, 11, 13, 3, 3, 4, 5)
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(autouse=True)
+def plan_env(tmp_path, monkeypatch):
+    """``algorithm="auto"`` resolves through both packages' plan caches:
+    keep them, and the calibrations they consult, under tmp_path."""
+    import repro.plan as jplan
+    import repro_torch.plan as tplan
+    for name in PLAN_ENV:
+        monkeypatch.setenv(name, str(tmp_path / name))
+    for mod in (tplan, jplan):
+        mod.reset_global_plan_cache()
+        mod.reset_calibration_cache()
+    yield
+    for mod in (tplan, jplan):
+        mod.reset_global_plan_cache()
+        mod.reset_calibration_cache()
 
 
 def _operands(dtype, geom=GEOM, seed=0):
@@ -126,21 +145,55 @@ def test_auto_resolves_to_the_fused_kernel_on_cuda():
 
 
 # ---------------------------------------------------------------------------
-# what the slice does not run yet, and gradients
+# mixed operand dtypes (fault F4), what the slice does not run, gradients
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("algorithm,item", [("fft", "Queue 1 item 5"),
-                                            ("winograd", "Queue 1 item 5")])
-def test_unported_algorithms_raise(algorithm, item):
-    assert algorithm in ALGORITHMS
-    _, _, tx, tk = _operands("float32")
-    with pytest.raises(NotImplementedError, match=item):
-        conv2d(tx, tk, algorithm=algorithm)
+# (input dtype, kernel dtype)
+MIXED = {"x_bf16_k_f32": ("bfloat16", "float32"),
+         "x_f32_k_bf16": ("float32", "bfloat16"),
+         "x_f16_k_bf16": ("float16", "bfloat16")}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+              "float16": jnp.float16}
+
+
+@pytest.mark.parametrize("pair", list(MIXED))
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+def test_mixed_operand_dtypes_compute_the_references_function(algorithm,
+                                                              pair):
+    """An input and a kernel of two dtypes: the JAX package's result, or
+    its error type (``direct`` raises ``TypeError``).  The output is in the
+    input's dtype, within 2 x the contract of the input's dtype of the JAX
+    package's output; a sub-f32 output equals it on all but a few
+    elements, where two f32 sums summed in another order round apart
+    (the kernel cast to the input's dtype, the port's rule before, made
+    30% or more of the elements differ)."""
+    x_d, k_d = MIXED[pair]
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, 12, 12, 8).astype(np.float32)
+    k = (rng.randn(3, 3, 8, 16) / np.sqrt(72)).astype(np.float32)
+    jx, jk = jnp.asarray(x, JAX_DTYPES[x_d]), jnp.asarray(k, JAX_DTYPES[k_d])
+    tx = torch.from_numpy(x).to(getattr(torch, x_d))
+    tk = torch.from_numpy(k).to(getattr(torch, k_d))
+    if algorithm == "direct":
+        with pytest.raises(TypeError):
+            j_conv2d(jx, jk, padding="SAME", algorithm=algorithm)
+        with pytest.raises(TypeError, match="same dtypes"):
+            conv2d(tx, tk, padding="SAME", algorithm=algorithm)
+        return
+    j_out = np.array(j_conv2d(jx, jk, padding="SAME",
+                              algorithm=algorithm).astype(jnp.float32))
+    t_out = conv2d(tx, tk, padding="SAME", algorithm=algorithm)
+    assert t_out.dtype == tx.dtype and tuple(t_out.shape) == j_out.shape
+    alg = "mec" if algorithm == "auto" else algorithm
+    assert scaled_error(t_out, torch.from_numpy(j_out)) <= \
+        2 * fwd_tolerance(alg, x_d, 3 * 3 * 8)
+    if x_d != "float32":
+        assert (t_out.float().numpy() != j_out).mean() <= 0.01
 
 
 def test_plan_partition_and_bad_arguments_raise():
     _, _, tx, tk = _operands("float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(TypeError, match="ConvPlan"):
         conv2d(tx, tk, plan=object())
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         conv2d(tx, tk, partition="batch")

@@ -39,6 +39,25 @@ from repro_torch.kernels.ref import scaled_error     # noqa: E402
 from repro_torch.optim import adamw                  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
+PLAN_ENV = ("REPRO_TORCH_PLAN_CACHE_DIR", "REPRO_TORCH_CALIBRATION",
+            "REPRO_PLAN_CACHE_DIR", "REPRO_CALIBRATION")
+
+
+@pytest.fixture(autouse=True)
+def plan_env(tmp_path, monkeypatch):
+    """``--algorithm auto`` plans through both packages' plan caches: keep
+    them, and the calibrations they consult, under tmp_path."""
+    import repro.plan as jplan
+    import repro_torch.plan as tplan
+    for name in PLAN_ENV:
+        monkeypatch.setenv(name, str(tmp_path / name))
+    for mod in (tplan, jplan):
+        mod.reset_global_plan_cache()
+        mod.reset_calibration_cache()
+    yield
+    for mod in (tplan, jplan):
+        mod.reset_global_plan_cache()
+        mod.reset_calibration_cache()
 
 
 def _jax_train_cnn():
@@ -202,3 +221,25 @@ def test_train_cnn_main_learns_on_cpu(algorithm, capsys):
     out = capsys.readouterr().out
     assert f"every conv via conv2d(algorithm={algorithm!r})" in out
     assert "step  199" in out and "final acc" in out
+
+
+@pytest.mark.parametrize("batch", [8, 32])
+def test_resolve_plans_matches_the_jax_trainer(batch):
+    """``--algorithm auto`` resolves one ConvPlan per layer, once: on the
+    CPU the JAX trainer's plans, field for field (for the card, K1 plans);
+    and a step replaying them equals the same step through the kwargs."""
+    jtc = _jax_train_cnn()
+    j_plans = jtc.resolve_plans(jtc.init_model(jax.random.key(0), 16), batch)
+    params = train_cnn.init_model(torch.Generator().manual_seed(0), 16, "cpu")
+    plans = train_cnn.resolve_plans(params, batch)
+    assert {n: p.to_dict() for n, p in plans.items()} == \
+        {n: p.to_dict() for n, p in j_plans.items()}
+    assert train_cnn.resolve_plans(params, batch) == plans   # cache hits
+    imgs, labels = train_cnn.make_batch(torch.Generator().manual_seed(2), batch)
+    got = train_cnn.loss_and_grads(params, imgs, labels, "auto", plans)
+    want = train_cnn.loss_and_grads(params, imgs, labels, plans["c1"].algorithm)
+    assert torch.equal(got[1], want[1])
+    from repro_torch.models.layers import plan_conv2d_layer
+    card = plan_conv2d_layer(params["c1"], (batch, 32, 32, 1), stride=2,
+                             backend="cuda")
+    assert (card.algorithm, card.backend) == ("mec_fused", "cuda")

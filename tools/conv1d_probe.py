@@ -21,8 +21,10 @@ that tree's ``repro_torch`` and runs ``chip_smoke.conv1d_timing`` of this
 tree on it: K5 checked against its plain version at the zamba2-7b conv
 input (4, 512, 7296, k_w = 4, bf16, a column slice of the in_proj output),
 then K5, the plain version, cuDNN's depthwise conv1d and two copies of
-the same bytes, each on the L2-cold timer (``chip_smoke.cold_ms``).  To compare two trees
-on one card, give them in turns: ``parent . . parent``.  Prints the
+the same bytes, each on the L2-cold timer (``chip_smoke.cold_ms``, which
+takes its timer from the tree's ``repro_torch.bench.harness``, so a ROOT
+must be a tree that has it).  To compare two trees on one card, give them
+in turns: ``parent . . parent``.  Prints the
 nvidia-smi line, then one JSON line a worker.  Imports torch and the port
 only.
 """
