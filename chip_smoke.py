@@ -49,6 +49,19 @@ the script exits non-zero without its last line:
              the trainer runs with ``--algorithm auto`` (its plans
              resolved once, acc > 0.8).  Plan cache and calibration live
              in a temporary directory made for the run.
+4c. bench  - the benchmark subsystem: ``repro_torch.bench.harness``
+             ``run_suite`` times the Table-2 suite (cv1-cv12, every
+             algorithm), the Table-3 suite (with its weights and the
+             ``auto`` crosscheck) and the dtype suite (cv9 in f32 and
+             bf16) at the paper's full widths, each cell on the device
+             timer; every cell must be timed and K1-K4 must launch.
+             ``run_autotune`` over Table 3 (no candidate skipped);
+             ``analysis.memaudit`` over the smoke and Table-2 plans built on
+             the card (every kernel cell within the Eq. 3 rule of the slice
+             phase, mec below im2col wherever Eq. 4 predicts a saving); a
+             calibration fitted from the two documents passes
+             ``check_calibration``; each suite equals its untimed re-run on
+             the exact fields (``bench.check.compare``).
 5. train   - the training path: (a) each of the five Table-3 layers at
              batch 16 through ``conv2d(algorithm="mec_fused2")`` (K4)
              forward and the MEC VJP backward, loss sum(out^2), output and
@@ -112,24 +125,6 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 
-# Paper Table 2: name -> (i_h, i_w, i_c, k_h, k_w, k_c, stride), as in the
-# JAX package's bench scenarios.
-CV_LAYERS = {
-    "cv1": (227, 227, 3, 11, 11, 96, 4),
-    "cv2": (231, 231, 3, 11, 11, 96, 4),
-    "cv3": (227, 227, 3, 7, 7, 64, 2),
-    "cv4": (224, 224, 64, 7, 7, 64, 2),
-    "cv5": (24, 24, 96, 5, 5, 256, 1),
-    "cv6": (12, 12, 256, 3, 3, 512, 1),
-    "cv7": (224, 224, 3, 3, 3, 64, 1),
-    "cv8": (112, 112, 64, 3, 3, 128, 1),
-    "cv9": (56, 56, 64, 3, 3, 64, 1),
-    "cv10": (28, 28, 128, 3, 3, 128, 1),
-    "cv11": (14, 14, 256, 3, 3, 256, 1),
-    "cv12": (7, 7, 512, 3, 3, 512, 1),
-}
-# Paper Table 3: ResNet-101 occurrences of the Table-2 layers (34 convs).
-RESNET101 = {"cv4": 1, "cv9": 3, "cv10": 4, "cv11": 23, "cv12": 3}
 # The kernel test sweep (tests/test_kernels.py SWEEP), run at batch 2.
 SWEEP = [
     (7, 7, 1, 3, 3, 1, 1),
@@ -168,6 +163,13 @@ PLAN_DTYPES = ("float32", "bfloat16")
 PLAN_ITERS, PLAN_WARMUP = 10, 2
 # the kernel paths no measured race may skip
 PLAN_KERNEL_ALGOS = ("mec_fused", "mec_fused2", "mec_lowered")
+# the bench phase: suites timed at full width (each with its arguments),
+# the autotune comparison's base suite, and the timed calls a cell (after
+# its warm-up calls); the memaudit audits its default smoke + table2 plans
+BENCH_SUITES = (("table2", {}), ("resnet101", {"crosscheck": True}),
+                ("dtype", {}))
+BENCH_AUTOTUNE = "resnet101"
+BENCH_ITERS, BENCH_WARMUP = 10, 2
 # zamba2-7b served: batch, prompt, generated tokens; the Mamba2 conv input
 # is columns 7168 .. 14463 (d_in .. 2 d_in + 2 N) of a 14576-wide row.
 SERVE_ARCH = "zamba2-7b"
@@ -634,6 +636,126 @@ def plan_phase(stack) -> dict:
     return stacks
 
 
+def bench_phase(tmp_dir: Path) -> dict:
+    """The benchmark subsystem on the card (phase 4c): the Table 2,
+    Table 3 and dtype suites timed at full width through
+    ``repro_torch.bench.harness.run_suite`` (every algorithm variant, each
+    cell on the device timer), the autotune comparison over Table 3, the
+    memory auditor over the smoke and Table 2 plans built on the card, a
+    calibration fitted from the two documents and checked, and each suite
+    against its own untimed re-run.  Returns the kernels' launches during
+    the suites."""
+    from repro_torch.analysis import memaudit
+    from repro_torch.bench import check as bench_check
+    from repro_torch.bench.harness import run_autotune, run_suite
+    from repro_torch.kernels import mec_conv as K
+    from repro_torch.plan import calibrate as cal
+
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    docs, seconds = {}, {}
+    for suite, kw in BENCH_SUITES:
+        t0 = time.perf_counter()
+        docs[suite] = run_suite(suite, iters=BENCH_ITERS, warmup=BENCH_WARMUP,
+                                **kw)
+        seconds[suite] = round(time.perf_counter() - t0, 3)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    check(all(n > 0 for n in launches.values()),
+          f"the bench suites launched {launches}: a kernel never ran")
+    for suite, doc in docs.items():
+        untimed = [f"{r['scenario']}/{r['algorithm']}" for r in doc["results"]
+                   if r["us_per_call"] is None]
+        check(not untimed, f"bench {suite}: untimed cells {untimed}")
+        us = {}
+        for r in doc["results"]:
+            us.setdefault(r["scenario"], {})[r["algorithm"]] = r["us_per_call"]
+        noisy = max(doc["results"], key=lambda r: r["timing"]["us_rel_spread"])
+        emit({"phase": "bench", "suite": suite, "seconds": seconds[suite],
+              "us_per_call": us, "max_rel_spread": [
+                  f"{noisy['scenario']}/{noisy['algorithm']}",
+                  noisy["timing"]["us_rel_spread"]]})
+    emit({"phase": "bench", "suite": "resnet101", "crosscheck": {
+        c["scenario"]: {"auto": c["auto_algorithm"], "best": c["measured_best"],
+                        "auto_matches_best": c["auto_matches_best"],
+                        "auto_overhead_ok": c["auto_overhead_ok"]}
+        for c in docs["resnet101"]["crosscheck"]}})
+
+    # the measured planner against the analytic pick, per Table-3 layer
+    t0 = time.perf_counter()
+    autotune = run_autotune(BENCH_AUTOTUNE, iters=BENCH_ITERS,
+                            warmup=BENCH_WARMUP)
+    seconds["autotune"] = round(time.perf_counter() - t0, 3)
+    skipped = {r["scenario"]: r["skipped"] for r in autotune["results"]
+               if r["n_skipped"]}
+    check(not skipped, f"autotune skipped candidates: {skipped}")
+    emit({"phase": "bench", "suite": "autotune", "base_suite": BENCH_AUTOTUNE,
+          "seconds": seconds["autotune"],
+          "cells": {r["scenario"]: {
+              "analytic": r["analytic_algorithm"], "analytic_us": r["analytic_us"],
+              "measured": r["measured_algorithm"], "measured_us": r["measured_us"],
+              "speedup": r["speedup"], "w_blk": r["plan"]["w_blk"]}
+              for r in autotune["results"]}})
+
+    # Eq. 2-4 against the allocator, over the smoke and Table 2 plans
+    t0 = time.perf_counter()
+    audit, audit_failures = memaudit.run_audit()
+    plans = {r["scenario"] for r in audit["results"]}
+    seconds["memaudit"] = round(time.perf_counter() - t0, 3)
+    cells = {}
+    for r in audit["results"]:
+        cells.setdefault(r["scenario"], {})[r["algorithm"]] = {
+            "predicted": r["predicted_overhead_bytes"],
+            "measured": r["measured_temp_bytes"], "ratio": r["ratio"],
+            "verdict": r["verdict"]}
+    kernel_cells = [r for r in audit["results"]
+                    if r["algorithm"] in memaudit.KERNEL_ALGORITHMS]
+    bad = [f"{r['scenario']}/{r['algorithm']}" for r in kernel_cells
+           if r["verdict"] != "pass"]
+    check(bool(kernel_cells) and not bad, f"memaudit kernel cells failed: {bad}: "
+          f"{audit_failures}")
+    # the paper's claim on the kernel path: L below im2col's matrix
+    lowered = [c for c in audit["crosscheck"] if c["algorithm"] == "mec_lowered"]
+    check({c["scenario"] for c in lowered} == plans
+          and all(c["ok"] == "yes" for c in lowered),
+          f"memaudit: mec_lowered above im2col against Eq. 4: {lowered}")
+    emit({"phase": "bench", "suite": "memaudit", "plans": len(plans),
+          "seconds": seconds["memaudit"], "kernel_cells": len(kernel_cells),
+          # plain-PyTorch algorithms outside their band: findings, not checks
+          "plain_failures": audit_failures, "crosscheck": {
+              f"{c['scenario']}/{c['algorithm']}": c["ok"]
+              for c in audit["crosscheck"]}, "cells": cells})
+
+    # a calibration fitted from the two documents, then checked
+    calib = cal.Calibration.for_current_env("cuda")
+    n_time = cal.ingest_autotune(calib, autotune)
+    n_mem = cal.ingest_memaudit(calib, audit)
+    fitted = tmp_dir / "bench-calibration.json"
+    fitted.write_text(json.dumps(calib.to_dict()))
+    cal_failures = cal.check_calibration(json.loads(fitted.read_text()))
+    check(n_time > 0 and n_mem > 0 and not cal_failures,
+          f"calibration from the bench: {n_time} time and {n_mem} memory "
+          f"samples, failures {cal_failures}")
+
+    # each suite against its own untimed re-run: the exact fields agree
+    compare = {}
+    for suite, _ in BENCH_SUITES:
+        failures, _ = bench_check.compare(
+            docs[suite], run_suite(suite, with_timing=False),
+            schema_only_on_timing=True)
+        check(not failures, f"bench.check {suite}: {failures}")
+        compare[suite] = len(docs[suite]["results"])
+    phase_s = round(time.perf_counter() - t_phase, 3)
+    emit({"phase": "bench", "launches": launches, "seconds": phase_s,
+          "by_part": seconds, "calibration": {
+              "time_samples": n_time, "memory_samples": n_mem,
+              "mem_ratio": calib.fit()["mem_ratio"],
+              "check_failures": len(cal_failures)},
+          "compared_cells": compare})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -685,6 +807,8 @@ def main(argv=None) -> int:
                                          pick_oh_blk)
     from repro_torch.models.layers import init_conv2d
     from repro_torch.plan import global_plan_cache, plan_cache_key
+    from repro_torch.bench.scenarios import CV_LAYERS
+    from repro_torch.bench.scenarios import RESNET101_WEIGHTS as RESNET101
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     check(not bad, f"the port loaded {bad}")
@@ -938,6 +1062,9 @@ def main(argv=None) -> int:
 
     # 4b. plan: the planner ------------------------------------------------
     planned = plan_phase(stack)
+
+    # 4c. bench: the benchmark subsystem, memory auditor and calibration ----
+    bench_launches = bench_phase(Path(plan_dir))
 
     # 5. train: the training path ------------------------------------------
     # (a) each distinct layer: K4 forward, MEC VJP backward, against f64
@@ -1413,6 +1540,7 @@ def main(argv=None) -> int:
         if row["name"] != "mec_conv1d":
             row["planned_stack_launches"] = {
                 d: planned[d]["launches"][row["name"]] for d in PLAN_DTYPES}
+            row["bench_launches"] = bench_launches[row["name"]]
     rows[list(KERNEL_ROWS).index("mec_gemm")]["lowered_pair"] = {
         "ms": sum(pair[(n, SLICE_BATCH)]["ms"] for n in RESNET101),
         "library_ms": sum(pair[(n, SLICE_BATCH)]["library_ms"] for n in RESNET101)}

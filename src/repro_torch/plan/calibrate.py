@@ -29,9 +29,15 @@ plan for the CPU and the card alike, so where the JAX package reads the
 process's one backend, every lookup here names its backend.
 ``$REPRO_TORCH_CALIBRATION`` points the ambient lookup at an explicit
 file instead, matched on backend and device rather than the whole
-fingerprint.  Reading bench and memaudit reports into a calibration
-(``ingest_autotune``, ``ingest_memaudit``, ``check_calibration``, the
-``python -m repro.plan calibrate`` CLI) waits for item 7.
+fingerprint.
+
+The report-reading half: ``ingest_autotune`` and ``ingest_memaudit``
+fold ``repro_torch.bench`` autotune and ``repro_torch.analysis``
+memaudit documents (or the JAX package's, same schema) into a
+calibration, ``check_calibration`` gates a calibration file's stored fit
+against a refit of its samples, ``render_report`` prints fitted against
+paper constants, and ``calibrate_main`` is ``python -m repro_torch.plan
+calibrate``.
 """
 from __future__ import annotations
 
@@ -51,6 +57,10 @@ from repro_torch.plan.convplan import spec_key
 
 CALIBRATION_FILE_VERSION = 1
 CALIBRATION_ENV = "REPRO_TORCH_CALIBRATION"
+
+# Where ``calibrate --fit`` writes and ``--check``/``--report`` read when
+# no path is given: the working directory, never a JAX-package baseline.
+DEFAULT_CALIBRATION = "calibration_torch.json"
 
 # Keep the last N samples per (spec, dtype, algorithm, solution, w_blk)
 # key: enough to median away scheduler noise, bounded so a long tuning
@@ -429,3 +439,258 @@ def calibration_info(backend: str = "cuda") -> Dict:
         "backend": None if calib is None else calib.backend,
         "cells": 0 if calib is None else len(calib.time_cells()),
     }
+
+
+# ---------------------------------------------------------------------------
+# report ingestion
+# ---------------------------------------------------------------------------
+
+def ingest_autotune(calib: Calibration, doc: Dict) -> int:
+    """Fold an autotune document (schema v1 or v2) into ``calib`` as time
+    samples.  Returns the number of samples added."""
+    n = 0
+    for rec in doc.get("results", []):
+        spec = ConvSpec(**rec["run_spec"])
+        dtype = rec.get("dtype", "float32")
+        stats = rec.get("candidate_stats") or {}
+        for alg, us in (rec.get("candidate_us") or {}).items():
+            meta = stats.get(alg) or {}
+            calib.add_time(spec, dtype, alg, float(us),
+                           solution=meta.get("solution", "auto"),
+                           w_blk=meta.get("w_blk"))
+            n += 1
+        tuning = rec.get("tuning") or {}
+        for label, trial in (tuning.get("trials") or {}).items():
+            if tuning.get("knob") == "solution":
+                calib.add_time(spec, dtype, tuning["algorithm"],
+                               float(trial["us_median"]), solution=label)
+            elif tuning.get("knob") == "w_blk":
+                calib.add_time(spec, dtype, tuning["algorithm"],
+                               float(trial["us_median"]), w_blk=int(label))
+            n += 1
+    return n
+
+
+def ingest_memaudit(calib: Calibration, doc: Dict) -> int:
+    """Fold a memaudit document into ``calib`` as memory samples.  Only
+    gated cells with a ratio count (a ``recorded`` cell measured nothing
+    that describes the algorithm)."""
+    from repro_torch.core.memory import _DISPATCH_BASE
+    n = 0
+    for rec in doc.get("results", []):
+        if rec.get("policy") != "gated" or rec.get("ratio") is None:
+            continue
+        base = _DISPATCH_BASE.get(rec["algorithm"], rec["algorithm"])
+        calib.add_memory(ConvSpec(**rec["spec"]), rec.get("dtype", "float32"),
+                         base, float(rec["ratio"]))
+        n += 1
+    return n
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m repro_torch.plan calibrate ...
+# ---------------------------------------------------------------------------
+
+def _rel_close(a: float, b: float, rtol: float) -> bool:
+    return abs(a - b) <= rtol * max(abs(a), abs(b), 1e-9)
+
+
+def check_calibration(doc: Dict, rtol: float = 0.05) -> List[str]:
+    """Gate a calibration document: the stored ``fitted`` block must be
+    reproducible from the stored samples, decisions exactly, coefficients
+    within ``rtol`` (lstsq may wobble across numpy versions).  Returns
+    the failures (empty == pass)."""
+    failures: List[str] = []
+    try:
+        calib = Calibration.from_dict(doc)
+    except (ValueError, KeyError, TypeError) as e:
+        return [f"unreadable calibration document: {e}"]
+    stored = doc.get("fitted")
+    if not isinstance(stored, dict):
+        return ["no 'fitted' block: regenerate with "
+                "python -m repro_torch.plan calibrate --fit"]
+    refit = calib.fit()
+    for cell in sorted(set(stored.get("decisions", {}))
+                       | set(refit["decisions"])):
+        a = stored.get("decisions", {}).get(cell)
+        b = refit["decisions"].get(cell)
+        if a != b:
+            failures.append(f"decision drift on {cell}: stored {a!r} "
+                            f"vs refit {b!r}")
+    for alg in sorted(set(stored.get("time_constants", {}))
+                      | set(refit["time_constants"])):
+        a = stored.get("time_constants", {}).get(alg)
+        b = refit["time_constants"].get(alg)
+        if (a is None) != (b is None):
+            failures.append(f"time_constants coverage drift on {alg}")
+            continue
+        for coef in ("c0", "c_flops", "c_overhead"):
+            if not _rel_close(a[coef], b[coef], rtol):
+                failures.append(f"time_constants[{alg}][{coef}] "
+                                f"{a[coef]:.6g} vs refit {b[coef]:.6g} "
+                                f"(rtol {rtol})")
+    for alg in sorted(set(stored.get("mem_ratio", {}))
+                      | set(refit["mem_ratio"])):
+        a = stored.get("mem_ratio", {}).get(alg)
+        b = refit["mem_ratio"].get(alg)
+        if (a is None) != (b is None):
+            failures.append(f"mem_ratio coverage drift on {alg}")
+            continue
+        if not _rel_close(a["ratio"], b["ratio"], rtol):
+            failures.append(f"mem_ratio[{alg}] {a['ratio']:.6g} vs refit "
+                            f"{b['ratio']:.6g} (rtol {rtol})")
+    for cell in sorted(set(stored.get("time_cells", {}))
+                       | set(refit["time_cells"])):
+        a = stored.get("time_cells", {}).get(cell, {})
+        b = refit["time_cells"].get(cell, {})
+        for alg in sorted(set(a) | set(b)):
+            if alg not in a or alg not in b:
+                failures.append(f"time_cells coverage drift on "
+                                f"{cell}/{alg}")
+            elif not _rel_close(a[alg], b[alg], rtol):
+                failures.append(f"time_cells[{cell}][{alg}] {a[alg]:.6g} "
+                                f"vs refit {b[alg]:.6g} (rtol {rtol})")
+    return failures
+
+
+def render_report(calib: Calibration) -> List[str]:
+    """Fitted-vs-paper constants, one block per evidence cell."""
+    lines = [f"[calibrate] backend={calib.backend} "
+             f"device_kind={calib.device_kind} "
+             f"fingerprint={calib.fingerprint}"]
+    constants = calib.time_constants()
+    decisions = calib.decisions()
+    for cell, algs in sorted(calib.time_cells().items()):
+        spec = parse_spec_key(cell)
+        lines.append(f"cell {cell}:")
+        lines.append(f"  {'algorithm':12s} {'Eq.2-4 elems':>12s} "
+                     f"{'flops':>12s} {'measured us':>12s} "
+                     f"{'fitted us':>10s}")
+        for alg in sorted(algs):
+            flops, overhead = _features(spec, alg)
+            est = calib.time_estimate(spec, alg, constants)
+            lines.append(
+                f"  {alg:12s} {overhead:12.3e} {flops:12.3e} "
+                f"{algs[alg]:12.1f} "
+                f"{'-' if est is None else format(est, '10.1f')}")
+        d = decisions.get(cell, {})
+        flip = "" if d.get("uncalibrated") == d.get("calibrated") \
+            else "   <-- flip"
+        lines.append(f"  pick: paper={d.get('uncalibrated')} "
+                     f"calibrated={d.get('calibrated')}{flip}")
+    lines.append("memory ratios (measured / Eq. 2-3 prediction; "
+                 "paper constant 1.0):")
+    for alg, entry in calib.mem_ratios().items():
+        lines.append(f"  {alg:12s} {entry['ratio']:.4f}  "
+                     f"(n={entry['n']})")
+    lines.append("time constants "
+                 "(us ~ c0 + c_flops*flops + c_overhead*overhead):")
+    for alg, c in constants.items():
+        lines.append(f"  {alg:12s} c0={c['c0']:+.4g} "
+                     f"c_flops={c['c_flops']:+.4g} "
+                     f"c_overhead={c['c_overhead']:+.4g} (n={c['n']})")
+    return lines
+
+
+def calibrate_main(argv=None) -> int:
+    import argparse
+    import sys
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.plan calibrate",
+        description="Fitted-costmodel calibration: report, gate, or "
+                    "(re)build the coefficient file")
+    ap.add_argument("--report", action="store_true",
+                    help="print fitted-vs-paper constants per cell")
+    ap.add_argument("--check", action="store_true",
+                    help="gate a calibration file: stored fit must be "
+                         "reproducible from its samples (decisions "
+                         "exact, coefficients within --rtol)")
+    ap.add_argument("--fit", action="store_true",
+                    help="build a calibration from the ambient store "
+                         "and/or report files; write it with --out")
+    ap.add_argument("--baseline", default=None,
+                    help=f"calibration JSON to report on / check "
+                         f"(default: {DEFAULT_CALIBRATION} in the working "
+                         f"directory)")
+    ap.add_argument("--rtol", type=float, default=0.05,
+                    help="coefficient tolerance for --check")
+    ap.add_argument("--autotune", default=None,
+                    help="autotune report to ingest for --fit")
+    ap.add_argument("--memaudit", default=None,
+                    help="memaudit report to ingest for --fit")
+    ap.add_argument("--out", default=None,
+                    help=f"where --fit writes the calibration JSON "
+                         f"(default: {DEFAULT_CALIBRATION})")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="the backend whose store --fit starts from and "
+                         "whose calibrations --report reads")
+    args = ap.parse_args(argv)
+
+    baseline = pathlib.Path(args.baseline or DEFAULT_CALIBRATION)
+
+    if args.fit:
+        calib = CalibrationStore(backend=args.device).load()
+        for path, ingest in ((args.autotune, ingest_autotune),
+                             (args.memaudit, ingest_memaudit)):
+            if path is None:
+                continue
+            try:
+                doc = json.loads(pathlib.Path(path).read_text())
+            except (OSError, ValueError) as e:
+                print(f"[calibrate] cannot read {path}: {e}", file=sys.stderr)
+                return 2
+            n = ingest(calib, doc)
+            print(f"[calibrate] ingested {n} sample(s) from {path}")
+        if calib.is_empty():
+            print("[calibrate] nothing to fit: no samples in the store "
+                  "or the given reports", file=sys.stderr)
+            return 2
+        out = pathlib.Path(args.out or DEFAULT_CALIBRATION)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(calib.to_dict(), indent=1,
+                                  sort_keys=True) + "\n")
+        flips = sum(1 for d in calib.decisions().values()
+                    if d["uncalibrated"] != d["calibrated"])
+        print(f"[calibrate] {len(calib.time_cells())} time cell(s), "
+              f"{len(calib.mem_ratios())} memory-fitted algorithm(s), "
+              f"{flips} calibrated flip(s) -> {out}")
+        if args.report:
+            for line in render_report(calib):
+                print(line)
+        return 0
+
+    if args.check:
+        try:
+            doc = json.loads(baseline.read_text())
+        except (OSError, ValueError) as e:
+            print(f"[calibrate] cannot read {baseline}: {e}", file=sys.stderr)
+            return 2
+        failures = check_calibration(doc, rtol=args.rtol)
+        if failures:
+            for f in failures:
+                print(f"[calibrate] FAIL: {f}", file=sys.stderr)
+            print(f"[calibrate] {len(failures)} failure(s) in {baseline}",
+                  file=sys.stderr)
+            return 1
+        n_cells = len(doc.get("fitted", {}).get("time_cells", {}))
+        print(f"[calibrate] OK: {baseline} is self-consistent "
+              f"({n_cells} cell(s), rtol {args.rtol})")
+        if not args.report:
+            return 0
+
+    # --report (also the default action)
+    calib = None
+    if args.baseline:
+        calib = _load_file(baseline, args.device, strict_fingerprint=False)
+    if calib is None:
+        calib = current_calibration(args.device)
+    if calib is None and baseline.exists():
+        calib = _load_file(baseline, args.device, strict_fingerprint=False)
+    if calib is None or calib.is_empty():
+        print("[calibrate] no calibration found (no ambient store, no "
+              f"{baseline}); run the autotune suite or calibrate --fit",
+              file=sys.stderr)
+        return 2
+    for line in render_report(calib):
+        print(line)
+    return 0

@@ -307,7 +307,12 @@ def test_port_imports_no_jax_and_no_repro():
     assert modules <= walked, sorted(modules - walked)
     assert {"repro_torch.launch.costmodel", "repro_torch.launch.serve",
             "repro_torch.models.layers", "repro_torch.models.serve",
-            "repro_torch.configs.archs", "repro_torch.kernels.mec_conv1d"} \
+            "repro_torch.configs.archs", "repro_torch.kernels.mec_conv1d",
+            "repro_torch.bench.scenarios", "repro_torch.bench.report",
+            "repro_torch.bench.harness", "repro_torch.bench.check",
+            "repro_torch.bench.__main__", "repro_torch.analysis",
+            "repro_torch.analysis.memaudit", "repro_torch.analysis.__main__",
+            "repro_torch.plan.__main__", "repro_torch.plan.calibrate"} \
         <= walked
 
 

@@ -26,6 +26,12 @@ cast back.  A plan on the card must run bit for bit what the kwargs
 path runs.  The smoke-size zamba2 served on the card
 is held to the same served on the CPU at 1e-4, scale-normalized, in f32.
 """
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -874,3 +880,77 @@ def test_serve_on_the_card_launches_k5_per_mamba_layer(cuda):
     assert K.launch_counts() == NO_LAUNCHES
     assert res["tokens"].shape == (2, 5) and res["tokens"].device.type == "cuda"
     assert bool(torch.isfinite(res["prefill_logits"]).all())
+
+
+# ---------------------------------------------------------------------------
+# the benchmark subsystem and the memory auditor on the card
+# ---------------------------------------------------------------------------
+
+def test_bench_smoke_suite_on_the_card_times_every_variant(cuda):
+    """``run_suite("smoke")`` on the card: every variant timed on the
+    device timer, K1-K4 launched, the card named in the report."""
+    from repro_torch.bench.harness import run_suite
+    from repro_torch.bench.report import validate_report
+    K.reset_launch_counts()
+    doc = run_suite("smoke", iters=2)
+    torch.cuda.synchronize()
+    assert validate_report(doc) == []
+    assert all(r["us_per_call"] > 0 for r in doc["results"])
+    assert {r["algorithm"] for r in doc["results"]} >= {
+        "direct", "im2col", "fft", "winograd", "mecA", "mecB",
+        "mec_lowered", "mec_fused", "mec_fused2"}
+    assert all(n > 0 for n in K.launch_counts().values()), K.launch_counts()
+    env = doc["environment"]
+    assert (env["backend"], env["device_kind"]) == \
+        ("cuda", torch.cuda.get_device_name(0))
+    assert {r["plan"]["backend"] for r in doc["results"]} == {"cuda"}
+
+
+def test_memaudit_kernel_cells_pass_on_the_card(cuda):
+    """The smoke plans built on the card, audited: K1 and K4 keep no
+    temporary, K2+K3 exactly the Eq. 3 L (2 MiB of slack), and the
+    lowered path stays below im2col wherever Eq. 4 predicts a saving."""
+    from repro_torch.analysis import memaudit
+    from repro_torch.bench.report import validate_report
+    from repro_torch.plan.__main__ import build_plans
+    plans = memaudit.plans_of(build_plans(["smoke"]))
+    doc, _ = memaudit.run_audit(plans=plans)
+    assert validate_report(doc) == []
+    kernel = [r for r in doc["results"]
+              if r["algorithm"] in memaudit.KERNEL_ALGORITHMS]
+    assert len(kernel) == 3 * len(plans)
+    assert all(r["verdict"] == "pass" and r["policy"] == "gated"
+               and r["measured_temp_bytes"] is not None for r in kernel), kernel
+    lowered = [c for c in doc["crosscheck"] if c["algorithm"] == "mec_lowered"]
+    assert len(lowered) == len(plans)
+    assert all(c["ok"] == "yes" for c in lowered), lowered
+
+
+def test_calibration_from_a_card_autotune_passes_its_check(cuda, tmp_path):
+    """An autotune of ``smoke`` on the card skips no candidate, and a
+    calibration fitted from it passes ``check_calibration``."""
+    from repro_torch.bench.harness import run_autotune
+    from repro_torch.plan import calibrate as cal
+    doc = run_autotune("smoke", iters=2)
+    assert all(r["n_skipped"] == 0 for r in doc["results"]), doc["results"]
+    calib = cal.Calibration.for_current_env("cuda")
+    assert cal.ingest_autotune(calib, doc) > 0
+    path = tmp_path / "fit.json"
+    path.write_text(json.dumps(calib.to_dict()))
+    assert cal.check_calibration(json.loads(path.read_text())) == []
+    assert cal.calibrate_main(["--check", "--baseline", str(path)]) == 0
+
+
+def test_bench_cli_on_the_card(cuda, tmp_path):
+    """``python -m repro_torch.bench --suite smoke --device cuda`` exits 0
+    and writes its report under its own name."""
+    from repro_torch.bench.report import validate_report
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.bench", "--suite",
+                          "smoke", "--device", "cuda"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    doc = json.loads((tmp_path / "BENCH_torch_smoke.json").read_text())
+    assert validate_report(doc) == []
+    assert doc["environment"]["backend"] == "cuda"
