@@ -57,11 +57,25 @@ the script exits non-zero without its last line:
              timer; every cell must be timed and K1-K4 must launch.
              ``run_autotune`` over Table 3 (no candidate skipped);
              ``analysis.memaudit`` over the smoke and Table-2 plans built on
-             the card (every kernel cell within the Eq. 3 rule of the slice
-             phase, mec below im2col wherever Eq. 4 predicts a saving); a
-             calibration fitted from the two documents passes
-             ``check_calibration``; each suite equals its untimed re-run on
-             the exact fields (``bench.check.compare``).
+             the card, each geometry under every algorithm, every cell
+             gated: the kernel paths within the Eq. 3 rule of the slice
+             phase, the plain algorithms within the JAX package's bands
+             (fault F6; ``direct`` on its own bytes, cuDNN's apart), the
+             plain MEC and the lowered path below im2col wherever Eq. 4
+             predicts a saving; a calibration fitted from the two documents
+             passes ``check_calibration``; each suite equals its untimed
+             re-run on the exact fields (``bench.check.compare``).
+4d. analysis - the static launch check against the launcher on every
+             geometry the script launches (f32 and bf16; fields equal,
+             or both refusing, and at least one geometry both refuse);
+             ``--suite numcheck`` on the card (every algorithm x dtype x
+             direction at the probe spec; K1-K4 on the Table-3 layers at
+             batch 16 in f32 and bf16 against an f64 oracle on the card),
+             no violation; the lint, clean with an empty baseline.
+4e. examples - ``repro_torch.examples.quickstart`` and
+             ``repro_torch.benchmarks.run`` at the paper's sizes: Fig.
+             4(a)-(e), Table 3's memory and runtime ratios beside the
+             paper's 3.2x and 1.2x, the traffic model.
 5. train   - the training path: (a) each of the five Table-3 layers at
              batch 16 through ``conv2d(algorithm="mec_fused2")`` (K4)
              forward and the MEC VJP backward, loss sum(out^2), output and
@@ -170,6 +184,10 @@ BENCH_SUITES = (("table2", {}), ("resnet101", {"crosscheck": True}),
                 ("dtype", {}))
 BENCH_AUTOTUNE = "resnet101"
 BENCH_ITERS, BENCH_WARMUP = 10, 2
+# the analysis phase's drift guard: a geometry no launcher takes (a 33 x 33
+# kernel, whose kernel slab's smallest ring exceeds the opt-in), beside
+# every geometry the script launches
+LAUNCH_REFUSED = (40, 120, 32, 33, 33, 64, 1)
 # zamba2-7b served: batch, prompt, generated tokens; the Mamba2 conv input
 # is columns 7168 .. 14463 (d_in .. 2 d_in + 2 N) of a 14576-wide row.
 SERVE_ARCH = "zamba2-7b"
@@ -452,7 +470,7 @@ def profile_serving(cfg, seed: int, decode_steps: int = 4) -> dict:
     return out
 
 
-def plan_phase(stack) -> dict:
+def plan_phase(stack, plan_dir: Path) -> dict:
     """The planner on the card (phase 4b): measured plans for each layer of
     ``stack`` (the slice phase's (name, x, w, stride, spec) convs) in each
     of PLAN_DTYPES, their round trips, the stack through ``conv2d(plan=)``
@@ -514,7 +532,7 @@ def plan_phase(stack) -> dict:
     check(entry.mode == "measured" and entry.backend == "cuda",
           f"plan_conv2d(mode='measured'): {entry}")
     # a fresh plan cache on one file holds every plan
-    cache_file = Path(os.environ["REPRO_TORCH_PLAN_CACHE_DIR"]) / "measured.json"
+    cache_file = plan_dir / "plans" / "measured.json"
     writer = PlanCache(cache_file)
     for plan in plans.values():
         writer.put(plan.cache_key(), plan)
@@ -597,7 +615,7 @@ def plan_phase(stack) -> dict:
               for spec in layers.values()),
           f"the calibration store holds {sorted(cells)}")
     fit = calib.fit()
-    env_file = Path(os.environ["REPRO_TORCH_CALIBRATION"])
+    env_file = plan_dir / "calibration.json"
     env_file.write_text(json.dumps(calib.to_dict()))
     reset_calibration_cache()
     check(current_calibration("cuda") is not None,
@@ -698,7 +716,9 @@ def bench_phase(tmp_dir: Path) -> dict:
               "speedup": r["speedup"], "w_blk": r["plan"]["w_blk"]}
               for r in autotune["results"]}})
 
-    # Eq. 2-4 against the allocator, over the smoke and Table 2 plans
+    # Eq. 2-4 against the allocator, over the smoke and Table 2 plans:
+    # every cell gated, the kernel paths' rule and the plain algorithms'
+    # bands (F6), direct on its own bytes beside cuDNN's
     t0 = time.perf_counter()
     audit, audit_failures = memaudit.run_audit()
     plans = {r["scenario"] for r in audit["results"]}
@@ -708,24 +728,23 @@ def bench_phase(tmp_dir: Path) -> dict:
         cells.setdefault(r["scenario"], {})[r["algorithm"]] = {
             "predicted": r["predicted_overhead_bytes"],
             "measured": r["measured_temp_bytes"], "ratio": r["ratio"],
-            "verdict": r["verdict"]}
-    kernel_cells = [r for r in audit["results"]
-                    if r["algorithm"] in memaudit.KERNEL_ALGORITHMS]
-    bad = [f"{r['scenario']}/{r['algorithm']}" for r in kernel_cells
-           if r["verdict"] != "pass"]
-    check(bool(kernel_cells) and not bad, f"memaudit kernel cells failed: {bad}: "
-          f"{audit_failures}")
-    # the paper's claim on the kernel path: L below im2col's matrix
-    lowered = [c for c in audit["crosscheck"] if c["algorithm"] == "mec_lowered"]
-    check({c["scenario"] for c in lowered} == plans
-          and all(c["ok"] == "yes" for c in lowered),
-          f"memaudit: mec_lowered above im2col against Eq. 4: {lowered}")
+            "blocks": r["measured_block_bytes"],
+            "library": r["library_workspace_bytes"], "verdict": r["verdict"]}
+    bad = [f"{r['scenario']}/{r['algorithm']}" for r in audit["results"]
+           if r["verdict"] != "pass" or r["policy"] != "gated"]
+    check(len(audit["results"]) > len(plans) and not bad and not audit_failures,
+          f"memaudit cells failed: {bad}: {audit_failures}")
+    # the paper's claim, on the kernel path and the plain MEC: L below
+    # im2col's matrix wherever Eq. 4 predicts a saving
+    for alg in ("mec_lowered", "mec"):
+        rows = [c for c in audit["crosscheck"] if c["algorithm"] == alg]
+        check({c["scenario"] for c in rows} == plans
+              and all(c["ok"] == "yes" for c in rows),
+              f"memaudit: {alg} above im2col against Eq. 4: {rows}")
     emit({"phase": "bench", "suite": "memaudit", "plans": len(plans),
-          "seconds": seconds["memaudit"], "kernel_cells": len(kernel_cells),
-          # plain-PyTorch algorithms outside their band: findings, not checks
-          "plain_failures": audit_failures, "crosscheck": {
-              f"{c['scenario']}/{c['algorithm']}": c["ok"]
-              for c in audit["crosscheck"]}, "cells": cells})
+          "seconds": seconds["memaudit"], "cells_gated": len(audit["results"]),
+          "crosscheck": {f"{c['scenario']}/{c['algorithm']}": c["ok"]
+                         for c in audit["crosscheck"]}, "cells": cells})
 
     # a calibration fitted from the two documents, then checked
     calib = cal.Calibration.for_current_env("cuda")
@@ -753,6 +772,137 @@ def bench_phase(tmp_dir: Path) -> dict:
               "mem_ratio": calib.fit()["mem_ratio"],
               "check_failures": len(cal_failures)},
           "compared_cells": compare})
+    return launches
+
+
+def analysis_phase(geoms) -> dict:
+    """The analysis suites on the card (phase 4d).  The drift guard: the
+    static launch check (``analysis.launch_check``) against the launcher
+    (``ops.launch_config``) on every geometry this script launches (the
+    kernel sweep with F1's geometries and cv1-cv12 at their batches,
+    Table 3 at batch 16, one geometry no launcher takes), f32 and bf16,
+    the fields equal or both refusing.  Then the numcheck suite on the
+    card (every algorithm x dtype x direction at the probe spec, the
+    kernel paths on the Table-3 layers at batch 16 in f32 and bf16), and
+    the lint with its empty baseline.  Returns the kernels' launches in
+    the numcheck sweep."""
+    from repro_torch.analysis import launch_check as LC
+    from repro_torch.analysis import lint
+    from repro_torch.analysis.__main__ import run_numcheck
+    from repro_torch.bench.scenarios import CV_LAYERS
+    from repro_torch.bench.scenarios import RESNET101_WEIGHTS as RESNET101
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.kernels import mec_conv as K, ops
+
+    t_phase = time.perf_counter()
+    cases = [(batch, geom) for _, geom, batch in geoms]
+    cases += [(SLICE_BATCH, CV_LAYERS[n]) for n in RESNET101]
+    cases += [(1, LAUNCH_REFUSED)]
+    compared, both_refused, mismatches = 0, [], []
+    for dname in ("float32", "bfloat16"):
+        for batch, (ih, iw, ic, kh, kw, kc, s) in cases:
+            s_h, s_w = stride_pair(s)
+            spec = ConvSpec(batch, ih, iw, ic, kh, kw, kc, s_h, s_w)
+            for alg in LC.KERNEL_ALGORITHMS:
+                try:
+                    want = ops.launch_config(alg[len("mec_"):], DTYPES[dname],
+                                             (batch, ih, iw, ic),
+                                             (kh, kw, ic, kc), (s_h, s_w))
+                except K.LaunchRefused:
+                    want = None
+                got = LC.launcher_fields(alg, dname, spec, None)
+                compared += 1
+                if got != want:
+                    mismatches.append([str(spec), alg, dname, got, want])
+                elif got is None:
+                    both_refused.append(f"{alg} {dname} {ih}x{iw}x{ic} "
+                                        f"k{kh}x{kw}x{kc}")
+    check(not mismatches, f"launch check differs from the launcher: "
+          f"{mismatches[:5]}")
+    check(len(both_refused) >= 1, "no geometry that both refuse")
+
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        doc, n_fail, n_skip = run_numcheck("cuda")
+    torch.cuda.synchronize()
+    numcheck_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    check(n_fail == 0, f"numcheck: {n_fail} cell(s) broke their contract")
+    check(all(r["skipped_reason"] for r in doc["results"]
+              if r["verdict"] == "skipped"), "numcheck: a skip with no reason")
+    check(all(n > 0 for n in launches.values()),
+          f"numcheck launched {launches}: a kernel never ran")
+    worst = {}
+    for r in doc["results"]:
+        if r["probe"] is None:
+            continue
+        p = r["probe"]
+        ratio = max(p["fwd_err"] / p["budget_fwd"],
+                    p["din_err"] / p["budget_grad"],
+                    p["dk_err"] / p["budget_grad_kernel"])
+        key = f"{r['source']}/{r['dtype']}"
+        worst[key] = max(worst.get(key, 0.0), ratio)
+    findings = lint.lint_tree(ROOT)
+    baseline = lint.load_baseline(ROOT / lint.DEFAULT_BASELINE)
+    check(not findings and not baseline,
+          f"lint: {[f.render() for f in findings]}, baseline {baseline}")
+    emit({"phase": "analysis", "seconds": round(time.perf_counter() - t_phase, 3),
+          "launch_check": {"compared": compared, "fields_equal": True,
+                           "both_refused": both_refused},
+          "numcheck": {"cells": len(doc["results"]), "failed": n_fail,
+                       "skipped": n_skip, "seconds": round(numcheck_s, 3),
+                       "worst_err_over_budget": worst},
+          "lint": {"findings": 0, "baseline": 0}, "launches": launches})
+    return launches
+
+
+def examples_phase(tol_of) -> dict:
+    """The quickstart and the paper-figure drivers on the card (phase 4e),
+    at the paper's sizes: ``repro_torch.examples.quickstart`` (every
+    algorithm against ``direct``, within twice its contract, a plan
+    round-tripped and replayed), then ``repro_torch.benchmarks.run``
+    (Fig. 4(a)-(e), Table 3, the traffic model); their CSV lines go to
+    stderr.  Table 3's ratios stand beside the paper's 3.2x / 1.2x.
+    Returns the kernels' launches."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import mec_conv as K
+
+    def to_stderr(line):
+        print(line, file=sys.stderr, flush=True)
+
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    q = quickstart.main(["--device", "cuda"], emit=to_stderr)
+    for name, kw in quickstart.ALGORITHMS:
+        tol = tol_of(kw["algorithm"], "float32", 3 * 3 * 8)
+        check(q["errors"][name] <= 2 * tol * q["scale"],
+              f"quickstart {name}: {q['errors'][name]} vs direct")
+    check(q["replay_matches_auto"], "quickstart: the replayed plan differs")
+    quick_s = time.perf_counter() - t_phase
+    results = bench_run.main(["--device", "cuda"], emit=to_stderr)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    check(all(n > 0 for n in launches.values()),
+          f"the examples launched {launches}: a kernel never ran")
+    t3 = results["table3_resnet101"]
+    fig4cd = results["fig4cd_runtime"]
+    emit({"phase": "examples", "seconds": round(time.perf_counter() - t_phase, 3),
+          "quickstart": {"seconds": round(quick_s, 3),
+                         "max_err_over_scale": max(q["errors"].values())
+                         / q["scale"], "auto": q["auto"]},
+          "table3": {"mem_ratio": t3["mem_ratio"], "paper_mem_ratio": 3.2,
+                     "runtime_ratio": t3["runtime_ratio"],
+                     "runtime_ratio_any_mec": t3["runtime_ratio_any_mec"],
+                     "paper_runtime_ratio": 1.2,
+                     "t_im2col_us": t3["t_im2col_us"], "t_mec_us": t3["t_mec_us"],
+                     "t_any_mec_us": t3["t_any_mec_us"]},
+          "fig4cd_mec_vs_im2col_geomean": math.prod(fig4cd) ** (1 / len(fig4cd)),
+          "fig4a_mem_ratio_s10": results["fig4a_ks_sweep"],
+          "launches": launches})
     return launches
 
 
@@ -1061,10 +1211,16 @@ def main(argv=None) -> int:
           "memory": mem})
 
     # 4b. plan: the planner ------------------------------------------------
-    planned = plan_phase(stack)
+    planned = plan_phase(stack, Path(plan_dir))
 
     # 4c. bench: the benchmark subsystem, memory auditor and calibration ----
     bench_launches = bench_phase(Path(plan_dir))
+
+    # 4d. analysis: launch check against the launcher, numcheck, lint ------
+    analysis_launches = analysis_phase(geoms)
+
+    # 4e. examples: the quickstart and the paper-figure drivers ------------
+    examples_launches = examples_phase(fwd_tolerance)
 
     # 5. train: the training path ------------------------------------------
     # (a) each distinct layer: K4 forward, MEC VJP backward, against f64
@@ -1541,6 +1697,8 @@ def main(argv=None) -> int:
             row["planned_stack_launches"] = {
                 d: planned[d]["launches"][row["name"]] for d in PLAN_DTYPES}
             row["bench_launches"] = bench_launches[row["name"]]
+            row["analysis_launches"] = analysis_launches[row["name"]]
+            row["examples_launches"] = examples_launches[row["name"]]
     rows[list(KERNEL_ROWS).index("mec_gemm")]["lowered_pair"] = {
         "ms": sum(pair[(n, SLICE_BATCH)]["ms"] for n in RESNET101),
         "library_ms": sum(pair[(n, SLICE_BATCH)]["library_ms"] for n in RESNET101)}

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.numcheck import cell_numcheck
 from repro_torch.bench.scenarios import (ALGORITHM_VARIANTS, Scenario,
                                          resolve_suite)
 from repro_torch.core.convspec import ConvSpec
@@ -62,12 +63,13 @@ def make_arrays(s: ConvSpec, dtype="float32", seed: int = 0,
 def _sleep_cycles_per_ms(device: int) -> float:
     """``torch.cuda._sleep`` cycles a millisecond on ``device``, from one
     timed sleep."""
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    torch.cuda._sleep(10 ** 7)
-    end.record()
-    torch.cuda.synchronize()
-    return 10 ** 7 / start.elapsed_time(end)
+    with torch.cuda.device(device):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        return 10 ** 7 / start.elapsed_time(end)
 
 
 def slept_event_ms(run, iters: int, margin_ms: float) -> List[float]:
@@ -191,6 +193,12 @@ def measure(sc: Scenario, algorithm: str, iters: int = 3, warmup: int = 1,
         # profiler would miss the CUDA kernels' own work).
         "hlo_flops": None,
         "hlo_bytes": None,
+        # The cell's static numeric contract (analysis.numcheck): traced on
+        # meta tensors, memoised across cells of one (spec, algorithm,
+        # dtype, solution), no extra execution; the full evidence is the
+        # numcheck suite's (python -m repro_torch.analysis).
+        "numcheck": cell_numcheck(sc.run_spec, kwargs["algorithm"], sc.dtype,
+                                  solution=kwargs.get("solution", "auto")),
     }
     if not with_timing:
         return record

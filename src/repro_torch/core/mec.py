@@ -41,19 +41,26 @@ def mec_lower(inp: torch.Tensor, k_w: int, s_w: int) -> torch.Tensor:
     return inp.unfold(2, k_w, s_w).permute(0, 2, 1, 4, 3).contiguous()
 
 
-def _shifted_rows(l_mat: torch.Tensor, kernel_mat: torch.Tensor, o_h: int,
-                  row_stride: int, window: int) -> torch.Tensor:
-    """out[h] = L[..., h*row_stride : +window] @ K for h < o_h, each row
-    accumulated in f32 and narrowed to L's dtype (paper's o_h GEMMs over
-    overlapping sub-matrix views).  Returns (o_h, *l_mat.shape[:-1], k_c).
+def _shifted_rows(l_mat: torch.Tensor, kernel_mat: torch.Tensor,
+                  row_stride: int, window: int, rows: torch.Tensor) -> None:
+    """rows[h] = L[..., h*row_stride : +window] @ K for every h, each
+    row accumulated in f32 and narrowed to L's dtype (paper's o_h GEMMs
+    over overlapping sub-matrix views).  ``rows`` is a view of the output
+    whose leading axis is h: the GEMM writes a contiguous row (batch 1)
+    in L's own dtype in place; any other row's product, one row-sized
+    temporary, is copied into it.  Nothing output-sized is allocated
+    besides the output itself.
     """
     acc = accum_dtype(l_mat.dtype)
     k32 = kernel_mat.to(acc)
-    rows = []
-    for h in range(o_h):
+    for h in range(rows.shape[0]):
         win = l_mat[..., h * row_stride:h * row_stride + window]
-        rows.append(torch.matmul(win.to(acc), k32).to(l_mat.dtype))
-    return torch.stack(rows)
+        if acc == l_mat.dtype and rows[h].is_contiguous():
+            torch.matmul(win, k32, out=rows[h].view(*win.shape[:-1],
+                                                     k32.shape[1]))
+        else:
+            prod = torch.matmul(win.to(acc), k32).to(l_mat.dtype)
+            rows[h].copy_(prod.view(rows.shape[1:]))
 
 
 def mec_conv2d(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
@@ -80,17 +87,19 @@ def mec_conv2d(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     row_stride = spec.s_h * k_w * i_c
     window = k_h * k_w * i_c
 
+    # The output, written in n-h-w-c; ``rows`` walks it row by row.
+    out = torch.empty((i_n, o_h, o_w, k_c), dtype=low.dtype,
+                      device=low.device)
+    rows = out.permute(1, 0, 2, 3)         # (o_h, i_n, o_w, k_c)
     if solution == "A":
         # Lines 9-19: one GEMM per output row over the whole mini-batch;
-        # the h-n-w-c intermediate (line 13) is restored to n-h-w-c.
+        # the h-n-w-c intermediate (line 13) is the output's h-major view.
         l_mat = low.reshape(i_n * o_w, i_h * k_w * i_c)
-        rows = _shifted_rows(l_mat, kernel_mat, o_h, row_stride, window)
-        out = rows.reshape(o_h, i_n, o_w, k_c)
     else:
         # Lines 21-25: per-sample GEMMs.
         l_mat = low.reshape(i_n, o_w, i_h * k_w * i_c)
-        out = _shifted_rows(l_mat, kernel_mat, o_h, row_stride, window)
-    return out.permute(1, 0, 2, 3).contiguous()
+    _shifted_rows(l_mat, kernel_mat, row_stride, window, rows)
+    return out
 
 
 def vanilla_mec(inp: torch.Tensor, kernel: torch.Tensor,
@@ -110,9 +119,11 @@ def vanilla_mec(inp: torch.Tensor, kernel: torch.Tensor,
     kernel_mat = kernel.reshape(k_h * k_w, 1)
 
     # Lines 10-12: O[h] = L[0:o_w, s_h*k_w*h : +k_h*k_w] x K
-    rows = [(l_mat[:, h * s_h * k_w:h * s_h * k_w + k_h * k_w]
-             @ kernel_mat)[:, 0] for h in range(o_h)]
-    return torch.stack(rows)  # (o_h, o_w)
+    out = inp.new_empty((o_h, low.shape[0]))
+    for h in range(o_h):
+        out[h] = (l_mat[:, h * s_h * k_w:h * s_h * k_w + k_h * k_w]
+                  @ kernel_mat)[:, 0]
+    return out
 
 
 def mec_conv1d_shift(inp: torch.Tensor, kernel: torch.Tensor,

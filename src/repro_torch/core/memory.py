@@ -45,7 +45,7 @@ def winograd_overhead(s: ConvSpec) -> int:
     return u + v + m
 
 
-def direct_overhead(s: ConvSpec) -> int:
+def direct_overhead(s: ConvSpec) -> int:  # lint-ignore: accepted-kwarg-not-forwarded
     return 0          # no temporaries; s kept for ALL_OVERHEADS uniformity
 
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List
 
 import torch
 
@@ -64,10 +65,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
+def _on_cpu(*tensors: torch.Tensor, trace: bool = False) -> bool:
     """True for CPU operands (plain version); False for CUDA operands
-    (kernel).  Raises on mixed or other devices, and where the operands'
-    promoted dtype has no kernel instance."""
+    (kernel) and, with ``trace``, for meta operands (a trace of the kernel
+    path, whose launch :func:`_launch` turns into one recorded op).
+    Raises on mixed or other devices, and where the operands' promoted
+    dtype has no kernel instance."""
     device = tensors[0].device
     for t in tensors[1:]:
         if t.device != device:
@@ -75,7 +78,7 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
                              f"{t.device}")
     if device.type == "cpu":
         return True
-    if device.type != "cuda":
+    if device.type != "cuda" and not (trace and device.type == "meta"):
         raise ValueError(f"MEC kernels run on cuda (or cpu, plain version); "
                          f"got {device}")
     dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
@@ -99,16 +102,40 @@ def _promote(inp: torch.Tensor, kernel: torch.Tensor):
     return inp.to(common), kernel.to(common)
 
 
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    """Call C entry ``fn_name`` on ``device`` and its current stream (the
-    last argument); raise on the ``cudaError_t`` it returns."""
+@torch.library.custom_op("repro_torch::kernel_call", mutates_args=("out",))
+def _kernel_call(name: str, operands: List[torch.Tensor],
+                 out: torch.Tensor) -> None:
+    """A kernel launch as a trace sees it (``analysis.numcheck``): on meta
+    tensors, where the launch computes nothing, the one op that names
+    the kernel, its operands and its output.  No CUDA path calls it."""
+    raise NotImplementedError("kernel_call stands for a launch on meta "
+                              "tensors only")
+
+
+@_kernel_call.register_fake
+def _(name, operands, out):
+    """Computes nothing: the launch's output is already allocated."""
+
+
+def _launch(wrapper, fn_name: str, operands, out: torch.Tensor,
+            *sizes) -> None:
+    """Call C entry ``fn_name`` with the pointers of ``operands`` and
+    ``out``, then ``sizes``, on ``out``'s device and its current stream;
+    raise on the ``cudaError_t`` it returns, else add one to
+    ``wrapper.launches``.  On meta tensors the launch is
+    :func:`_kernel_call`, and nothing is counted."""
+    if out.device.type == "meta":
+        _kernel_call(fn_name, list(operands), out)
+        return
     lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, stream)
+    ptrs = [t.data_ptr() for t in (*operands, out)]
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = getattr(lib, fn_name)(*ptrs, *sizes, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
                            f"({lib.mec_error_string(rc).decode()})")
+    wrapper.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -129,15 +156,14 @@ def mec_lower(inp: torch.Tensor, k_w: int, s_w: int) -> torch.Tensor:
     i_n, i_h, i_w, i_c = inp.shape
     if not (1 <= k_w <= i_w and s_w >= 1):
         raise ValueError(f"bad lowering k_w={k_w} s_w={s_w} for width {i_w}")
-    if _on_cpu(inp):
+    if _on_cpu(inp, trace=True):
         return mec_lower_plain(inp, k_w, s_w)
     inp = inp.contiguous()
     o_w = (i_w - k_w) // s_w + 1
     low = torch.empty((i_n, o_w, i_h, k_w * i_c), dtype=inp.dtype,
                       device=inp.device)
-    _launch("mec_lower", inp.device, inp.data_ptr(), low.data_ptr(),
-            _DTYPE_CODE[inp.dtype], i_n, i_h, i_w, i_c, k_w, s_w, o_w)
-    mec_lower.launches += 1
+    _launch(mec_lower, "mec_lower", (inp,), low, _DTYPE_CODE[inp.dtype],
+            i_n, i_h, i_w, i_c, k_w, s_w, o_w)
     return low
 
 
@@ -177,17 +203,16 @@ def mec_conv_fused(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
     if w_blk < 1:
         raise ValueError(f"w_blk must be >= 1, got {w_blk}")
     w_blk = min(w_blk, spec.o_w)
-    if _on_cpu(inp, kernel):
+    if _on_cpu(inp, kernel, trace=True):
         return mec_conv_fused_plain(inp, kernel, (spec.s_h, spec.s_w))
     out_dtype = inp.dtype
     inp, kernel = _promote(inp, kernel)
     inp, kernel = inp.contiguous(), kernel.contiguous()
     out = torch.empty(spec.out_shape, dtype=inp.dtype, device=inp.device)
-    _launch("mec_fused", inp.device, inp.data_ptr(), kernel.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[inp.dtype], spec.i_n, spec.i_h,
-            spec.i_w, spec.i_c, spec.k_h, spec.k_w, spec.k_c, spec.s_h,
-            spec.s_w, spec.o_h, spec.o_w, w_blk)
-    mec_conv_fused.launches += 1
+    _launch(mec_conv_fused, "mec_fused", (inp, kernel), out,
+            _DTYPE_CODE[inp.dtype], spec.i_n, spec.i_h, spec.i_w, spec.i_c,
+            spec.k_h, spec.k_w, spec.k_c, spec.s_h, spec.s_w, spec.o_h,
+            spec.o_w, w_blk)
     return out.to(out_dtype)
 
 
@@ -238,18 +263,17 @@ def mec_conv_fused2(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
         raise ValueError(f"w_blk and oh_blk must be >= 1, got {w_blk}, "
                          f"{oh_blk}")
     w_blk, oh_blk = min(w_blk, spec.o_w), min(oh_blk, spec.o_h)
-    if _on_cpu(inp, kernel):
+    if _on_cpu(inp, kernel, trace=True):
         return mec_conv_fused2_plain(inp, kernel, (spec.s_h, spec.s_w),
                                      oh_blk=oh_blk)
     out_dtype = inp.dtype
     inp, kernel = _promote(inp, kernel)
     inp, kernel = inp.contiguous(), kernel.contiguous()
     out = torch.empty(spec.out_shape, dtype=inp.dtype, device=inp.device)
-    _launch("mec_fused2", inp.device, inp.data_ptr(), kernel.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[inp.dtype], spec.i_n, spec.i_h,
-            spec.i_w, spec.i_c, spec.k_h, spec.k_w, spec.k_c, spec.s_h,
-            spec.s_w, spec.o_h, spec.o_w, w_blk, oh_blk)
-    mec_conv_fused2.launches += 1
+    _launch(mec_conv_fused2, "mec_fused2", (inp, kernel), out,
+            _DTYPE_CODE[inp.dtype], spec.i_n, spec.i_h, spec.i_w, spec.i_c,
+            spec.k_h, spec.k_w, spec.k_c, spec.s_h, spec.s_w, spec.o_h,
+            spec.o_w, w_blk, oh_blk)
     return out.to(out_dtype)
 
 
@@ -386,17 +410,16 @@ def mec_gemm(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int, s_h: int,
     i_n, o_w, i_h, kwic, k_c, o_h = _gemm_geometry(low, kernel_mat, k_h, s_h)
     if w_blk is not None and w_blk < 1:
         raise ValueError(f"w_blk must be >= 1, got {w_blk}")
-    if _on_cpu(low, kernel_mat):
+    if _on_cpu(low, kernel_mat, trace=True):
         return mec_gemm_plain(low, kernel_mat, k_h, s_h)
     core = gemm_core(low.shape, kernel_mat.shape, k_h, s_h, w_blk)
     out_dtype = low.dtype
     low, kernel_mat = _promote(low, kernel_mat)
     low, kernel_mat = low.contiguous(), kernel_mat.contiguous()
     out = torch.empty((i_n, o_h, o_w, k_c), dtype=low.dtype, device=low.device)
-    _launch("mec_gemm", low.device, low.data_ptr(), kernel_mat.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[low.dtype], i_n, o_w, i_h, kwic, k_h,
-            k_c, s_h, o_h, core["oh_blk"], core["w_blk"])
-    mec_gemm.launches += 1
+    _launch(mec_gemm, "mec_gemm", (low, kernel_mat), out,
+            _DTYPE_CODE[low.dtype], i_n, o_w, i_h, kwic, k_h, k_c, s_h, o_h,
+            core["oh_blk"], core["w_blk"])
     return out.to(out_dtype)
 
 

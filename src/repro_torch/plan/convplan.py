@@ -32,15 +32,15 @@ Where the port differs from the JAX package:
   :meth:`ConvPlan.check_executable` compares the plan with the operands'
   device, not with a process default.
 * The JAX package gates its Pallas candidates through the static checker
-  ``repro.analysis.pallas_check``; here :func:`launcher_check` asks the
-  CUDA launcher itself (``kernels.ops.launch_config``), on a CUDA device
-  only, until the analysis port (ROADMAP Queue 1 item 9).  Where the JAX
-  package's measured race skips any candidate that raises, here a kernel
-  candidate that fails (to build, launch or run) raises: only a
-  configuration the launcher refuses by design is skipped.
-  The static numeric-contract check the JAX package runs on every plan
-  (``assert_plan_numerics``) also waits for item 9, and the collective
-  contract of partitioned plans (``shardcheck``) for item 11.
+  ``repro.analysis.pallas_check``; here :func:`launcher_check` goes
+  through its counterpart, ``repro_torch.analysis.launch_check``, the
+  launcher's choices mirrored with no card, on every backend.  Where the
+  JAX package's measured race skips any candidate that raises, here a
+  kernel candidate that fails (to build, launch or run) raises: only a
+  configuration the launcher refuses by design is skipped.  Every
+  returned plan passes ``analysis.numcheck.assert_plan_numerics``, as in
+  the JAX package; the collective contract of partitioned plans
+  (``shardcheck``) waits for ROADMAP Queue 1 item 11.
 * ``partition`` other than None / "none" raises ``NotImplementedError``
   naming ROADMAP Queue 1 item 11.
 * ``precision`` keeps its three names, but every port path already
@@ -289,32 +289,28 @@ def _kernel_w_blk(spec: ConvSpec, algorithm: str) -> Optional[int]:
 
 def launcher_check(plan: ConvPlan) -> Optional[str]:
     """Why the CUDA launcher would refuse the plan's kernel configuration,
-    or None.  Only CUDA plans of a kernel path are checked, and only where
-    a card is present (the launcher sizes its configuration from the
-    device): it asks the launcher what it would run
-    (``ops.launch_config``), launching nothing.  Only a refusal by design
-    (``mec_conv.LaunchRefused``) is a reason; a failure to build or load
-    the kernels raises.  Stands in for the JAX package's
-    ``analysis.pallas_check`` (ROADMAP Queue 1 item 9)."""
-    if plan.algorithm not in _KERNEL_ALGOS or plan.backend != "cuda" \
-            or not torch.cuda.is_available():
-        return None
-    from repro_torch.kernels import mec_conv, ops
-    try:
-        ops.launch_config(_kernel_mode(plan.algorithm),
-                          getattr(torch, plan.dtype),
-                          *_spec_shapes(plan.spec), w_blk=plan.w_blk)
-    except mec_conv.LaunchRefused as e:
-        return f"launcher: {e}"
-    return None
+    or None: ``analysis.launch_check``, the launcher's choices mirrored
+    for the H100 without building or launching anything, so on the CPU
+    too.  Non-kernel plans pass."""
+    from repro_torch.analysis.launch_check import check_plan
+    result = check_plan(plan)
+    return None if result.ok else \
+        "launch_check: " + result.render().replace("\n", "; ")
 
 
 def assert_plan(plan: ConvPlan) -> None:
-    """Raise unless the launcher takes the plan (:func:`launcher_check`):
-    raising here beats faulting at execute."""
-    reason = launcher_check(plan)
-    if reason is not None:
-        raise ValueError(f"{spec_key(plan.spec)} {plan.algorithm}: {reason}")
+    """Raise ``LaunchCheckError`` (a ``ValueError``) unless the launcher
+    takes the plan: raising here beats faulting at execute."""
+    from repro_torch.analysis.launch_check import assert_plan as check
+    check(plan)
+
+
+def _assert_numerics(plan: ConvPlan) -> None:
+    """Every returned plan passes the static numeric contract of its
+    algorithm x dtype (``analysis.numcheck.assert_plan_numerics``: traced
+    on meta tensors and memoised, so planning stays cheap)."""
+    from repro_torch.analysis.numcheck import assert_plan_numerics
+    assert_plan_numerics(plan)
 
 
 def _hit_satisfies(hit: ConvPlan, precision_name: Optional[str]) -> bool:
@@ -630,6 +626,7 @@ def plan_conv2d(spec: ConvSpec, *, dtype="float32", mode: str = "analytic",
             spec, dtype, backend=backend, precision=precision_name,
             candidates=candidates, iters=iters, warmup=warmup,
             calibration=calibration)
+        _assert_numerics(plan)
         return plan
 
     from repro_torch.launch.costmodel import pick_conv2d_algorithm
@@ -640,6 +637,7 @@ def plan_conv2d(spec: ConvSpec, *, dtype="float32", mode: str = "analytic",
                     w_blk=_kernel_w_blk(spec, algorithm),
                     precision=precision_name, backend=backend, mode=mode)
     assert_plan(plan)
+    _assert_numerics(plan)
     return plan
 
 

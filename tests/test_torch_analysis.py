@@ -190,7 +190,55 @@ def test_analysis_cli_on_the_cpu(tmp_path, monkeypatch, capsys):
                               "--device", "cpu"]) == 0
     assert {r["scenario"] for r in json.loads(out.read_text())["results"]} \
         == {f"smoke/{n}" for n in ("s3x3", "s5x5", "s11x11", "w520")}
-    for suite, item in (("pallas", 9), ("lint", 9), ("numcheck", 9),
-                        ("shardcheck", 11), ("all", 9)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            analysis_cli.main(["--suite", suite, "--device", "cpu"])
+    # the suites of ROADMAP item 9 run (tests/test_torch_numcheck.py,
+    # test_torch_lint.py, test_torch_launch_check.py); shardcheck waits
+    # for item 11
+    with pytest.raises(NotImplementedError, match="item 11"):
+        analysis_cli.main(["--suite", "shardcheck", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("own,verdict", [(0, "pass"), (4096, "pass"),
+                                         (4097, "fail")])
+def test_direct_is_gated_on_its_own_bytes_beside_the_librarys(
+        monkeypatch, own, verdict):
+    """``direct`` is cuDNN's convolution: what the library allocates in
+    the one ``F.conv2d`` call (workspace, its KRSC copy of the kernel) is
+    measured apart and recorded; the 4,096 B slack holds the rest.  Every
+    other algorithm has no library field and is gated on its whole
+    bytes."""
+    library = 19_026_432
+
+    def stats(plan):
+        lib = library if plan.algorithm == "direct" else None
+        return {"temp_bytes": (lib or 0) + own, "block_bytes": 0,
+                "argument_bytes": 1,
+                "output_bytes": 1, "library_workspace_bytes": lib,
+                "source": memaudit.MEASURE_SOURCE}
+
+    monkeypatch.setattr(memaudit, "measure_plan", stats)
+    plan = ConvPlan(spec=SMALL, dtype="float32", algorithm="direct",
+                    backend="cuda")
+    rec, failures = memaudit.audit_plan("s", plan)
+    assert rec["library_workspace_bytes"] == library
+    assert rec["measured_temp_bytes"] == library + own
+    assert rec["slack_bytes"] == own and rec["verdict"] == verdict
+    assert bool(failures) == (verdict == "fail")
+    mec = dataclasses.replace(plan, algorithm="mec", solution="A")
+    rec, _ = memaudit.audit_plan("s", mec)
+    assert rec["library_workspace_bytes"] is None
+    assert rec["measured_temp_bytes"] == own
+
+
+def test_library_bytes_are_the_operands_direct_hands_cudnn():
+    """The auditor's bare library call and ``direct_conv2d`` hand
+    ``F.conv2d`` the same operands: the NHWC input as a channels-last
+    view (no copy) and the HWIO kernel as an OIHW view."""
+    from repro_torch.core.direct import cudnn_operands, direct_conv2d
+    x = torch.randn(2, 7, 9, 3)
+    k = torch.randn(3, 3, 3, 5)
+    xv, kv = cudnn_operands(x, k)
+    assert xv.data_ptr() == x.data_ptr() and kv.data_ptr() == k.data_ptr()
+    assert xv.is_contiguous(memory_format=torch.channels_last)
+    y = torch.nn.functional.conv2d(xv, kv)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y.permute(0, 2, 3, 1), direct_conv2d(x, k))

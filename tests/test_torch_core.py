@@ -326,3 +326,101 @@ def test_port_sources_never_import_jax_or_repro():
                                             "import repro ", "import repro.",
                                             "from repro.", "from repro ")), \
                 (path, line)
+
+
+# ---------------------------------------------------------------------------
+# F6: the plain paths' memory repaired, the same function as before
+# ---------------------------------------------------------------------------
+
+def _stacked_mec(inp, kernel, stride, solution):
+    """The plain MEC before F6's repair: every row's product kept in a
+    list, ``torch.stack``, then the n-h-w-c copy."""
+    from repro_torch.core.direct import accum_dtype
+    from repro_torch.core.mec import mec_lower
+    spec = tspec.spec_of(inp, kernel, stride)
+    low = mec_lower(inp, spec.k_w, spec.s_w)
+    kmat = kernel.reshape(spec.k_h * spec.k_w * spec.i_c, spec.k_c) \
+        .to(low.dtype)
+    rs, win = spec.s_h * spec.k_w * spec.i_c, spec.k_h * spec.k_w * spec.i_c
+    if solution == "A":
+        l_mat = low.reshape(spec.i_n * spec.o_w, -1)
+    else:
+        l_mat = low.reshape(spec.i_n, spec.o_w, -1)
+    acc = accum_dtype(l_mat.dtype)
+    rows = [torch.matmul(l_mat[..., h * rs:h * rs + win].to(acc),
+                         kmat.to(acc)).to(l_mat.dtype)
+            for h in range(spec.o_h)]
+    out = torch.stack(rows).reshape(spec.o_h, spec.i_n, spec.o_w, spec.k_c)
+    return out.permute(1, 0, 2, 3).contiguous()
+
+
+def _old_im2col(inp, kernel, stride):
+    from repro_torch.core.direct import accum_dtype
+    spec = tspec.spec_of(inp, kernel, stride)
+    win = inp.unfold(1, spec.k_h, spec.s_h).unfold(2, spec.k_w, spec.s_w)
+    low = win.permute(0, 1, 2, 4, 5, 3).reshape(
+        spec.i_n * spec.o_h * spec.o_w, -1)
+    acc = accum_dtype(low.dtype)
+    kmat = kernel.reshape(-1, spec.k_c)
+    out = torch.matmul(low.to(acc), kmat.to(low.dtype).to(acc))
+    return out.to(low.dtype).reshape(spec.out_shape)
+
+
+def _old_direct(inp, kernel, stride):
+    from repro_torch.core.direct import accum_dtype
+    acc = accum_dtype(inp.dtype)
+    y = torch.nn.functional.conv2d(inp.permute(0, 3, 1, 2).to(acc),
+                                   kernel.permute(3, 2, 0, 1).to(acc),
+                                   stride=tspec.normalize_stride(stride))
+    return y.permute(0, 2, 3, 1).to(inp.dtype).contiguous()
+
+
+@pytest.mark.parametrize("geom", ALGO_GEOMS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_f6_repaired_paths_give_the_old_formulas_bits(geom, dtype):
+    """The plain MEC writes each row into the output in place, with the
+    same products in the same order: equal bits to the stacked formula.
+    im2col and direct compute exactly what they did."""
+    n, ih, iw, ic, kh, kw, kc, s = geom
+    _, tx = _pair(_rand((n, ih, iw, ic), 5), dtype)
+    _, tk = _pair(_rand((kh, kw, ic, kc), 6), dtype)
+    stride = s if isinstance(s, int) else tuple(s)
+    for sol in ("A", "B"):
+        assert torch.equal(mec_conv2d(tx, tk, stride, solution=sol),
+                           _stacked_mec(tx, tk, stride, sol)), sol
+    assert torch.equal(im2col_conv2d(tx, tk, stride),
+                       _old_im2col(tx, tk, stride))
+    assert torch.equal(direct_conv2d(tx, tk, stride),
+                       _old_direct(tx, tk, stride))
+    assert mec_conv2d(tx, tk, stride).is_contiguous()
+
+
+# odd output sizes (Winograd's last tile past the input), fewer input
+# channels than FFT blocks (RGB, the blocks split the output channels),
+# batches and strides
+F6_GEOMS = [(1, 9, 11, 3, 3, 3, 16, 1), (3, 8, 10, 2, 3, 3, 5, 1),
+            (2, 13, 12, 17, 3, 3, 9, 1), (1, 16, 15, 4, 5, 3, 3, 2),
+            (2, 12, 14, 1, 3, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("geom", F6_GEOMS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_f6_fft_and_winograd_match_jax(geom, dtype):
+    from repro.core.fft_conv import fft_conv2d as j_fft
+    from repro.core.winograd import winograd_conv2d as j_wino
+
+    from repro_torch.core.fft_conv import fft_conv2d
+    from repro_torch.core.winograd import winograd_conv2d
+    n, ih, iw, ic, kh, kw, kc, s = geom
+    jx, tx = _pair(_rand((n, ih, iw, ic), 7), dtype)
+    jk, tk = _pair(_rand((kh, kw, ic, kc), 8) * (kh * kw * ic) ** -0.5, dtype)
+    cases = {"fft": (fft_conv2d(tx, tk, s), j_fft(jx, jk, s))}
+    if (kh, kw, s) == (3, 3, 1):
+        cases["winograd"] = (winograd_conv2d(tx, tk), j_wino(jx, jk))
+    for alg, (t_out, j_out) in cases.items():
+        tol = 2 * tnum.fwd_tolerance(alg, dtype, kh * kw * ic)
+        assert tuple(t_out.shape) == j_out.shape and \
+            t_out.dtype == DTYPES[dtype][2], alg
+        assert t_out.is_contiguous()
+        err = _err(t_out, j_out)
+        assert err <= tol, (alg, err, tol)

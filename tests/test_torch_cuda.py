@@ -954,3 +954,72 @@ def test_bench_cli_on_the_card(cuda, tmp_path):
     doc = json.loads((tmp_path / "BENCH_torch_smoke.json").read_text())
     assert validate_report(doc) == []
     assert doc["environment"]["backend"] == "cuda"
+
+
+def test_memaudit_plain_cells_pass_on_the_card(cuda):
+    """Fault F6, repaired: on the smoke plans built on the card every
+    plain-PyTorch cell is inside the JAX package's band (``direct`` on its
+    own bytes, cuDNN's apart), and the plain MEC stays below im2col.
+    Paired with ``tests/test_torch_analysis.py``'s gate tests on the
+    CPU."""
+    from repro_torch.analysis import memaudit
+    from repro_torch.plan.__main__ import build_plans
+    plans = memaudit.plans_of(build_plans(["smoke"]))
+    doc, failures = memaudit.run_audit(plans=plans)
+    assert failures == []
+    plain = [r for r in doc["results"]
+             if r["algorithm"] not in memaudit.KERNEL_ALGORITHMS]
+    assert plain and all(r["policy"] == "gated" and r["verdict"] == "pass"
+                         for r in plain), plain
+    direct = [r for r in plain if r["algorithm"] == "direct"]
+    assert all(r["library_workspace_bytes"] is not None for r in direct)
+    assert all(c["ok"] == "yes" for c in doc["crosscheck"])
+
+
+# geometries the chip smoke launches, in small: the sweep, F1's, and a
+# Table-3 layer at batch 16; then one no launcher takes (a 33 x 33 kernel)
+LAUNCH_GEOMS = [(2,) + g[:7] for g in GEOMS] + [
+    (2, 7, 7, 3, 7, 7, 5, 1), (2, 8, 8, 3, 2, 2, 5, 3),
+    (16, 14, 14, 256, 3, 3, 256, 1), (1, 40, 120, 32, 33, 33, 64, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_check_equals_the_launcher_on_the_card(cuda, dtype):
+    """The static mirror (``analysis.launch_check``) gives the launcher's
+    own fields (``mec_conv.fused_config``) on every geometry, and refuses
+    what it refuses.  Paired with ``tests/test_torch_launch_check.py``,
+    which holds it to the launcher's source compiled for the host."""
+    from repro_torch.analysis import launch_check as LC
+    from repro_torch.core.convspec import ConvSpec
+    both_refused = 0
+    for n, ih, iw, ic, kh, kw, kc, s in LAUNCH_GEOMS:
+        s_h, s_w = (s, s) if isinstance(s, int) else s
+        spec = ConvSpec(n, ih, iw, ic, kh, kw, kc, s_h, s_w)
+        for alg in LC.KERNEL_ALGORITHMS:
+            mode = alg[len("mec_"):]
+            try:
+                want = ops.launch_config(mode, getattr(torch, dtype),
+                                         (n, ih, iw, ic), (kh, kw, ic, kc),
+                                         (s_h, s_w))
+            except K.LaunchRefused:
+                want = None
+            got = LC.launcher_fields(alg, dtype, spec, None)
+            assert got == want, (spec, alg)
+            both_refused += got is None
+    assert both_refused >= 3
+
+
+@pytest.mark.parametrize("algorithm", ["mec_fused", "mec_fused2",
+                                       "mec_lowered"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_numcheck_on_the_kernel_paths_on_the_card(cuda, algorithm, dtype):
+    """The kernel paths' numeric contract on the card: the static trace
+    and the error probe, forward and both gradients, at cv11's width at
+    batch 16 against an f64 oracle on the card.  Paired with
+    ``tests/test_torch_numcheck.py`` (the plain versions on the CPU)."""
+    from repro_torch.analysis import numcheck as N
+    from repro_torch.core.convspec import ConvSpec
+    chk = N.check_numerics(ConvSpec(16, 14, 14, 256, 3, 3, 256), algorithm,
+                           dtype, device="cuda", oracle="torch", scaled=True)
+    assert chk.ok, chk.render()
+    assert chk.record["probe"]["device"] == "cuda"

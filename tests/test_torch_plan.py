@@ -520,22 +520,25 @@ def test_stage2_grids_the_winners_knob(algorithm):
 
 
 def test_launcher_check_gates_only_cuda_kernel_plans(monkeypatch):
+    """The gate is the static launch check (``analysis.launch_check``): it
+    passes a geometry the launcher takes and every non-kernel plan, and
+    refuses, with the check's reason, a kernel plan the launcher would
+    refuse, on either backend and with no card."""
     spec = ConvSpec(1, 8, 8, 2, 3, 3, 4)
+    refused = ConvSpec(1, 40, 160, 32, 33, 33, 8)  # no ring fits the opt-in
     assert convplan.launcher_check(_plan_for(spec, "mec_fused")) is None
     assert convplan.launcher_check(_plan_for(spec, "direct", "cuda")) is None
-
-    def refuse(*a, **kw):
-        raise K.LaunchRefused("mec_fused_config: configuration refused "
-                              "(invalid argument)")
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(K, "fused_config", refuse)
-    monkeypatch.setattr(K, "gemm_config", refuse)
-    for alg in convplan._KERNEL_ALGOS:
-        reason = convplan.launcher_check(_plan_for(spec, alg, "cuda"))
-        assert reason.startswith("launcher: mec_fused_config")
-        with pytest.raises(ValueError, match="launcher"):
-            convplan.assert_plan(_plan_for(spec, alg, "cuda"))
+    assert convplan.launcher_check(_plan_for(refused, "direct", "cuda")) \
+        is None
+    for backend in ("cpu", "cuda"):
+        for alg in convplan._KERNEL_ALGOS:
+            assert convplan.launcher_check(_plan_for(spec, alg, backend)) \
+                is None
+            reason = convplan.launcher_check(_plan_for(refused, alg, backend))
+            assert reason.startswith("launch_check: ") and \
+                "smem-budget-overrun" in reason
+            with pytest.raises(ValueError, match="launch check"):
+                convplan.assert_plan(_plan_for(refused, alg, backend))
 
 
 def _build_failure(*a, **kw):
@@ -544,13 +547,15 @@ def _build_failure(*a, **kw):
 
 @pytest.mark.parametrize("algorithm", convplan._KERNEL_ALGOS)
 def test_launcher_check_raises_on_a_build_failure(monkeypatch, algorithm):
-    """A kernel that does not build is no refusal: the gate raises, it
-    does not turn the fault into a reason to skip."""
+    """The gate builds nothing and loads nothing: a kernel library that
+    would fail to build does not reach it (the executor's first launch
+    raises instead, ``test_measured_race_raises_when_a_kernel_fails``)."""
     spec = ConvSpec(1, 8, 8, 2, 3, 3, 4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(K, "_lib", _build_failure)
+    assert convplan.launcher_check(_plan_for(spec, algorithm, "cuda")) is None
     with pytest.raises(RuntimeError, match="build failed"):
-        convplan.launcher_check(_plan_for(spec, algorithm, "cuda"))
+        K._lib()
 
 
 # the wrapper each kernel path reaches first, by the name ops calls it by
