@@ -97,6 +97,31 @@ the script exits non-zero without its last line:
              16-byte vectors.
              Memory: one K5 call allocates its output and nothing else,
              the lowered conv1d L plus the output.
+6b. serve_conv - plan-driven conv serving (``repro_torch.serving``): the
+             whisper mel frontend at whisper-tiny's width (80 mels -> 384,
+             f32) as two ConvServices over the classes 4x1000x1, 4x2000x1
+             and 4x3000x1, warmed through the plan cache (K1 on the card,
+             each class executor a captured CUDA graph), then a fixed
+             stream of 24 mels mixing n in {1, 2, 4} and T in {700 ..
+             3000}; the patch embed at llava-next-34b's width (3 -> 7168,
+             patch 4, classes 4x224x224 and 4x336x336, prefix 2880).  Every
+             answer equals the eager ``conv2d(plan=)`` of its padded class
+             input to the bit and the f64 oracle within the f32 contract;
+             no warm-up warning and no plan-cache I/O error; launches read
+             around the warm-up and the stream.  Per class the warm and
+             ``auto`` p50/p99; every candidate of the measured race on the
+             two whisper layers at 4x3000x1, beside K1's plain version and
+             bound.  Then the bench ``serve`` suite, which must pass
+             ``bench.check`` against ``benchmarks/baselines/serve.json`` on
+             the exact fields.
+6c. serve_whisper - ``python -m repro_torch.launch.serve --arch
+             whisper-tiny --warm-plans``, then the same through ``serve()``:
+             published widths, full depth (4 + 4 layers), bf16, seeded
+             random weights, batch 4, mel 3000 frames through the warmed
+             frontend (4 K1 launches: eager and captured per layer), prompt
+             32, 32 greedy tokens; decode against a prefill of the extended
+             sequence (gated in f32 at 2e-2, reported in bf16); one
+             prefill traced for device time and idle share.
 7. timing  - each conv2d kernel at each Table-3 layer, batch 1 and 16,
              with CUDA events (median of 15 after 3 warm-up calls),
              beside its plain version, one library call and its bound.
@@ -197,6 +222,26 @@ LOGITS_TOL = 2e-2            # tests/test_archs.py test_decode_matches_prefill
 IN_PROJ, CONV_LO, CONV_HI = 14576, 7168, 14464
 # configs/shapes.py long_500k: zamba2-7b at t = 524288
 LONG_T, LONG_WINDOW = 524288, 4096
+# plan-driven conv serving (phase 6b): the whisper mel frontend at
+# whisper-tiny's width as two ConvServices over three time classes, a
+# fixed stream of mixed (n, T) requests; the llava-next-34b patch embed
+# (3 -> 7168, patch 4) over two image classes
+WHISPER_ARCH = "whisper-tiny"
+N_MELS = 80
+WHISPER_CLASSES = ((4, 1000, 1), (4, 2000, 1), (4, 3000, 1))
+WHISPER_STREAM_N, WHISPER_STREAM_T = (1, 2, 4), (700, 1000, 1500, 2000,
+                                                 2600, 3000)
+WHISPER_REQUESTS = 24
+PATCH_ARCH, PATCH, PATCH_IN = "llava-next-34b", 4, 3
+PATCH_CLASSES = ((4, 224, 224), (4, 336, 336))
+PATCH_STREAM = ((1, 224, 224), (2, 196, 210), (4, 224, 224), (1, 336, 336),
+                (2, 300, 280), (4, 336, 336))
+PATCH_REQUESTS = 12
+SERVE_BASELINE = "benchmarks/baselines/serve.json"
+# whisper-tiny served (phase 6c): batch, mel frames, prompt, generated
+# tokens; decode against prefill from this many prompt tokens
+WHISPER_BATCH, WHISPER_MEL_T, WHISPER_PROMPT, WHISPER_GEN = 4, 3000, 32, 32
+WHISPER_DECODE_FROM = 16
 SLICE_BATCH = 16
 # repro_torch.examples.train_cnn at its defaults (200 steps) through K4.
 TRAIN_ARGS = ["--algorithm", "mec_fused2"]
@@ -906,6 +951,374 @@ def examples_phase(tol_of) -> dict:
     return launches
 
 
+def conv_bound_ms(spec, es: int, peak_tf32: float, peak_bw: float):
+    """(ms, by) of a conv's bound on the card: its multiply-adds as three
+    TF32 tensor-core products each (K1's own f32 arithmetic) against its
+    bytes (input, kernel and output once each)."""
+    from repro_torch.core import memory
+    n_in = spec.i_n * spec.i_h * spec.i_w * spec.i_c
+    n_k = spec.k_h * spec.k_w * spec.i_c * spec.k_c
+    t_ops = TF32_PRODUCTS * memory.conv_flops(spec) / peak_tf32
+    t_bytes = (n_in + n_k + math.prod(spec.out_shape)) * es / peak_bw
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def served_checks(svc, x, got, tol_of) -> float:
+    """A served answer against the eager ``conv2d(plan=)`` of the request's
+    padded class input (equal bits: the replay runs the same kernel) and
+    against the f64 oracle of the request itself (within the plan's f32
+    contract).  Returns the scaled error against the oracle."""
+    from repro_torch.core.conv_api import apply_padding, conv2d
+    from repro_torch.kernels import ref
+    cls = svc.bucket(x.shape)
+    plan = svc.plans[cls]
+    o_n, o_h, o_w, _ = svc.request_out_shape(x.shape)
+    with torch.no_grad():
+        eager = conv2d(svc.pad_to_class(x, cls), svc.kernel, stride=svc.stride,
+                       padding=svc.padding, plan=plan)[:o_n, :o_h, :o_w]
+    check(tuple(got.shape) == tuple(eager.shape) and torch.equal(got, eager),
+          f"served {tuple(x.shape)} in class {cls.tag()}: the graph replay "
+          f"differs from the eager conv2d(plan=)")
+    k_h, k_w, i_c, _ = svc.kernel.shape
+    oracle = ref.conv2d_f64(apply_padding(x, k_h, k_w, *svc.stride, svc.padding),
+                            svc.kernel, svc.stride)
+    err = ref.scaled_error(got, oracle)
+    tol = tol_of(plan.algorithm, "float32", k_h * k_w * i_c)
+    check(math.isfinite(err) and err <= tol,
+          f"served {tuple(x.shape)} in class {cls.tag()}: error {err} vs f64 "
+          f"> tol {tol}")
+    return err
+
+
+def class_latencies(svc, reqs) -> dict:
+    """Per class of ``svc``: p50 and p99 (us) of the warm service and of
+    eager ``conv2d(algorithm="auto")``, host clock, device synchronised."""
+    from repro_torch.bench.harness import serve_latencies
+    out = {}
+    for mode in ("warm", "auto"):
+        per_class, _ = serve_latencies(svc, reqs, mode)
+        for cls, lat in per_class.items():
+            if lat:
+                out.setdefault(cls.tag(), {})[mode] = {
+                    "n": len(lat), "p50_us": statistics.median(lat),
+                    "p99_us": float(sorted(lat)[max(0, math.ceil(0.99 * len(lat)) - 1)])}
+    return out
+
+
+def serve_conv_phase(seed: int, tol_of, peak_tf32: float, peak_bw: float) -> dict:
+    """Plan-driven conv serving on the card (phase 6b).  (a) The whisper
+    mel frontend at whisper-tiny's width (80 mels -> 384, f32) as two
+    ConvServices over WHISPER_CLASSES, warmed through the plan cache
+    (K1, the cached policy's pick on the card) and driven by a fixed
+    stream of mixed (n, T) mels; (b) the patch embed at llava-next-34b's
+    width over PATCH_CLASSES.  Counts are read around the warm-up and the
+    stream alone.  Then every answer against the eager planned conv (equal
+    bits) and the f64 oracle, warm and auto latencies per class, and every
+    candidate timed on the whisper layers' largest class by the measured
+    planner.  (c) The bench ``serve`` suite, gated by ``bench.check``
+    against the JAX package's baseline.  Returns the launches of each
+    part and the K1 timings for the kernels line."""
+    import numpy as np
+    from repro_torch.bench import check as bench_check
+    from repro_torch.bench.harness import run_serve
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels import mec_conv as K
+    from repro_torch.plan import global_plan_cache, tune_measured
+    from repro_torch.serving import patch_embed_service, whisper_frontend_service
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 20)
+    d_model = ARCHS[WHISPER_ARCH].d_model
+    rng = np.random.RandomState(seed)
+    shapes = [(WHISPER_STREAM_N[(i // len(WHISPER_STREAM_T) + i) % 3],
+               WHISPER_STREAM_T[i % len(WHISPER_STREAM_T)])
+              for i in range(WHISPER_REQUESTS)]
+    shapes = [shapes[i] for i in rng.permutation(len(shapes))]
+    mels = [torch.randn((n, t, N_MELS), generator=gen, device=DEVICE)
+            for n, t in shapes]
+    io_before = global_plan_cache().io_errors
+    torch.cuda.synchronize()
+
+    # (a) the whisper frontend: warm-up and the stream, counted
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    frontend, (svc1, svc2) = whisper_frontend_service(
+        gen, N_MELS, d_model, WHISPER_CLASSES, device=DEVICE)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = []
+    for mel in mels:
+        x1 = mel[:, :, None, :]
+        y1 = svc1(x1)
+        h = F.gelu(y1, approximate="tanh")
+        y2 = svc2(h)
+        served.append((x1, y1, h, y2))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    whisper_launches = K.launch_counts()
+    replays = {f"conv{i + 1}": {c.tag(): n for c, n in svc.replays.items()}
+               for i, svc in enumerate((svc1, svc2))}
+    for svc in (svc1, svc2):
+        check(svc.warmup.warning_count == 0 and svc.warmup.plan_cache_io_errors == 0,
+              f"whisper frontend warm-up: {svc.warmup.summary()}")
+        check(all(p.algorithm == "mec_fused" for p in svc.plans.values()),
+              f"whisper frontend plans {[p.algorithm for p in svc.plans.values()]}: "
+              "not K1")
+    check(whisper_launches == {"mec_conv_fused": 2 * 2 * len(WHISPER_CLASSES),
+                               "mec_lower": 0, "mec_gemm": 0, "mec_conv_fused2": 0},
+          f"whisper frontend launched {whisper_launches}: K1 once eagerly and "
+          f"once captured per class and layer")
+    check(sum(sum(r.values()) for r in replays.values()) == 2 * WHISPER_REQUESTS,
+          f"whisper frontend replays {replays}")
+    errs = {"conv1": 0.0, "conv2": 0.0}
+    for x1, y1, h, y2 in served:
+        errs["conv1"] = max(errs["conv1"], served_checks(svc1, x1, y1, tol_of))
+        errs["conv2"] = max(errs["conv2"], served_checks(svc2, h, y2, tol_of))
+    frames = frontend(mels[0])
+    check(torch.equal(frames, F.gelu(served[0][3], approximate="tanh")[:, :, 0, :]),
+          "the whisper frontend differs from its services' answers")
+    lat = {"conv1": class_latencies(svc1, [s[0] for s in served]),
+           "conv2": class_latencies(svc2, [s[2] for s in served])}
+
+    # every candidate on the largest class of each layer, measured
+    cls = max(WHISPER_CLASSES)
+    measured, k1_ms = {}, {}
+    for name, svc in (("conv1", svc1), ("conv2", svc2)):
+        spec = svc.class_spec(shape_class(cls))
+        plan, detail = tune_measured(spec, "float32", backend=DEVICE,
+                                     iters=PLAN_ITERS, warmup=PLAN_WARMUP)
+        check("mec_fused" in detail["candidate_us"] and not any(
+            a in detail["skipped"] for a in PLAN_KERNEL_ALGOS),
+              f"whisper {name}: kernel candidates skipped {detail['skipped']}")
+        b_ms, b_by = conv_bound_ms(spec, 4, peak_tf32, peak_bw)
+        x = torch.randn((spec.i_n, spec.i_h, spec.i_w, spec.i_c), generator=gen,
+                        device=DEVICE)
+        plain_ms = time_ms(lambda: K.mec_conv_fused_plain(x, svc.kernel,
+                                                          svc.stride))
+        del x
+        measured[name] = {"spec": str(spec), "candidate_us": detail["candidate_us"],
+                          "spread": {a: s.get("us_rel_spread") for a, s in
+                                     detail["candidate_stats"].items()},
+                          "skipped": detail["skipped"],
+                          "measured_pick": plan.algorithm,
+                          "measured_w_blk": plan.w_blk,
+                          "k1_plain_ms": plain_ms,
+                          "served_plan": svc.plans[shape_class(cls)].algorithm,
+                          "served_w_blk": svc.plans[shape_class(cls)].w_blk,
+                          "bound_ms": b_ms, "bound_by": b_by}
+        k1_ms[name] = {"ms": detail["candidate_us"]["mec_fused"] / 1e3,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": detail["candidate_us"].get("direct", 0) / 1e3}
+    emit({"phase": "serve_conv", "part": "whisper_frontend", "d_model": d_model,
+          "classes": [c.tag() for c in svc1.classes], "requests": len(shapes),
+          "request_shapes": shapes, "warm_seconds": round(warm_s, 4),
+          "stream_seconds": round(stream_s, 4), "launches": whisper_launches,
+          "replays": replays, "max_scaled_err_vs_f64": errs,
+          "plans": {f"conv{i + 1}": {c.tag(): [p.algorithm, p.w_blk]
+                                     for c, p in svc.plans.items()}
+                    for i, svc in enumerate((svc1, svc2))},
+          "latency_us": lat, "measured": measured})
+    del served, frontend, svc1, svc2, mels, frames
+    torch.cuda.empty_cache()
+
+    # (b) the patch embed at llava-next-34b's width
+    d_vlm, prefix = ARCHS[PATCH_ARCH].d_model, ARCHS[PATCH_ARCH].prefix_len
+    images = [torch.randn((n, hh, ww, PATCH_IN), generator=gen, device=DEVICE)
+              for n, hh, ww in PATCH_STREAM]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    pfront, psvc = patch_embed_service(gen, PATCH_IN, d_vlm, PATCH, PATCH_CLASSES,
+                                       prefix, device=DEVICE)
+    torch.cuda.synchronize()
+    pwarm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    answers = [psvc(images[i % len(images)]) for i in range(PATCH_REQUESTS)]
+    torch.cuda.synchronize()
+    pstream_s = time.perf_counter() - t0
+    patch_launches = K.launch_counts()
+    check(psvc.warmup.warning_count == 0 and psvc.warmup.plan_cache_io_errors == 0,
+          f"patch embed warm-up: {psvc.warmup.summary()}")
+    check(patch_launches == {"mec_conv_fused": 2 * len(PATCH_CLASSES),
+                             "mec_lower": 0, "mec_gemm": 0, "mec_conv_fused2": 0},
+          f"patch embed launched {patch_launches}")
+    perr = 0.0
+    for img, ans in zip(images, answers):
+        perr = max(perr, served_checks(psvc, img, ans, tol_of))
+    del answers
+    tokens = pfront(images[0])
+    check(tuple(tokens.shape) == (PATCH_STREAM[0][0], prefix, d_vlm)
+          and bool(torch.isfinite(tokens).all()),
+          f"patch embed tokens {tuple(tokens.shape)}")
+    del tokens
+    plat = class_latencies(psvc, images)
+    emit({"phase": "serve_conv", "part": "patch_embed", "d_model": d_vlm,
+          "patch": PATCH, "prefix_len": prefix,
+          "classes": [c.tag() for c in psvc.classes], "requests": PATCH_REQUESTS,
+          "warm_seconds": round(pwarm_s, 4), "stream_seconds": round(pstream_s, 4),
+          "launches": patch_launches,
+          "replays": {c.tag(): n for c, n in psvc.replays.items()},
+          "max_scaled_err_vs_f64": perr,
+          "plans": {c.tag(): [p.algorithm, p.w_blk] for c, p in psvc.plans.items()},
+          "latency_us": plat})
+    del pfront, psvc, images
+    torch.cuda.empty_cache()
+
+    # (c) the bench serve suite, checked against the JAX package's baseline
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    doc = run_serve(device=DEVICE)
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    bench_launches = K.launch_counts()
+    failures, _ = bench_check.compare(
+        doc, json.loads((ROOT / SERVE_BASELINE).read_text()),
+        schema_only_on_timing=True)
+    check(not failures, f"bench serve against {SERVE_BASELINE}: {failures}")
+    check(all(r["warmup_warnings"] == 0 and r["plan_cache_io_errors"] == 0
+              for r in doc["results"]), "bench serve: warm-up warnings")
+    check(bench_launches["mec_conv_fused"] > 0,
+          f"bench serve launched {bench_launches}")
+    io_errors = global_plan_cache().io_errors - io_before
+    check(io_errors == 0, f"plan cache I/O errors in the serve phase: {io_errors}")
+    by = {}
+    for r in doc["results"]:
+        by.setdefault(r["scenario"], {})[r["serve_mode"]] = [
+            r["p50_us"], r["p99_us"], r["first_request_us"]]
+    emit({"phase": "serve_conv", "part": "bench_serve", "seconds": round(bench_s, 3),
+          "records": len(doc["results"]), "check": "ok",
+          "p50_p99_first_us": by, "launches": bench_launches,
+          "plan_cache_io_errors": io_errors,
+          "phase_seconds": round(time.perf_counter() - t_phase, 3)})
+    return {"whisper": whisper_launches, "patch": patch_launches,
+            "bench": bench_launches, "whisper_k1": k1_ms}
+
+
+def shape_class(cls):
+    from repro_torch.serving import ShapeClass
+    return ShapeClass(*cls)
+
+
+def serve_whisper_phase(seed: int) -> dict:
+    """whisper-tiny served on the card (phase 6c) at its published widths
+    and full depth (4 + 4 layers), bf16, seeded random weights:
+    ``python -m repro_torch.launch.serve --arch whisper-tiny --warm-plans``
+    (its output to stderr), then the same through ``serve()`` with the
+    counts read around it: the mel (batch 4, 3000 frames) through the
+    warmed frontend (K1 on the card), ``fit_prefix`` to encoder_len, the
+    encoder, a prefill of 32 tokens and 32 greedy tokens.  Decode against a
+    prefill of the extended sequence (gated in f32, reported in bf16), and
+    one prefill traced for device time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels import mec_conv as K
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm as lm_mod, serve as serve_lib
+    from repro_torch.models.layers import f32_accumulation
+    from repro_torch.serving import fit_prefix
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[WHISPER_ARCH]
+    with contextlib.redirect_stdout(sys.stderr):
+        cli = launch_serve.main(["--arch", WHISPER_ARCH, "--warm-plans",
+                                 "--batch", str(WHISPER_BATCH),
+                                 "--prompt-len", str(WHISPER_PROMPT),
+                                 "--gen", str(WHISPER_GEN)])
+    check(tuple(cli.shape) == (WHISPER_BATCH, WHISPER_GEN),
+          f"the whisper-tiny CLI served {tuple(cli.shape)}")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    res = launch_serve.serve(cfg, batch=WHISPER_BATCH, prompt_len=WHISPER_PROMPT,
+                             gen=WHISPER_GEN, device=DEVICE, seed=seed,
+                             warm_plans=True)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    check(launches == {"mec_conv_fused": 4, "mec_lower": 0, "mec_gemm": 0,
+                       "mec_conv_fused2": 0},
+          f"whisper-tiny served with {launches}: K1 once eagerly and once "
+          "captured per frontend layer")
+    check([r.warning_count for r in res["warmup"]] == [0, 0]
+          and [r.plan_cache_io_errors for r in res["warmup"]] == [0, 0],
+          f"whisper-tiny warm-up: {[r.summary() for r in res['warmup']]}")
+    check([[p.algorithm for p in r.plans.values()] for r in res["warmup"]]
+          == [["mec_fused"], ["mec_fused"]], "whisper-tiny frontend not on K1")
+    toks = res["tokens"]
+    check(tuple(toks.shape) == (WHISPER_BATCH, WHISPER_GEN)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          f"whisper-tiny tokens {tuple(toks.shape)}")
+    check(bool(torch.isfinite(res["prefill_logits"]).all())
+          and bool(torch.isfinite(res["logits"]).all()),
+          "whisper-tiny logits are not finite")
+
+    # decode against a prefill of the extended sequence, and the profile
+    decode, prof_out = {}, None
+    for dname in ("float32", "bfloat16"):
+        dcfg = cfg.with_(dtype=dname)
+        model = lm_mod.LM(dcfg)
+        with torch.inference_mode(), f32_accumulation():
+            frontend, _ = launch_serve.warm_frontend(
+                dcfg, launch_serve.default_shape_classes(dcfg, WHISPER_BATCH),
+                seed, DEVICE)
+            params = launch_serve.init_params(dcfg, seed, DEVICE)
+            prompt = launch_serve.make_prompt(dcfg, WHISPER_BATCH, WHISPER_PROMPT,
+                                              seed, DEVICE)
+            g = torch.Generator(device=DEVICE)
+            g.manual_seed(seed + 4)
+            mel = torch.randn((WHISPER_BATCH, WHISPER_MEL_T, N_MELS), generator=g,
+                              device=DEVICE)
+            frames = fit_prefix(frontend(mel), dcfg.encoder_len)
+            full, _ = serve_lib.prefill(model, params, {"tokens": prompt,
+                                                        "frames": frames},
+                                        WHISPER_PROMPT)
+            _, cache = serve_lib.prefill(
+                model, params, {"tokens": prompt[:, :WHISPER_DECODE_FROM],
+                                "frames": frames}, WHISPER_PROMPT)
+            for i in range(WHISPER_DECODE_FROM, WHISPER_PROMPT):
+                logits, cache = serve_lib.decode_step(model, params, cache,
+                                                      prompt[:, i:i + 1])
+            decode[dname] = scaled_err(logits, full)
+            if dname == "float32":
+                check(decode[dname] <= LOGITS_TOL,
+                      f"whisper-tiny decode vs prefill, f32: {decode[dname]} "
+                      f"> {LOGITS_TOL}")
+                continue
+            served_err = scaled_err(full, res["prefill_logits"])
+            check(served_err <= LOGITS_TOL,
+                  f"whisper-tiny serve() and a prefill of the same inputs: "
+                  f"{served_err}")
+            inputs = {"tokens": prompt, "frames": frames}
+            max_len = WHISPER_PROMPT + WHISPER_GEN
+            serve_lib.prefill(model, params, inputs, max_len)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                serve_lib.prefill(model, params, inputs, max_len)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            prof_out = device_breakdown(prof, wall, top=8)
+        del params, frames, cache, full
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_whisper", "arch": WHISPER_ARCH, "dtype": cfg.dtype,
+          "layers": {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers},
+          "d_model": cfg.d_model, "heads": cfg.n_heads, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab, "encoder_len": cfg.encoder_len,
+          "params": cfg.param_count(), "batch": WHISPER_BATCH,
+          "mel_frames": WHISPER_MEL_T, "prompt": WHISPER_PROMPT,
+          "generated": WHISPER_GEN, "frontend_launches": launches,
+          "warm_seconds": res["warm_s"], "frontend_seconds": res["frontend_s"],
+          "prefill_seconds": res["prefill_s"], "decode_seconds": res["decode_s"],
+          "decode_tokens_per_s": res["decode_tokens_per_s"],
+          "decode_vs_prefill": decode, "serve_vs_prefill_err": served_err,
+          "prefill_profile": prof_out,
+          "phase_seconds": round(time.perf_counter() - t_phase, 3)})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1451,6 +1864,12 @@ def main(argv=None) -> int:
                      "fused_extra_bytes": extra["fused"],
                      "lowered_extra_bytes": extra["lowered"]}})
 
+    # 6b. serve_conv: plan-driven conv serving --------------------------------
+    serve_conv = serve_conv_phase(args.seed, fwd_tolerance, peak_tf32, peak_bw)
+
+    # 6c. serve_whisper: whisper-tiny through the warmed frontend ------------
+    whisper_launches = serve_whisper_phase(args.seed)
+
     # 7. timing ------------------------------------------------------------
     def bound(flops, nbytes, peak=None):
         t_ops, t_bytes = flops / (peak or peak_flops), nbytes / peak_bw
@@ -1699,6 +2118,15 @@ def main(argv=None) -> int:
             row["bench_launches"] = bench_launches[row["name"]]
             row["analysis_launches"] = analysis_launches[row["name"]]
             row["examples_launches"] = examples_launches[row["name"]]
+    for row in rows:
+        if row["name"] != "mec_conv1d":
+            row["serve_launches"] = {
+                "whisper_frontend_stream": serve_conv["whisper"][row["name"]],
+                "patch_embed_stream": serve_conv["patch"][row["name"]],
+                "bench_serve": serve_conv["bench"][row["name"]],
+                "whisper_tiny_served": whisper_launches[row["name"]]}
+    rows[list(KERNEL_ROWS).index("mec_conv_fused")]["whisper_frontend"] = \
+        serve_conv["whisper_k1"]
     rows[list(KERNEL_ROWS).index("mec_gemm")]["lowered_pair"] = {
         "ms": sum(pair[(n, SLICE_BATCH)]["ms"] for n in RESNET101),
         "library_ms": sum(pair[(n, SLICE_BATCH)]["library_ms"] for n in RESNET101)}

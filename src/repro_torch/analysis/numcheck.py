@@ -286,18 +286,21 @@ def trace_signature(spec, algorithm: str, dtype: str = "float32",
     from repro_torch.core.conv_api import conv2d
     td = getattr(torch, dtype)
     grad = direction == "grad"
-    x = torch.empty((spec.i_n, spec.i_h, spec.i_w, spec.i_c), dtype=td,
-                    device="meta", requires_grad=grad)
-    k = torch.empty((spec.k_h, spec.k_w, spec.i_c, spec.k_c), dtype=td,
-                    device="meta", requires_grad=grad)
 
     def program():
+        x = torch.empty((spec.i_n, spec.i_h, spec.i_w, spec.i_c), dtype=td,
+                        device="meta", requires_grad=grad)
+        k = torch.empty((spec.k_h, spec.k_w, spec.i_c, spec.k_c), dtype=td,
+                        device="meta", requires_grad=grad)
         out = conv2d(x, k, stride=(spec.s_h, spec.s_w), algorithm=algorithm,
                      solution=solution)
         if grad:
             torch.autograd.grad((out * out).sum(), (x, k))
 
-    return trace(program)
+    # the gradient trace holds whatever the caller's grad mode (a plan made
+    # inside a serving loop's inference mode)
+    with torch.inference_mode(False), torch.enable_grad():
+        return trace(program)
 
 
 def _render_dot(d: Dict) -> str:
@@ -451,7 +454,15 @@ def error_probe(spec, algorithm: str, dtype: str = "float32", *,
     error is the algorithm's, not the inputs' rounding.  The gradient is
     that of ``sum(out^2)``, its cotangent quantised at the input dtype.
     ``oracle``: "numpy" (:func:`f64_conv2d`, the JAX package's) or
-    "torch" (the same in f64 on ``device``, for full widths)."""
+    "torch" (the same in f64 on ``device``, for full widths).  Runs with
+    gradients on whatever the caller's grad mode."""
+    import torch
+    with torch.inference_mode(False), torch.enable_grad():
+        return _error_probe(spec, algorithm, dtype, solution, device, seed,
+                            oracle)
+
+
+def _error_probe(spec, algorithm, dtype, solution, device, seed, oracle):
     import numpy as np
     import torch
     from repro_torch.core.conv_api import conv2d

@@ -8,8 +8,14 @@ Runs on the CUDA card unless ``--device cpu``.  The default output is
 ``BENCH_torch_<suite>.json`` in the working directory, never a JAX
 package ``BENCH_*.json``.  ``--suite autotune`` runs the analytic-vs-
 measured pick comparison (``harness.run_autotune``) over the scenarios of
-``--base-suite`` and writes its own document; ``--suite serve`` raises
-(the conv service is ROADMAP Queue 1 item 10).  The JAX package's
+``--base-suite`` and writes its own document; ``--suite serve`` serves
+the conv-serving cells under the warm, cold and auto policies
+(``harness.run_serve``), checkable against the JAX package's baseline::
+
+  python -m repro_torch.bench.check BENCH_torch_serve.json \\
+      --baseline benchmarks/baselines/serve.json --schema-only-on-timing
+
+The JAX package's
 ``--interpret`` and ``--no-hlo`` have no meaning here.
 """
 from __future__ import annotations
@@ -69,7 +75,20 @@ def main(argv=None) -> int:
               f"{wins} -> {out}")
         return 0
     if args.suite == "serve":
-        run_serve(progress=progress, device=args.device)
+        doc = run_serve(progress=progress, device=args.device)
+        out = args.out or default_out("serve")
+        write_report(doc, out)
+        by_key = {(r["scenario"], r["serve_mode"]): r
+                  for r in doc["results"]}
+        cells = sorted({r["scenario"] for r in doc["results"]})
+        warm_wins = sum(
+            1 for c in cells
+            if (by_key[(c, "warm")]["p50_us"] or 0)
+            <= (by_key[(c, "auto")]["p50_us"] or 0))
+        print(f"[bench] serve: {len(doc['results'])} records over "
+              f"{len(cells)} class cells; warm p50 <= per-call auto p50 "
+              f"on {warm_wins}/{len(cells)} -> {out}")
+        return 0
     doc = run_suite(args.suite, iters=args.iters, warmup=args.warmup,
                     with_timing=not args.no_timing,
                     crosscheck=args.crosscheck, progress=progress,

@@ -12,8 +12,10 @@ Per-metric policy:
   by more than ``--timing-rtol`` (default 1.0, i.e. 2x).
   ``--schema-only-on-timing`` skips the timing comparison.
 * **informational**: ``hlo_flops``/``hlo_bytes`` (always None in the
-  port's own reports), and the environment: a different ``torch`` or
-  card (``device_kind``) is a note, where the JAX package notes ``jax``.
+  port's own reports), and the environment: a different ``torch``, card
+  (``device_kind``) or ``jax`` is a note.  A baseline may be the JAX
+  package's own report (its environment names ``jax``), such as
+  ``benchmarks/baselines/serve.json``.
 
 Every baseline cell must be present in the new report; extra cells are
 fine.  Autotune documents (``autotune_schema_version``) get their own
@@ -183,10 +185,10 @@ def compare(new: Dict, baseline: Dict, timing_rtol: float = 1.0,
         failures.append(f"suite mismatch: new={new['suite']!r} "
                         f"baseline={baseline['suite']!r}")
         return failures, notes
-    for f in ("torch", "device_kind"):
-        if new["environment"][f] != baseline["environment"][f]:
-            notes.append(f"{f} differs: new={new['environment'][f]} "
-                         f"baseline={baseline['environment'][f]}")
+    for f in ("torch", "device_kind", "jax"):
+        n_env, b_env = new["environment"].get(f), baseline["environment"].get(f)
+        if n_env != b_env:
+            notes.append(f"{f} differs: new={n_env} baseline={b_env}")
     suite_schema = new["suite"] in SUITE_EXACT_FIELDS
     exact_fields = SUITE_EXACT_FIELDS.get(new["suite"], EXACT_FIELDS)
     if new["environment"]["backend"] != baseline["environment"]["backend"]:

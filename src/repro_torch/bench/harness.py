@@ -25,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -275,10 +275,149 @@ def run_suite(suite: str, iters: int = 3, warmup: int = 1,
                        backend=device)
 
 
+SERVE_MODES = ("warm", "cold", "auto")
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serve_requests(cell, device: str) -> List[torch.Tensor]:
+    """The cell's deterministic request stream, the JAX package's numpy
+    draws, built on ``device`` before the stream starts (building tensors
+    must not pollute the latency measurement)."""
+    i_c = cell.kernel_shape[2]
+    dtype = getattr(torch, cell.dtype)
+    reqs = []
+    for i in range(cell.n_requests):
+        n, h, w = cell.requests[i % len(cell.requests)]
+        rng = np.random.RandomState(1000 + i)
+        reqs.append(torch.from_numpy(rng.randn(n, h, w, i_c)
+                                     .astype(np.float32)).to(device, dtype))
+    _sync(device)
+    return reqs
+
+
+def serve_latencies(svc, reqs: Sequence[torch.Tensor], mode: str
+                    ) -> Tuple[Dict, float]:
+    """Serve ``reqs`` through ``svc`` (a ``repro_torch.serving.
+    ConvService``) under ``mode``, one at a time: per shape class, each
+    request's host wall-clock in microseconds, the device synchronised
+    after it.  ``warm`` and ``cold`` run :meth:`ConvService.execute`
+    (cold pays plan resolution and the executor's build inside the first
+    request of each class); ``auto`` is the pre-planner baseline, an eager
+    ``conv2d(algorithm="auto")`` on the padded request, sliced.  Returns
+    ``{class: [us, ...]}`` and the total seconds."""
+    from repro_torch.core.conv_api import conv2d
+    if mode not in SERVE_MODES:
+        raise ValueError(f"unknown serve mode {mode!r}; expected one of "
+                         f"{SERVE_MODES}")
+    per_class: Dict = {cls: [] for cls in svc.classes}
+    t_all = time.perf_counter()
+    with torch.no_grad():
+        for x in reqs:
+            cls = svc.bucket(x.shape)
+            t0 = time.perf_counter()
+            if mode == "auto":
+                out = conv2d(svc.pad_to_class(x, cls), svc.kernel,
+                             stride=svc.stride, padding=svc.padding,
+                             algorithm="auto")
+                o_n, o_h, o_w, _ = svc.request_out_shape(x.shape)
+                out = out[:o_n, :o_h, :o_w, :]
+            else:
+                out = svc.execute(x)
+            _sync(out.device)
+            per_class[cls].append((time.perf_counter() - t0) * 1e6)
+    return per_class, max(time.perf_counter() - t_all, 1e-9)
+
+
 def run_serve(progress=None, device: str = "cuda") -> Dict:
-    """The ``serve`` suite needs the conv service, which is not ported."""
-    raise NotImplementedError("the serve suite needs serving/conv_service, "
-                              "not ported yet: ROADMAP Queue 1 item 10")
+    """The ``serve`` suite: every registered
+    :class:`~repro_torch.bench.scenarios.ServeScenario` served on
+    ``device`` under the three policies of :data:`SERVE_MODES`, one record
+    per (shape class, mode), the JAX package's record keys.
+
+    Latencies are end-to-end request wall-clock with the device
+    synchronised (:func:`serve_latencies`), including each mode's setup
+    profile: warm resolves the plans and captures the class executors
+    before the stream starts, cold does it inside the first request of
+    each class (seen in ``first_request_us`` and the p99), and auto pays
+    eager dispatch on every request.  ``us_per_call`` is the p50.  The
+    analytic fields are Eq. 3's MEC overhead on the padded class spec,
+    gated exactly by ``bench.check``.
+    """
+    from repro_torch.bench.report import make_report
+    from repro_torch.bench.scenarios import serve_cells
+    from repro_torch.plan import plan_conv2d
+    from repro_torch.serving.conv_service import ConvService
+    require_device(device)
+    results: List[Dict] = []
+    for cell in serve_cells():
+        rng = np.random.RandomState(7)
+        kernel = torch.from_numpy(rng.randn(*cell.kernel_shape)
+                                  .astype(np.float32)) \
+            .to(device, getattr(torch, cell.dtype))
+        reqs = _serve_requests(cell, device)
+        itemsize = kernel.element_size()
+        for mode in SERVE_MODES:
+            if progress:
+                progress(f"[bench] serve/{cell.name}/{mode}")
+            svc = ConvService(kernel, stride=cell.stride,
+                              padding=cell.padding, classes=cell.classes,
+                              plan_mode="cached")
+            warmed = svc.warm() if mode == "warm" else None
+            per_class, total_s = serve_latencies(svc, reqs, mode)
+            throughput = len(reqs) / total_s
+            for cls in svc.classes:
+                spec = svc.class_spec(cls)
+                lat = per_class[cls]
+                overhead = int(algorithm_overhead(spec, "mec"))
+                p50 = float(np.percentile(lat, 50)) if lat else None
+                p99 = float(np.percentile(lat, 99)) if lat else None
+                results.append({
+                    "scenario": f"{cell.name}_c{cls.tag()}",
+                    "algorithm": mode,
+                    "dtype": cell.dtype,
+                    "weight": 1,
+                    "spec": dataclasses.asdict(spec),
+                    "run_spec": dataclasses.asdict(spec),
+                    # Eq. 3 on the padded class spec: the memory the MEC
+                    # lowering costs a class request, exact-gated.
+                    "overhead_elems": overhead,
+                    "overhead_bytes": overhead * itemsize,
+                    "flops": _analytic_flops(spec, "mec"),
+                    "run_flops": _analytic_flops(spec, "mec"),
+                    "auto_algorithm": pick_conv2d_algorithm(spec, device),
+                    "plan": plan_conv2d(spec, dtype=cell.dtype,
+                                        mode="analytic", backend=device,
+                                        partition="none").to_dict(),
+                    "out_shape": list(spec.out_shape),
+                    "us_per_call": p50,
+                    "timing": ({"n": len(lat), "us_p50": p50, "us_p99": p99,
+                                "us_mean": float(np.mean(lat)),
+                                "us_min": float(min(lat)),
+                                "us_max": float(max(lat))}
+                               if lat else None),
+                    "hlo_flops": None,
+                    "hlo_bytes": None,
+                    "serve_mode": mode,
+                    "shape_class": cls.tag(),
+                    "n_classes": len(svc.classes),
+                    "n_requests": len(lat),
+                    "p50_us": p50,
+                    "p99_us": p99,
+                    "first_request_us": float(lat[0]) if lat else None,
+                    "throughput_rps": float(throughput),
+                    "warmup_warnings": (warmed.warning_count
+                                        if warmed else 0),
+                    "plan_cache_io_errors": (warmed.plan_cache_io_errors
+                                             if warmed else 0),
+                })
+    harness = {"modes": list(SERVE_MODES), "device": device,
+               "latency": "end-to-end request wall-clock incl. each "
+                          "mode's setup profile, the device synchronised"}
+    return make_report("serve", results, harness, backend=device)
 
 
 def run_autotune(base_suite: str = "smoke", iters: int = 3, warmup: int = 1,

@@ -142,6 +142,11 @@ SPEC_FIELDS = ("i_n", "i_h", "i_w", "i_c", "k_h", "k_w", "k_c", "s_h", "s_w")
 
 ENV_FIELDS = ("torch", "cuda", "numpy", "python", "backend", "device_count",
               "device_kind", "platform")
+# The JAX package's environment block: its committed baselines (e.g.
+# benchmarks/baselines/serve.json) validate here, so the port's reports
+# can be checked against them.
+JAX_ENV_FIELDS = ("jax", "numpy", "python", "backend", "device_count",
+                  "platform")
 
 
 def environment_fingerprint(backend: str = "cuda") -> Dict:
@@ -195,7 +200,8 @@ def validate_report(doc: Dict) -> List[str]:
     if not isinstance(env, dict):
         errs.append("environment must be an object")
     else:
-        for k in ENV_FIELDS:
+        fields = JAX_ENV_FIELDS if "jax" in env else ENV_FIELDS
+        for k in fields:
             if k not in env:
                 errs.append(f"environment missing {k!r}")
     if not isinstance(doc.get("harness"), dict):

@@ -215,7 +215,7 @@ def _dist() -> Tuple[Scenario, ...]:
 
 
 # ---------------------------------------------------------------------------
-# serve suite: data only (the conv service is ROADMAP Queue 1 item 10)
+# serve suite (repro_torch.serving.conv_service; harness.run_serve)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)

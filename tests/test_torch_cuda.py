@@ -23,7 +23,8 @@ f64 oracle it is held to ``tests/test_kernels.py``'s tolerance (2e-4 in
 f32, 4e-2 below, rtol and atol).  On operands of two dtypes (fault F4)
 K1-K5 must equal, to the bit, their f32 runs on the promoted operands
 cast back.  A plan on the card must run bit for bit what the kwargs
-path runs.  The smoke-size zamba2 served on the card
+path runs, and a served conv's CUDA-graph replay what the eager
+``conv2d(plan=)`` runs on the same padded class input.  The smoke-size zamba2 served on the card
 is held to the same served on the CPU at 1e-4, scale-normalized, in f32.
 """
 import json
@@ -38,6 +39,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import conv2d                  # noqa: E402
+from repro_torch.core.conv_api import apply_padding  # noqa: E402
 from repro_torch.core.numerics import fwd_tolerance, grad_tolerance  # noqa: E402
 from repro_torch.kernels import mec_conv as K        # noqa: E402
 from repro_torch.configs.archs import smoke_config  # noqa: E402
@@ -1023,3 +1025,108 @@ def test_numcheck_on_the_kernel_paths_on_the_card(cuda, algorithm, dtype):
                            dtype, device="cuda", oracle="torch", scaled=True)
     assert chk.ok, chk.render()
     assert chk.record["probe"]["device"] == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# plan-driven conv serving: class executors as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# (kernel shape, stride, padding, class, request): whisper-tiny's two
+# frontend layers at its full-length mel class, and the bench's s3x3 serve
+# cell
+SERVE_SPECS = {
+    "whisper_conv1": ((3, 1, 80, 384), (1, 1), ((1, 1), (0, 0)),
+                      (4, 3000, 1), (1, 2217, 1)),
+    "whisper_conv2": ((3, 1, 384, 384), (2, 1), ((1, 1), (0, 0)),
+                      (4, 3000, 1), (2, 2555, 1)),
+    "bench_s3x3": ((3, 3, 4, 8), (2, 2), 1, (2, 16, 16), (1, 13, 11)),
+}
+
+
+def _service(name, device, dtype="float32"):
+    from repro_torch.serving import ConvService
+    kshape, stride, padding, cls, _ = SERVE_SPECS[name]
+    rng = np.random.RandomState(len(name))
+    k = (rng.randn(*kshape) * np.prod(kshape[:3]) ** -0.5).astype(np.float32)
+    svc = ConvService(torch.from_numpy(k).to(device, DTYPES[dtype]),
+                      stride=stride, padding=padding, classes=[cls],
+                      plan_mode="cached")
+    report = svc.warm()
+    assert report.warning_count == 0 and report.plan_cache_io_errors == 0
+    return svc
+
+
+def _request(svc, shape, seed, device):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape, svc.kernel.shape[2]).astype(np.float32)
+    return torch.from_numpy(x).to(device, svc.kernel.dtype)
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_SPECS))
+def test_graph_replay_equals_eager_planned_conv(cuda, name):
+    """A request through the captured class executor against the eager
+    ``conv2d(plan=)`` of its padded class input: equal bits; K1 planned
+    (the cached policy's analytic pick on the card), the replay counted."""
+    svc = _service(name, cuda)
+    x = _request(svc, SERVE_SPECS[name][4], 1, cuda)
+    cls = svc.bucket(x.shape)
+    assert svc.plans[cls].algorithm == "mec_fused"
+    got = svc(x)
+    with torch.no_grad():
+        eager = conv2d(svc.pad_to_class(x, cls), svc.kernel,
+                       stride=svc.stride, padding=svc.padding,
+                       plan=svc.plans[cls])
+    o_n, o_h, o_w, _ = svc.request_out_shape(x.shape)
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager[:o_n, :o_h, :o_w])
+    assert svc.replays[cls] == 1
+    k_h, k_w = svc.kernel.shape[:2]
+    padded = apply_padding(svc.pad_to_class(x, cls), k_h, k_w, *svc.stride,
+                           svc.padding)
+    oracle = ref.conv2d_f64(padded, svc.kernel, svc.stride)[:o_n, :o_h, :o_w]
+    k = int(np.prod(svc.kernel.shape[:3]))
+    assert ref.scaled_error(got, oracle) <= fwd_tolerance("mec_fused",
+                                                          "float32", k)
+
+
+def test_graph_replay_launches_no_wrapper(cuda):
+    """The capture counts K1 once; replays launch it without Python."""
+    K.reset_launch_counts()
+    svc = _service("whisper_conv1", cuda)
+    warm = K.launch_counts()
+    assert warm == dict(NO_LAUNCHES, mec_conv_fused=2)   # eager run + capture
+    for seed in range(3):
+        svc(_request(svc, (4, 3000, 1), seed, cuda))
+    assert K.launch_counts() == warm
+    assert sum(svc.replays.values()) == 3
+
+
+def test_served_answer_is_a_copy(cuda):
+    svc = _service("whisper_conv2", cuda)
+    first = svc(_request(svc, (4, 3000, 1), 2, cuda))
+    kept = first.clone()
+    cls = svc.classes[0]
+    second = svc(_request(svc, (4, 3000, 1), 3, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    ex = svc._compiled[cls]
+    assert first.data_ptr() != ex.static_out.data_ptr()
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_SPECS))
+def test_padding_region_is_zero_after_a_larger_request(cuda, name):
+    svc = _service(name, cuda)
+    cls = svc.classes[0]
+    big = _request(svc, (cls.n, cls.h, cls.w), 4, cuda)
+    svc(big)
+    small_shape = SERVE_SPECS[name][4]
+    small = _request(svc, small_shape, 5, cuda)
+    got = svc(small)
+    n, h, w = small_shape
+    buf = svc._compiled[cls].static_in
+    torch.cuda.synchronize()
+    assert float(buf[n:].abs().sum()) == 0.0
+    assert float(buf[:n, h:].abs().sum()) == 0.0
+    assert float(buf[:n, :h, w:].abs().sum()) == 0.0
+    fresh = _service(name, cuda)
+    assert torch.equal(got, fresh(small))

@@ -49,7 +49,8 @@ from repro_torch.models import serve as tserve       # noqa: E402
 F32_TOL = 1e-5
 SLICE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ARCH = "zamba2-7b"
-UNPORTED = sorted(a for a, c in tarchs.ARCHS.items() if c.family != "hybrid")
+UNPORTED = sorted(a for a, c in tarchs.ARCHS.items()
+                  if c.family not in tlm.PORTED_FAMILIES)
 
 
 def _err(port, ref) -> float:
@@ -442,10 +443,18 @@ def test_unported_families_raise(arch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "production"], "item 11"), (["--mesh", "multipod"], "item 11"),
-    (["--warm-plans"], "item 10")])
+    (["--warm-plans", "--arch", "llava-next-34b"], "item 10")])
 def test_unported_flags_raise(flags, item):
+    """Distributed execution, and the vlm family's frontend (its LM is not
+    ported)."""
     with pytest.raises(NotImplementedError, match=item):
         tlaunch.main(SMOKE_ARGS + flags)
+
+
+def test_warm_plans_on_a_family_without_a_frontend(capsys):
+    gen = tlaunch.main(SMOKE_ARGS + ["--warm-plans"])
+    assert gen.shape == (2, 5)
+    assert "has no conv frontend; nothing to warm" in capsys.readouterr().out
 
 
 def test_unported_attention_options_raise():
