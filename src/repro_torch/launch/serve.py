@@ -7,20 +7,32 @@ prefill + decode loop.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
         --warm-plans [--shape-classes 4x3000x1] [--device cpu --smoke]
 
-Runs on the card unless ``--device cpu``.  The hybrid (zamba2) and audio
-(whisper) families are served; the others raise ``NotImplementedError``
-naming ROADMAP Queue 1 item 10, and any ``--mesh`` but ``host`` item 11.
-``--warm-plans`` resolves ConvPlans for the ``--shape-classes`` buckets at
-startup (``repro_torch.serving.conv_service``), prints the per-class
-plan table, and routes the audio family's mel through the warmed whisper
-frontend (two ConvServices; their class executors are CUDA graphs over
-K1 on the card), ``fit_prefix`` to ``encoder_len``, then the encoder.
-The audio default class is ``(batch, 2 * encoder_len, 1)``.  Without
-``--warm-plans`` the encoder reads stub frame embeddings.  Where the JAX
-package feeds zeros (a zero mel, zero frames), the port feeds seeded
-N(0, 1) draws, so the encoder sees data.  ``ModelConfig.conv_impl`` has
-no flag: a caller that wants the fused conv1d kernel (K5) passes
-``cfg.with_(conv_impl="fused")`` to :func:`serve`.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \
+        --warm-plans [--shape-classes 2x336x336] [--device cpu --smoke]
+
+Runs on the card unless ``--device cpu``.  The dense, vlm (llava), hybrid
+(zamba2) and audio (whisper) families are served; moe and ssm raise
+``NotImplementedError`` naming their ROADMAP item (Queue 1 items 10.3 and
+10.4), and any ``--mesh`` but ``host`` item 11.  Prefill runs eagerly;
+each decode step is a :class:`~repro_torch.serving.step_graph.
+DecodeProgram`: one CUDA-graph replay on the card (the counterpart of the
+JAX package's jitted step), an eager step on the CPU; sampling stays
+outside it.  ``--warm-plans`` resolves ConvPlans for the
+``--shape-classes`` buckets at startup
+(``repro_torch.serving.conv_service``), prints the per-class plan table,
+and routes the family's conv frontend through the warmed services (their
+class executors are CUDA graphs over K1 on the card): the audio family's
+mel through the whisper frontend, ``fit_prefix`` to ``encoder_len``, then
+the encoder; the vlm family's image through the patch embed (3 -> d_model,
+patch 4) to ``prefix_len`` vision tokens.  The default classes are
+``(batch, 2 * encoder_len, 1)`` (audio) and ``(batch, 16, 16), (batch,
+32, 32)`` (vlm).  Without ``--warm-plans`` the encoder reads stub frame
+embeddings and the vlm prefill stub vision tokens (batch, prefix_len,
+d_model).  Where the JAX package feeds zeros (a zero mel or image, zero
+frames or vision tokens), the port feeds seeded N(0, 1) draws, so the
+model sees data.  ``ModelConfig.conv_impl`` has no flag: a caller that
+wants the fused conv1d kernel (K5) passes ``cfg.with_(conv_impl="fused")``
+to :func:`serve`.
 """
 from __future__ import annotations
 
@@ -33,9 +45,12 @@ from repro_torch.configs.archs import ARCHS, smoke_config
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.layers import f32_accumulation
 from repro_torch.models.lm import LM, require_ported
+from repro_torch.serving.step_graph import DecodeProgram
 
 #: the whisper frontend's mel bins
 N_MELS = 80
+#: the vlm patch embed: image channels and patch size
+IMAGE_CHANNELS, PATCH = 3, 4
 
 
 def _sync(device: torch.device) -> None:
@@ -89,16 +104,52 @@ def default_shape_classes(cfg, batch: int):
 def warm_frontend(cfg, classes, seed: int, device):
     """(frontend, services) for the family's conv encoder, warmed over
     ``classes``, its kernels drawn from a generator seeded with ``seed +
-    3``; (None, []) when the family has no conv frontend.  The vlm
-    family's LM is not ported (ROADMAP Queue 1 item 10), so nothing
-    reaches its patch embed here."""
-    from repro_torch.serving.conv_service import whisper_frontend_service
+    3``; (None, []) when the family has no conv frontend."""
+    from repro_torch.serving.conv_service import (patch_embed_service,
+                                                  whisper_frontend_service)
     require_ported(cfg, "the conv frontend")
+    if cfg.family == "vlm":
+        # classes are (batch, H, W) image buckets
+        frontend, svc = patch_embed_service(
+            _seeded(seed + 3, device), IMAGE_CHANNELS, cfg.d_model, PATCH,
+            classes, cfg.prefix_len, device=device)
+        return frontend, [svc]
     if cfg.family == "audio":
         # classes are (batch, T, 1) time buckets
         return whisper_frontend_service(_seeded(seed + 3, device), N_MELS,
                                         cfg.d_model, classes, device=device)
     return None, []
+
+
+def _frontend_inputs(cfg, frontend, services, batch: int, seed: int,
+                     device) -> dict:
+    """The prefill's conv-frontend entries: the audio family's frames (a
+    mel of the first class's length through the warmed frontend, cropped
+    or padded to encoder_len), the vlm family's vision tokens (an image of
+    the first class's size through the warmed patch embed), each drawn
+    N(0, 1) from a generator seeded with ``seed + 4``; without a frontend
+    the stubs, drawn the same way."""
+    generator = _seeded(seed + 4, device)
+    if cfg.family == "audio":
+        if frontend is None:
+            return {"frames": torch.randn(
+                (batch, cfg.encoder_len, cfg.d_model), generator=generator,
+                device=device)}
+        from repro_torch.serving.conv_service import fit_prefix
+        cls = services[0].classes[0]
+        mel = torch.randn((batch, cls.h, N_MELS), generator=generator,
+                          device=device)
+        return {"frames": fit_prefix(frontend(mel), cfg.encoder_len)}
+    if cfg.family == "vlm":
+        if frontend is None:
+            return {"vision": torch.randn(
+                (batch, cfg.prefix_len, cfg.d_model), generator=generator,
+                device=device)}
+        cls = services[0].classes[0]
+        image = torch.randn((batch, cls.h, cls.w, IMAGE_CHANNELS),
+                            generator=generator, device=device)
+        return {"vision": frontend(image)}
+    return {}
 
 
 @torch.inference_mode()
@@ -107,18 +158,27 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
           warm_plans: bool = False, shape_classes=None) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens with seeded
     random weights: one batched prefill, then ``gen - 1`` decode steps, one
-    token each (the prefill's logits give the first).  The audio family
-    first encodes a mel of the first class's length (seeded N(0, 1))
-    through the warmed conv frontend when ``warm_plans``, else stub frame
-    embeddings (batch, encoder_len, d_model).
+    token each (the prefill's logits give the first), through a
+    :class:`DecodeProgram` over the prefill's cache (a captured CUDA graph
+    on the card, eager on the CPU).  The audio family first
+    encodes a mel of the first class's length (seeded N(0, 1)) through the
+    warmed conv frontend when ``warm_plans``, else stub frame embeddings
+    (batch, encoder_len, d_model); the vlm family an image of the first
+    class's size through the warmed patch embed, else stub vision tokens
+    (batch, prefix_len, d_model), ahead of the prompt.
 
     Returns ``tokens`` (batch, gen), ``prefill_logits`` (batch, vocab) f32
     (the last prompt token's), ``logits`` (the last step's), and host-clock
     ``prefill_s`` and ``decode_s`` (the device synchronised before each
     clock read) with ``decode_tokens_per_s`` = batch * (gen - 1) /
-    decode_s; with ``warm_plans`` also ``warmup`` (each service's
-    WarmupReport), ``warm_s`` and ``frontend_s`` (mel to frames, after
-    warmup), else ``warmup`` empty and both None.  Products accumulate in
+    decode_s, and ``decode_graph`` whether decode replayed a CUDA graph.
+    ``decode_s`` includes building the program (on the card its eager
+    warm-up step and the capture), as the JAX package's decode time
+    includes the first step's compile; ``capture_s`` is that part.  With
+    ``warm_plans`` also ``warmup`` (each service's WarmupReport),
+    ``warm_s``, ``frontend_s`` (mel or image to the prefix, after
+    warmup) and ``frontend_replays`` (the services' class-executor
+    replays), else ``warmup`` empty, both None and no replays.  Products accumulate in
     f32 (:func:`f32_accumulation`).
     """
     if gen < 1:
@@ -126,7 +186,8 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
     require_ported(cfg, "serve")
     device = torch.device(device)
     model = LM(cfg)
-    max_len = prompt_len + gen
+    max_len = prompt_len + gen + (cfg.prefix_len if cfg.family == "vlm"
+                                  else 0)
     frontend, services, warm_s, frontend_s = None, [], None, None
     with f32_accumulation():
         if warm_plans:
@@ -137,23 +198,13 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
             warm_s = time.perf_counter() - t0
         params = init_params(cfg, seed, device)
         tokens = make_prompt(cfg, batch, prompt_len, seed, device)
-        inputs = {"tokens": tokens}
-        if cfg.family == "audio":
-            if frontend is not None:
-                from repro_torch.serving.conv_service import fit_prefix
-                cls = services[0].classes[0]
-                mel = torch.randn((batch, cls.h, N_MELS),
-                                  generator=_seeded(seed + 4, device),
-                                  device=device)
-                _sync(device)
-                t0 = time.perf_counter()
-                inputs["frames"] = fit_prefix(frontend(mel), cfg.encoder_len)
-                _sync(device)
-                frontend_s = time.perf_counter() - t0
-            else:
-                inputs["frames"] = torch.randn(
-                    (batch, cfg.encoder_len, cfg.d_model),
-                    generator=_seeded(seed + 4, device), device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        inputs = {"tokens": tokens, **_frontend_inputs(
+            cfg, frontend, services, batch, seed, device)}
+        _sync(device)
+        if frontend is not None:
+            frontend_s = time.perf_counter() - t0
         generator = _seeded(seed + 2, device)
 
         _sync(device)
@@ -165,18 +216,28 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
         tok = sample(logits, temperature, generator)
         out = [tok]
         t0 = time.perf_counter()
+        step = DecodeProgram(
+            lambda c, t: serve_lib.decode_step(model, params, c, t), cache,
+            torch.zeros_like(tok))
+        _sync(device)
+        capture_s = time.perf_counter() - t0
         for _ in range(gen - 1):
-            logits, cache = serve_lib.decode_step(model, params, cache, tok)
+            step.tokens.copy_(tok)
+            logits = step()
             tok = sample(logits, temperature, generator)
             out.append(tok)
         _sync(device)
         decode_s = time.perf_counter() - t0
     return {"tokens": torch.cat(out, dim=1), "prefill_logits": prefill_logits,
-            "logits": logits, "prefill_s": prefill_s, "decode_s": decode_s,
+            "logits": logits.clone(), "prefill_s": prefill_s,
+            "decode_s": decode_s,
             "decode_tokens_per_s": (batch * (gen - 1) / decode_s
                                     if gen > 1 else 0.0),
+            "decode_graph": step.graph is not None, "capture_s": capture_s,
             "warmup": [svc.warmup for svc in services], "warm_s": warm_s,
-            "frontend_s": frontend_s}
+            "frontend_s": frontend_s,
+            "frontend_replays": sum(sum(svc.replays.values())
+                                    for svc in services)}
 
 
 def main(argv=None):
@@ -195,7 +256,8 @@ def main(argv=None):
                          "them")
     ap.add_argument("--shape-classes", default=None,
                     help="comma-separated NxHxW padded classes for "
-                         "--warm-plans (audio: NxTx1 time buckets)")
+                         "--warm-plans (vlm: image buckets; audio: NxTx1 "
+                         "time buckets)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     args = ap.parse_args(argv)

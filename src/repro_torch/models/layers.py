@@ -1,10 +1,13 @@
 """Model primitives (counterpart of ``repro.models.layers``): norms,
 linear, the conv layer, RoPE, SwiGLU and GQA attention.
 
-Attention comes in two forms, as in the JAX package:
+Attention comes in three forms, as in the JAX package:
 * ``chunked_attention`` — streaming (flash-style) online-softmax attention
   for prefill: O(S^2) FLOPs, O(S * chunk) memory.
-* ``decode_attention``  — one new query against a KV cache.
+* ``chunked_attention_tri`` — the same, causal, visiting only the chunk
+  pairs below the diagonal (``cfg.attn_skip_masked``).
+* ``decode_attention``  — one new query against a KV cache, float or int8
+  (``quantize_kv``: per token and head scales, ``cfg.kv_cache_int8``).
 
 The order of casts is the JAX package's, so bf16 results agree: norms
 normalise in f32 and cast before the weight; ``linear`` accumulates in f32
@@ -31,8 +34,6 @@ import torch.nn.functional as F
 from repro_torch.core.conv_api import conv2d
 
 _NEG = -1e30
-#: what the unported LM options raise with
-QUEUE_1_ITEM_10 = "ROADMAP Queue 1 item 10"
 
 
 @contextlib.contextmanager
@@ -154,8 +155,10 @@ def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
     """positions (S,) -> cos/sin (S, dim//2) in f32."""
     exps = -torch.arange(0, dim, 2, dtype=torch.float32,
                          device=positions.device) / dim
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # torch.full, not torch.tensor: no host-to-device copy, so a CUDA
+    # graph can capture it
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=positions.device), exps)
     ang = positions.to(torch.float32)[:, None] * freqs[None, :]
     return torch.cos(ang), torch.sin(ang)
 
@@ -232,29 +235,124 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :sq].to(q.dtype)
 
 
+def chunked_attention_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_chunk: int = 512,
+                          kv_chunk: int = 512) -> torch.Tensor:
+    """Causal attention that only visits lower-triangle chunk pairs.
+
+    :func:`chunked_attention` computes every (q-chunk, kv-chunk) pair and
+    masks; here the loop runs over the static list of pairs that are not
+    fully masked, carrying full-sequence (m, l, acc) accumulators and
+    updating one q-chunk's rows per step, as the JAX package's scan does.
+    A fully masked chunk adds exactly 0 to the online softmax (its scores
+    are -1e30, so p = 0 and the correction is exp(0) = 1), so with the same
+    chunks the result equals :func:`chunked_attention`'s to the bit.
+    """
+    b, s, h, d = q.shape
+    _, skv, kv, _ = k.shape
+    g = h // kv
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, skv)
+    pq, pk = (-s) % q_chunk, (-skv) % kv_chunk
+    q, k, v = _pad_seq(q, pq), _pad_seq(k, pk), _pad_seq(v, pk)
+    sqp, skp = s + pq, skv + pk
+    nq, nk = sqp // q_chunk, skp // kv_chunk
+    scale = d ** -0.5
+    f32 = torch.float32
+    qc = q.reshape(b, nq, q_chunk, kv, g, d).permute(1, 0, 3, 4, 2, 5)
+    kc = k.reshape(b, nk, kv_chunk, kv, d).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(b, nk, kv_chunk, kv, d).permute(1, 0, 3, 2, 4)
+    pairs = [(i, j) for i in range(nq) for j in range(nk)
+             if j * kv_chunk <= (i + 1) * q_chunk - 1]
+    dev = q.device
+    m = torch.full((b, kv, g, sqp), _NEG, dtype=f32, device=dev)
+    l = torch.zeros((b, kv, g, sqp), dtype=f32, device=dev)
+    acc = torch.zeros((b, kv, g, sqp, d), dtype=f32, device=dev)
+    for iq, jk in pairs:
+        q_i, k_j, v_j = qc[iq].to(f32), kc[jk], vc[jk]
+        sc = torch.einsum("bkgtd,bkcd->bkgtc", q_i, k_j.to(f32)) * scale
+        qpos = iq * q_chunk + torch.arange(q_chunk, device=dev)
+        kpos = jk * kv_chunk + torch.arange(kv_chunk, device=dev)
+        mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < skv)
+        sc = torch.where(mask[None, None, None], sc, _NEG)
+        rows = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        m_rows, l_rows, a_rows = m[..., rows], l[..., rows], acc[..., rows, :]
+        m_new = torch.maximum(m_rows, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m_rows - m_new)
+        l[..., rows] = l_rows * corr + p.sum(dim=-1)
+        acc[..., rows, :] = a_rows * corr[..., None] + torch.einsum(
+            "bkgtc,bkcd->bkgtd", p.to(v_j.dtype).to(f32), v_j.to(f32))
+        m[..., rows] = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sqp, h, d)
+    return out[:, :s].to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
                      k_scale=None, v_scale=None) -> torch.Tensor:
     """q: (B, 1, H, D); caches: (B, Smax, KV, D); entries < cache_len (an
-    int or a 0-d tensor) valid.  Float caches only: the int8 cache's scale
-    planes raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            f"int8 KV cache (k_scale/v_scale): {QUEUE_1_ITEM_10}")
+    int, a 0-d tensor, or a (B, 1) tensor of per-row lengths) valid.  With
+    k_scale/v_scale (B, Smax, KV, 1) the caches are int8 and dequantized on
+    the fly: the scores are scaled by k_scale, the probabilities by
+    v_scale, both in f32."""
     b, _, h, d = q.shape
     _, smax, kv, _ = k_cache.shape
     g = h // kv
     f32 = torch.float32
     qg = q.reshape(b, 1, kv, g, d).to(f32)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.to(f32)) * d ** -0.5
+    if k_scale is not None:
+        s = s * k_scale[:, :, :, 0].transpose(1, 2)[:, :, None, None, :]
     valid = torch.arange(smax, device=q.device)[None, :] < cache_len
     s = torch.where(valid[:, None, None, None, :], s, _NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = p / p.sum(dim=-1, keepdim=True)
-    p = p.to(v_cache.dtype)
+    if v_scale is not None:
+        p = p * v_scale[:, :, :, 0].transpose(1, 2)[:, :, None, None, :]
+    else:
+        p = p.to(v_cache.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(f32), v_cache.to(f32))
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def quantize_kv(x: torch.Tensor):
+    """x (B, S, KV, D) -> int8 values + (B, S, KV, 1) bf16 scales: the
+    absolute maximum over D / 127 (+1e-12), values rounded half to even
+    and clipped to [-127, 127]."""
+    x32 = x.to(torch.float32)
+    scale = x32.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+# The KV cache's format is decided here: ``kv_planes`` builds it and
+# ``kv_entries`` says what each of its planes stores; every cache builder
+# and every writer of a token's k/v goes through them.
+
+def kv_planes(shape, dtype, int8: bool, device) -> dict:
+    """Zero k/v planes of ``shape`` (..., S, KV, D): in ``dtype``, or int8
+    with bf16 scale planes k_s/v_s (..., S, KV, 1) when ``int8``."""
+    if not int8:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    scales = tuple(shape[:-1]) + (1,)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(scales, dtype=torch.bfloat16, device=device),
+            "v_s": torch.zeros(scales, dtype=torch.bfloat16, device=device)}
+
+
+def kv_entries(cache: dict, k: torch.Tensor, v: torch.Tensor):
+    """The (plane, value) pairs that store k/v (..., S, KV, D) into the
+    planes of ``cache``: cast to the planes' dtype, or quantized with their
+    scales when the cache is int8 (it has ``k_s``)."""
+    if "k_s" in cache:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        return (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs))
+    return (("k", k.to(cache["k"].dtype)), ("v", v.to(cache["v"].dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -308,10 +406,11 @@ def attention_block(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     if kv_override is not None:            # cross-attention
         k, v = kv_override
     if causal and cfg.attn_skip_masked:
-        raise NotImplementedError(
-            f"attn_skip_masked (chunked_attention_tri): {QUEUE_1_ITEM_10}")
-    out = chunked_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
-                            kv_chunk=cfg.kv_chunk)
+        out = chunked_attention_tri(q, k, v, q_chunk=cfg.q_chunk,
+                                    kv_chunk=cfg.kv_chunk)
+    else:
+        out = chunked_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)
     b, s = x.shape[:2]
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return linear(out, p["wo"]), (k, v)
@@ -320,30 +419,29 @@ def attention_block(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 def attention_decode(p: dict, cfg, x: torch.Tensor, cache: dict,
                      use_rope: bool = True):
     """One-token decode. x (B, 1, D). cache = {k: (B,Smax,KV,Dh), v: ...,
-    len: 0-d int tensor}.  The new k/v are written into the cache's
-    buffers in place, at position ``len`` (the JAX package returns updated
-    copies); the returned cache holds the same buffers and ``len + 1``."""
-    if "k_s" in cache:
-        raise NotImplementedError(f"int8 KV cache: {QUEUE_1_ITEM_10}")
+    len: 0-d int tensor} (+ k_s/v_s (B,Smax,KV,1) bf16 scale planes when
+    the cache is int8).  The new k/v (quantized when int8, with their
+    scales) are written into the cache's buffers in place, at position
+    ``len`` (the JAX package returns updated copies); the returned cache
+    holds the same buffers and ``len + 1``."""
     ln = cache["len"]
     pos = ln.reshape(1)                    # the position of the new token
     q, k, v = attention_qkv(p, cfg, x, pos, use_rope)
-    k_cache, v_cache = cache["k"], cache["v"]
     idx = pos.to(torch.long)
-    k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
-    out = decode_attention(q, k_cache, v_cache, ln + 1)
+    new = dict(cache, len=ln + 1)
+    for name, val in kv_entries(cache, k, v):
+        cache[name].index_copy_(1, idx, val)
+    out = decode_attention(q, cache["k"], cache["v"], ln + 1,
+                           k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
     b = x.shape[0]
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return linear(out, p["wo"]), {"k": k_cache, "v": v_cache, "len": ln + 1}
+    return linear(out, p["wo"]), new
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype,
                   device="cuda") -> dict:
-    if cfg.kv_cache_int8:
-        raise NotImplementedError(f"int8 KV cache: {QUEUE_1_ITEM_10}")
-    hd = cfg.head_dim
-    shape = (batch, max_len, cfg.n_kv_heads, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+    """Zero k/v (B, max_len, KV, Dh) in ``dtype``, or int8 with bf16 scale
+    planes k_s/v_s (B, max_len, KV, 1) when ``cfg.kv_cache_int8``."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {**kv_planes(shape, dtype, cfg.kv_cache_int8, device),
             "len": torch.zeros((), dtype=torch.int32, device=device)}

@@ -1,20 +1,24 @@
 """Language-model assembly (counterpart of ``repro.models.lm``).
 
-Two families are ported, for serving (``models.serve``):
+Four families are ported, for serving (``models.serve``):
+  dense   a GQA transformer: stacked blocks of attention and SwiGLU;
+  vlm     llava: the dense backbone, with a ``vision_proj`` linear that
+          maps vision tokens into the prompt's prefix;
   hybrid  zamba2: Mamba2 layers and ONE shared attention+SwiGLU block
           applied after every ``attn_every`` layers (weight sharing);
   audio   whisper: an encoder over frame embeddings (non-causal attention
           and a GELU MLP) and a decoder with causal self-attention and
           cross-attention to the encoder output.
-The dense, moe, ssm (xLSTM) and vlm families, and the training path
-(``forward``), raise ``NotImplementedError`` naming their ROADMAP item.
+The moe and ssm (xLSTM) families, and the training path (``forward``),
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 Parameters are nested dicts of tensors with the JAX package's tree and
-layer-stacked leaves: the Mamba2 layers of the super-blocks are stacked
-(n_super, attn_every, ...) and the tail (tail, ...), so
-``convert.params_from_jax`` maps leaf for leaf.  The JAX package's
-``lax.scan`` over the stack becomes a Python loop over its leading axes.
-The audio family's encoder and decoder blocks are stacked (layers, ...).
+layer-stacked leaves: the dense and vlm blocks are stacked (layers, ...),
+the Mamba2 layers of the super-blocks (n_super, attn_every, ...) and the
+tail (tail, ...), so ``convert.params_from_jax`` maps leaf for leaf.  The
+JAX package's ``lax.scan`` over the stack becomes a Python loop over its
+leading axes.  The audio family's encoder and decoder blocks are stacked
+(layers, ...).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import mamba2
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (QUEUE_1_ITEM_10, attention_block,
+from repro_torch.models.layers import (attention_block,
                                        init_attention, init_linear,
                                        init_normal, init_swiglu, linear,
                                        rms_norm, swiglu)
@@ -40,13 +44,18 @@ def torch_dtype(cfg) -> torch.dtype:
 
 
 #: the families this package serves
-PORTED_FAMILIES = ("hybrid", "audio")
+PORTED_FAMILIES = ("hybrid", "audio", "dense", "vlm")
+#: the ROADMAP items that port the rest
+UNPORTED_ITEMS = {"moe": "ROADMAP Queue 1 item 10.3",
+                  "ssm": "ROADMAP Queue 1 item 10.4"}
+TRAINING_ITEM = "ROADMAP Queue 1 item 10.6"
 
 
 def require_ported(cfg, what: str) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{what} of the {cfg.family!r} family "
-                                  f"({cfg.name}): {QUEUE_1_ITEM_10}")
+                                  f"({cfg.name}): "
+                                  f"{UNPORTED_ITEMS[cfg.family]}")
 
 
 def tree_map(fn: Callable, tree):
@@ -148,6 +157,15 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = init_linear(generator, cfg.d_model, cfg.vocab,
                                             dt, device=device)
+        if cfg.family in ("dense", "vlm"):
+            params["blocks"] = stack_init(
+                lambda: init_dense_block(generator, cfg, dt, device=device),
+                (cfg.n_layers,))
+            if cfg.family == "vlm":
+                params["vision_proj"] = init_linear(generator, cfg.d_model,
+                                                    cfg.d_model, dt,
+                                                    device=device)
+            return params
         if cfg.family == "audio":
             params["enc_blocks"] = stack_init(
                 lambda: self._init_enc_block(generator, dt, device),
@@ -198,7 +216,7 @@ class LM:
         return params["lm_head"]["w"]
 
     def forward(self, params, batch):
-        raise NotImplementedError(f"LM training (forward): {QUEUE_1_ITEM_10}")
+        raise NotImplementedError(f"LM training (forward): {TRAINING_ITEM}")
 
     # ------------------------------------------------------------- audio --
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:

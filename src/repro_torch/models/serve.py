@@ -1,10 +1,17 @@
 """Serving paths (counterpart of ``repro.models.serve``): prefill (build
 caches from a prompt) and single-token decode.
 
-The hybrid (zamba2) and audio (whisper) families are ported; the others
-raise ``NotImplementedError`` naming ROADMAP Queue 1 item 10.  Caches are
-dicts with the JAX package's tree and layer-stacked leaves:
+The dense, vlm (llava), hybrid (zamba2) and audio (whisper) families are
+ported; moe and ssm raise ``NotImplementedError`` naming their ROADMAP
+item (Queue 1 items 10.3 and 10.4).  Caches are dicts with the JAX
+package's tree and layer-stacked leaves:
 
+    dense, vlm: {"k", "v": (n_layers, B, max_len, KV, D),
+                 "len": 0-d int32}; an int8 cache (``init_decode_cache``
+                 with ``cfg.kv_cache_int8``) holds int8 "k", "v" and bf16
+                 "k_s", "v_s": (n_layers, B, max_len, KV, 1).  Prefill
+                 builds a float cache whatever the flag, as the JAX
+                 package's does; decode takes either.
     hybrid: {"mamba": {"state": (n_super, attn_every, B, H, P, N) f32,
                        "conv":  (n_super, attn_every, B, k_w - 1, C)},
              "attn_k", "attn_v": (n_super, B, max_len, KV, D),
@@ -14,8 +21,8 @@ dicts with the JAX package's tree and layer-stacked leaves:
              "cross_k", "cross_v": (n_layers, B, T_enc, KV, D),
              "len": 0-d int32}
 
-``decode_step`` writes the new token's state, conv history and k/v into
-the cache's buffers in place (the JAX package returns updated copies) and
+``decode_step`` writes the new token's state, conv history and k/v (and
+int8 scales) into the cache's buffers in place (the JAX package returns updated copies) and
 returns a cache dict holding the same buffers and ``len + 1``.  The audio
 family's cross-attention k/v are computed once, at prefill.
 """
@@ -25,7 +32,7 @@ import torch
 
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (attention_decode, decode_attention,
-                                       linear, rms_norm, swiglu)
+                                       kv_planes, linear, rms_norm, swiglu)
 from repro_torch.models.lm import (LM, dense_block, gelu_mlp, require_ported,
                                    torch_dtype, tree_at, tree_map, tree_set)
 
@@ -54,6 +61,51 @@ def _stacked_mamba_cache(cfg, prefix, batch: int, device):
     return tree_map(lambda t: t.expand(prefix + tuple(t.shape)).clone(),
                     mamba2.init_mamba_cache(cfg, batch, torch_dtype(cfg),
                                             device=device))
+
+
+# ---------------------------------------------------------------------------
+# dense / vlm
+# ---------------------------------------------------------------------------
+
+def _attn_families_prefill(model: LM, params, batch, max_len: int):
+    """The vlm family prepends ``linear(vision, vision_proj)`` to the
+    prompt's embeddings.  Each layer's k/v go straight into the stacked
+    cache, not into a list stacked after."""
+    cfg = model.cfg
+    h = model.embed(params, batch["tokens"])
+    if cfg.family == "vlm":
+        vis = linear(batch["vision"].to(h.dtype), params["vision_proj"])
+        h = torch.cat([vis, h], dim=1)
+    b, s = h.shape[:2]
+    positions = torch.arange(s, device=h.device)
+    shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kc = torch.zeros(shape, dtype=h.dtype, device=h.device)
+    vc = torch.zeros(shape, dtype=h.dtype, device=h.device)
+    for i in range(cfg.n_layers):
+        h, (k, v) = dense_block(tree_at(params["blocks"], (i,)), cfg, h,
+                                positions)
+        kc[i, :, :s] = k
+        vc[i, :, :s] = v
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    cache = {"k": kc, "v": vc,
+             "len": torch.tensor(s, dtype=torch.int32, device=h.device)}
+    return _logits_last(model, params, h), cache
+
+
+def _attn_families_decode(model: LM, params, cache, tokens):
+    cfg = model.cfg
+    h = model.embed(params, tokens)          # (B, 1, d)
+    ln = cache["len"]
+    planes = ("k", "v", "k_s", "v_s") if "k_s" in cache else ("k", "v")
+    for i in range(cfg.n_layers):
+        p = tree_at(params["blocks"], (i,))
+        lcache = {name: cache[name][i] for name in planes}
+        xn = rms_norm(h, p["norm1"], cfg.norm_eps)
+        a, _ = attention_decode(p["attn"], cfg, xn, dict(lcache, len=ln))
+        h = h + a
+        h = h + swiglu(rms_norm(h, p["norm2"], cfg.norm_eps), p["mlp"])
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _logits_one(model, params, h), dict(cache, len=ln + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +246,10 @@ def _audio_decode(model: LM, params, cache, tokens):
 # dispatch
 # ---------------------------------------------------------------------------
 
-_PREFILL = {"hybrid": _hybrid_prefill, "audio": _audio_prefill}
-_DECODE = {"hybrid": _hybrid_decode, "audio": _audio_decode}
+_PREFILL = {"dense": _attn_families_prefill, "vlm": _attn_families_prefill,
+            "hybrid": _hybrid_prefill, "audio": _audio_prefill}
+_DECODE = {"dense": _attn_families_decode, "vlm": _attn_families_decode,
+           "hybrid": _hybrid_decode, "audio": _audio_decode}
 
 
 def prefill(model: LM, params, batch, max_len: int):
@@ -222,6 +276,9 @@ def init_decode_cache(model: LM, batch: int, max_len: int, device="cuda"):
 
     length = torch.tensor(max_len - 1, dtype=torch.int32, device=device)
     hd, kv = cfg.head_dim, cfg.n_kv_heads
+    if cfg.family in ("dense", "vlm"):
+        return {**kv_planes((cfg.n_layers, batch, max_len, kv, hd), dt,
+                            cfg.kv_cache_int8, device), "len": length}
     if cfg.family == "audio":
         return {"k": zeros(cfg.n_layers, batch, max_len, kv, hd),
                 "v": zeros(cfg.n_layers, batch, max_len, kv, hd),

@@ -1,14 +1,15 @@
 """Serving layer (counterpart of ``repro.serving``): plan-driven conv
-serving.
+serving, continuous batching and the captured decode step.
 
 * :mod:`repro_torch.serving.conv_service`: bounded padded shape classes,
   one warm :class:`~repro_torch.plan.ConvPlan` per class, a class
   executor per class (a captured CUDA graph on the card), best-effort
   plan-cache warmup; the whisper mel and ViT patch-embed frontends.
-
-The JAX package's continuous-batching scheduler (``ContinuousBatcher``,
-``Request``, ``repro.serving.scheduler``) is ported with the dense and
-vlm families (ROADMAP Queue 1 item 10).
+* :mod:`repro_torch.serving.scheduler`: ``ContinuousBatcher`` and
+  ``Request`` (dense and vlm families), the per-slot decode step and the
+  pool.
+* :mod:`repro_torch.serving.step_graph`: ``DecodeProgram``, a decode step
+  over fixed buffers, one CUDA-graph replay a call on the card.
 
 CLI::
 
@@ -21,9 +22,14 @@ from repro_torch.serving.conv_service import (ConvService, ShapeClass,
                                               patch_embed_service,
                                               whisper_frontend_kernels,
                                               whisper_frontend_service)
+from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
+                                           batched_decode_step, init_pool,
+                                           insert_prefill)
+from repro_torch.serving.step_graph import DecodeProgram
 
 __all__ = [
     "ConvService", "ShapeClass", "WarmupReport", "parse_shape_classes",
     "fit_prefix", "whisper_frontend_kernels", "whisper_frontend_service",
-    "patch_embed_service",
+    "patch_embed_service", "ContinuousBatcher", "Request",
+    "batched_decode_step", "init_pool", "insert_prefill", "DecodeProgram",
 ]

@@ -1130,3 +1130,229 @@ def test_padding_region_is_zero_after_a_larger_request(cuda, name):
     assert float(buf[:n, :h, w:].abs().sum()) == 0.0
     fresh = _service(name, cuda)
     assert torch.equal(got, fresh(small))
+
+
+# ---------------------------------------------------------------------------
+# the decode step as one program, the batcher and the int8 cache
+# ---------------------------------------------------------------------------
+
+DECODE_ARCHS = ["yi-6b", "llava-next-34b", "zamba2-7b", "whisper-tiny"]
+INT8_ATTN_GATE, INT8_DECODE_GATE = 0.03, 0.05      # tests/test_kv_quant.py
+
+
+def _smoke_prefill(arch, device, n=8, steps=4, **kw):
+    """A smoke model of ``arch`` (f32) on ``device``, the cache of an
+    ``n``-token prefill (with seeded vision tokens or frames where the
+    family takes them) and ``steps`` further tokens."""
+    cfg = smoke_config(arch).with_(**kw)
+    model = lm.LM(cfg)
+    params = _to(model.init(torch.Generator().manual_seed(0), device="cpu"),
+                 device)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, n + steps), generator=gen)
+    batch = {"tokens": toks[:, :n].to(device)}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn((2, cfg.prefix_len, cfg.d_model),
+                                      generator=gen).to(device)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.encoder_len, cfg.d_model),
+                                      generator=gen).to(device)
+    _, cache = serve.prefill(model, params, batch,
+                             cfg.prefix_len * (cfg.family == "vlm")
+                             + n + 2 * steps)
+    return model, params, cache, toks[:, n:].to(device)
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_tree_equal(a[k], b[k])
+                                              for k in a)
+    return (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_captured_decode_step_equals_eager_bits(cuda, arch):
+    """Four decode steps from one cache through the captured program and
+    eagerly: equal bits on every step's logits and every cache leaf."""
+    from repro_torch.serving import DecodeProgram
+    with torch.inference_mode(), f32_accumulation():
+        model, params, cache, extra = _smoke_prefill(arch, cuda)
+        g_cache = lm.tree_map(torch.clone, cache)
+        prog = DecodeProgram(
+            lambda c, t: serve.decode_step(model, params, c, t), g_cache,
+            torch.zeros_like(extra[:, :1]))
+        assert prog.graph is not None
+        for i in range(extra.shape[1]):
+            prog.tokens.copy_(extra[:, i:i + 1])
+            got = prog().clone()
+            want, cache = serve.decode_step(model, params, cache,
+                                            extra[:, i:i + 1])
+            assert torch.equal(got, want), i
+        assert _tree_equal(g_cache, cache) and prog.replays == extra.shape[1]
+
+
+def test_capture_leaves_the_cache_as_built(cuda):
+    """The eager warm-up runs on a clone: the hybrid family's Mamba2 state
+    and conv history, and the length, are as the prefill left them."""
+    from repro_torch.serving import DecodeProgram
+    with torch.inference_mode(), f32_accumulation():
+        model, params, cache, extra = _smoke_prefill("zamba2-7b", cuda)
+        before = lm.tree_map(torch.clone, cache)
+        DecodeProgram(lambda c, t: serve.decode_step(model, params, c, t),
+                      cache, torch.zeros_like(extra[:, :1]))
+        torch.cuda.synchronize()
+        assert _tree_equal(cache, before)
+
+
+def test_serve_decodes_through_the_graph_on_the_card(cuda, monkeypatch):
+    import functools
+    from repro_torch.serving import DecodeProgram
+    cfg = smoke_config("yi-6b")
+    graph = launch_serve.serve(cfg, batch=2, prompt_len=8, gen=5, device=cuda)
+    monkeypatch.setattr(launch_serve, "DecodeProgram",
+                        functools.partial(DecodeProgram, graph=False))
+    eager = launch_serve.serve(cfg, batch=2, prompt_len=8, gen=5, device=cuda)
+    assert graph["decode_graph"] and not eager["decode_graph"]
+    assert 0 < graph["capture_s"] < graph["decode_s"]
+    assert torch.equal(graph["tokens"], eager["tokens"])
+    assert torch.equal(graph["logits"], eager["logits"])
+
+
+def _requests(cfg, n, seed, **kw):
+    from repro_torch.serving import Request
+    gen = torch.Generator().manual_seed(seed)
+    return [Request(rid=i, prompt=torch.randint(
+        0, cfg.vocab, (5 + 4 * i,), generator=gen).to("cuda"),
+        max_new_tokens=4 + i, **kw) for i in range(n)]
+
+
+def _record(batcher) -> dict:
+    """Wrap ``batcher``'s prefill and decode program so that each
+    request's logits rows (its prefill's, then one a tick while it is
+    live) collect in the returned {rid: [(V,) f32, ...]}."""
+    rows = {}
+    prefill, decode = batcher._prefill, batcher._decode
+
+    def recorded_prefill(req, slot):
+        row = prefill(req, slot)
+        rows[req.rid] = [row]
+        return row
+
+    def recorded_decode():
+        logits = decode()
+        for req in batcher.live.values():
+            rows[req.rid].append(logits[req.slot].clone())
+        return logits
+
+    batcher._prefill, batcher._decode = recorded_prefill, recorded_decode
+    return rows
+
+
+def _solo(model, params, req, feed=True):
+    """The request alone: (greedy tokens, logits rows); with ``feed`` the
+    decode steps read the request's own stream."""
+    logits, cache = serve.prefill(model, params, {"tokens": req.prompt[None]},
+                                  64)
+    out, rows = [int(torch.argmax(logits[0]))], [logits[0]]
+    for i in range(req.max_new_tokens - 1):
+        tok = req.out[i] if feed else out[-1]
+        logits, cache = serve.decode_step(model, params, cache,
+                                          torch.tensor([[tok]], device="cuda"))
+        out.append(int(torch.argmax(logits[0])))
+        rows.append(logits[0])
+    return out, rows
+
+
+def test_batcher_on_the_card_equals_each_request_alone(cuda):
+    """f32 smoke yi-6b, 5 requests through 2 captured slots: each stream
+    equals the request served alone on the card; the graph replayed."""
+    from repro_torch.serving import ContinuousBatcher
+    cfg = smoke_config("yi-6b")
+    model = lm.LM(cfg)
+    params = _to(model.init(torch.Generator().manual_seed(0), device="cpu"),
+                 cuda)
+    with torch.inference_mode(), f32_accumulation():
+        batcher = ContinuousBatcher(model, params, n_slots=2, max_len=64)
+        assert batcher._decode.graph is not None
+        for req in _requests(cfg, 5, 3):
+            batcher.submit(req)
+        done = batcher.run_until_done()
+        assert len(done) == 5 and batcher._decode.replays > 0
+        for req in done:
+            assert req.out == _solo(model, params, req, feed=False)[0]
+        assert batcher.cache["lens"].tolist() == [-1, -1]
+
+
+def test_int8_batcher_on_the_card(cuda):
+    """The int8 pool on the card: int8 k/v and bf16 scales, under 0.6 x the
+    bf16 pool's bytes, each request's logits within the int8 decode gate
+    of the float path fed the same tokens."""
+    from repro_torch.serving import ContinuousBatcher, init_pool
+    cfg = smoke_config("qwen3-4b")
+    model = lm.LM(cfg)
+    params = _to(model.init(torch.Generator().manual_seed(0), device="cpu"),
+                 cuda)
+    with torch.inference_mode(), f32_accumulation():
+        q8 = ContinuousBatcher(lm.LM(cfg.with_(kv_cache_int8=True)), params,
+                               n_slots=2, max_len=64)
+        bf = init_pool(lm.LM(cfg.with_(dtype="bfloat16")), 2, 64, device=cuda)
+
+        def nbytes(cache):
+            return sum(t.numel() * t.element_size() for t in cache.values())
+
+        assert q8.cache["k"].dtype == torch.int8
+        assert nbytes(q8.cache) < 0.6 * nbytes(bf)
+        got = _record(q8)
+        for req in _requests(cfg, 3, 4):
+            q8.submit(req)
+        for req in q8.run_until_done():
+            rows = _solo(model, params, req)[1]
+            assert max(_scaled(a, b) for a, b in zip(got[req.rid], rows)) \
+                < INT8_DECODE_GATE
+
+
+def test_int8_decode_attention_on_the_card(cuda):
+    from repro_torch.models.layers import decode_attention, quantize_kv
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((4, 1, 32, 128), generator=gen).to(cuda)
+    k, v = (torch.randn((4, 300, 8, 128), generator=gen).to(cuda)
+            for _ in range(2))
+    length = torch.tensor(257, dtype=torch.int32, device=cuda)
+    exact = decode_attention(q, k, v, length)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    assert _scaled(decode_attention(q, kq, vq, length, k_scale=ks,
+                                    v_scale=vs), exact) < INT8_ATTN_GATE
+    cq, cs = quantize_kv(k.cpu())
+    assert torch.equal(kq.cpu(), cq) and torch.equal(ks.cpu(), cs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_triangle_attention_on_the_card_equals_plain_bits(cuda, dtype):
+    from repro_torch.models.layers import (chunked_attention,
+                                           chunked_attention_tri)
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn((2, 300, 8, 64), generator=gen).to(cuda, DTYPES[dtype])
+    k, v = (torch.randn((2, 300, 2, 64), generator=gen).to(cuda, DTYPES[dtype])
+            for _ in range(2))
+    with f32_accumulation():
+        tri = chunked_attention_tri(q, k, v, q_chunk=64, kv_chunk=128)
+        plain = chunked_attention(q, k, v, causal=True, q_chunk=64,
+                                  kv_chunk=128)
+    assert torch.equal(tri, plain)
+
+
+def test_zz_a_failed_capture_raises(cuda):
+    """A step that reads a device value on the host cannot be captured:
+    the program raises, with no eager fallback.  (Last in the file: the
+    failed capture is the final CUDA work here.)"""
+    from repro_torch.serving import DecodeProgram
+    cache = {"x": torch.ones(4, device=cuda),
+             "len": torch.zeros((), dtype=torch.int32, device=cuda)}
+
+    def step(c, t):
+        scale = float(c["x"].sum().item())          # a host sync
+        return c["x"][None] * scale, dict(c, len=c["len"] + 1)
+
+    with pytest.raises(RuntimeError, match="capturing the decode step failed"):
+        DecodeProgram(step, cache, torch.zeros((1, 1), dtype=torch.long,
+                                               device=cuda))

@@ -442,13 +442,29 @@ def test_unported_families_raise(arch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "production"], "item 11"), (["--mesh", "multipod"], "item 11"),
-    (["--warm-plans", "--arch", "llava-next-34b"], "item 10")])
+    (["--mesh", "production"], "item 11"), (["--mesh", "multipod"], "item 11")])
 def test_unported_flags_raise(flags, item):
-    """Distributed execution, and the vlm family's frontend (its LM is not
-    ported)."""
+    """Distributed execution."""
     with pytest.raises(NotImplementedError, match=item):
         tlaunch.main(SMOKE_ARGS + flags)
+
+
+def test_warm_plans_serves_llava_through_the_patch_embed(tmp_path,
+                                                         monkeypatch, capsys):
+    """The vlm family's frontend: ``--warm-plans`` warms the patch embed
+    and serves its vision tokens ahead of the prompt."""
+    from repro_torch import plan
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE_DIR", str(tmp_path / "plans"))
+    monkeypatch.setenv("REPRO_TORCH_CALIBRATION", str(tmp_path / "off.json"))
+    plan.reset_global_plan_cache()
+    try:
+        gen = tlaunch.main(SMOKE_ARGS + ["--warm-plans", "--arch",
+                                         "llava-next-34b"])
+    finally:
+        plan.reset_global_plan_cache()
+    assert gen.shape == (2, 5)
+    out = capsys.readouterr().out
+    assert "warmed 2/2 shape class(es)" in out and "warmed 1 conv service" in out
 
 
 def test_warm_plans_on_a_family_without_a_frontend(capsys):
@@ -459,19 +475,5 @@ def test_warm_plans_on_a_family_without_a_frontend(capsys):
 
 def test_unported_attention_options_raise():
     _, cfg = _configs()
-    x = torch.zeros((1, 4, cfg.d_model))
-    p = TL.init_attention(torch.Generator(), cfg, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="attn_skip_masked"):
-        TL.attention_block(p, cfg.with_(attn_skip_masked=True), x,
-                           torch.arange(4))
-    with pytest.raises(NotImplementedError, match="int8"):
-        TL.init_kv_cache(cfg.with_(kv_cache_int8=True), 1, 4, torch.float32,
-                         device="cpu")
-    cache = TL.init_kv_cache(cfg, 1, 4, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TL.attention_decode(p, cfg, x[:, :1], dict(cache, k_s=None))
-    with pytest.raises(NotImplementedError, match="int8"):
-        TL.decode_attention(torch.zeros((1, 1, 4, 16)), cache["k"],
-                            cache["v"], 1, k_scale=cache["k"])
     with pytest.raises(NotImplementedError, match="training"):
         tlm.LM(cfg).forward({}, {})
