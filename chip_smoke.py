@@ -155,6 +155,19 @@ the script exits non-zero without its last line:
              against each request alone within 2e-2;
              ``chunked_attention_tri`` equal to ``chunked_attention`` to
              the bit at the prefill's length and the model's heads.
+6f. serve_ssm - xlstm-125m at full size (12 layers: 9 mLSTM and 3 sLSTM
+             blocks, d_model 768, d_in 1536, 4 heads of 384, vocab 50304),
+             bf16, seeded random weights, ``conv_impl="fused"``: ``serve()``
+             at batch 8, prompt 1024, 32 greedy tokens, graph and eager
+             (equal tokens), 12 K5 launches (one a block) and no K1-K4 in
+             each; K5 12 times a prefill and 0 times a decode step; graph
+             against eager (equal bits); a decode step and a prefill
+             traced (the sLSTM scan's share); in f32, decode against
+             prefill and the lowered conv against the fused one within
+             2e-2 (bf16 reported); long_500k's batch from
+             ``configs.shapes.make_batch``: its state bytes equal at 64 and
+             524,352 positions, 8 captured decode steps from position
+             524,287.
 7. timing  - each conv2d kernel at each Table-3 layer, batch 1 and 16,
              with CUDA events (median of 15 after 3 warm-up calls),
              beside its plain version, one library call and its bound.
@@ -167,8 +180,10 @@ the script exits non-zero without its last line:
              each output first checked against the f64 oracle and the
              plain version.  K5 at the zamba2-7b shape on the L2-cold
              timer (``cold_ms``), beside its plain version, cuDNN, two
-             copies of the same bytes and its bound, and again at k_w = 16
-             (its runtime-k_w path).  K2 against its library call
+             copies of the same bytes and its bound, again at k_w = 16
+             (its runtime-k_w path), and at xlstm-125m's mLSTM conv input
+             (8, 1024, 1536, k_w = 4; a strided view of the up
+             projection).  K2 against its library call
              (``as_strided().contiguous()``) over the five Table-3 layers
              at batch 16 in 5 alternating L2-cold rounds: medians and
              spreads.
@@ -258,6 +273,7 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
 DECODE_FROM = 384            # decode against prefill: 384 + 128 steps
 LOGITS_TOL = 2e-2            # tests/test_archs.py test_decode_matches_prefill
 IN_PROJ, CONV_LO, CONV_HI = 14576, 7168, 14464
+ZAMBA2_CONV = (SERVE_BATCH, SERVE_PROMPT, IN_PROJ, CONV_LO, CONV_HI)
 # configs/shapes.py long_500k: zamba2-7b at t = 524288
 LONG_T, LONG_WINDOW = 524288, 4096
 # plan-driven conv serving (phase 6b): the whisper mel frontend at
@@ -313,6 +329,15 @@ VLM_SLOTS, VLM_REQUESTS = 2, 4
 VLM_REQ_PROMPT, VLM_REQ_NEW = (32, 128), (8, 16)
 # the f32 gates at llava's full width: its depth cut to fit the card
 VLM_F32_LAYERS = 8
+# the ssm family served (phase 6f): xlstm-125m at full size (bf16, the fused
+# conv, K5 in every block's prefill) through serve() at batch, prompt and
+# generated tokens; its long_500k batch decoded this many captured steps;
+# K5 timed at its mLSTM conv input, x_in, the first d_in columns of each
+# 2 d_in-wide row of the up projection (n, t, row width, first, last + 1)
+SSM_ARCH = "xlstm-125m"
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 1024, 32
+SSM_LONG_STEPS = 8
+SSM_CONV = (SSM_BATCH, SSM_PROMPT, 3072, 0, 1536)
 # K2 against its library call (timing phase): alternate rounds, L2 cold
 K2_ROUNDS = 5
 # repro_torch.examples.train_cnn at its defaults (200 steps) through K4.
@@ -432,28 +457,32 @@ def ring_slots(bytes_per_call: int) -> int:
 
 
 def conv1d_timing(C, gen, kw: int, peak_flops: float, peak_bw: float,
-                  check_plain: bool = True) -> dict:
+                  check_plain: bool = True, shape=None) -> dict:
     """K5, its plain version and cuDNN's depthwise conv1d (one library call
-    on a contiguous (n, c, t) copy, the copy not timed) at the zamba2-7b
-    conv input in bf16, a column slice of the in_proj output as the model
-    passes it, each on the L2-cold timer; K5's output and cuDNN's are
-    checked against the plain version first.  Beside them, two copies of
-    the same bytes with no arithmetic: the slice's copy into a contiguous
-    tensor (``copy_ms``, PyTorch's strided copy kernel) and a clone of a
-    contiguous tensor of the conv's size (``memcpy_ms``, a device-to-device
-    memcpy), what streaming them takes on this card in practice.  ``C`` is
-    the module ``repro_torch.kernels.mec_conv1d``; ``check_plain=False``
-    skips K5's check, for a probe's variant that is wrong by design."""
-    n, t, c = SERVE_BATCH, SERVE_PROMPT, CONV_HI - CONV_LO
+    on a contiguous (n, c, t) copy, the copy not timed) at a model's conv
+    input in bf16, a column slice of its projection's output as the model
+    passes it, each on the L2-cold timer; K5's output must equal the plain
+    version's to the bit and cuDNN's must agree with it first.  ``shape``
+    is (n, t, row width, first column, last column + 1) of that slice,
+    by default the zamba2-7b conv input (ZAMBA2_CONV).  Beside them, two
+    copies of the same bytes with no arithmetic: the slice's copy into a
+    contiguous tensor (``copy_ms``, PyTorch's strided copy kernel) and a
+    clone of a contiguous tensor of the conv's size (``memcpy_ms``, a
+    device-to-device memcpy), what streaming them takes on this card in
+    practice.  ``C`` is the module ``repro_torch.kernels.mec_conv1d``;
+    ``check_plain=False`` skips K5's check, for a probe's variant that is
+    wrong by design."""
+    n, t, row, lo, hi = shape or ZAMBA2_CONV
+    c = hi - lo
     es = torch.tensor([], dtype=torch.bfloat16).element_size()
     flops, nbytes = 2 * kw * n * t * c, (2 * n * t * c + kw * c) * es
     k = torch.randn((kw, c), generator=gen, device=DEVICE, dtype=torch.bfloat16)
-    xs = [torch.randn((n, t, IN_PROJ), generator=gen, device=DEVICE,
-                      dtype=torch.bfloat16)[..., CONV_LO:CONV_HI]
+    xs = [torch.randn((n, t, row), generator=gen, device=DEVICE,
+                      dtype=torch.bfloat16)[..., lo:hi]
           for _ in range(ring_slots(nbytes))]
     check(not check_plain or torch.equal(C.mec_conv1d(xs[0], k),
                                          C.mec_conv1d_plain(xs[0], k)),
-          "K5 at the zamba2-7b shape differs from its plain version")
+          f"K5 at {[n, t, c, kw]} differs from its plain version")
     w_c1k = k.t().contiguous().unsqueeze(1)
     x_ncts = [x.permute(0, 2, 1).contiguous() for x in xs]
 
@@ -471,7 +500,7 @@ def conv1d_timing(C, gen, kw: int, peak_flops: float, peak_bw: float,
              "copy": cold_ms(torch.Tensor.contiguous, [(x,) for x in xs]),
              "memcpy": cold_ms(torch.Tensor.clone, [(x,) for x in x_ncts])}
     t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
-    return {"shape": [n, t, c, kw], "dtype": "bfloat16", "input_row_stride": IN_PROJ,
+    return {"shape": [n, t, c, kw], "dtype": "bfloat16", "input_row_stride": row,
             "ms": timed["kernel"]["ms"], "plain_ms": timed["plain"]["ms"],
             "library_ms": timed["library"]["ms"], "copy_ms": timed["copy"]["ms"],
             "memcpy_ms": timed["memcpy"]["ms"],
@@ -2090,6 +2119,206 @@ def serve_vlm_phase(seed: int) -> dict:
     return out
 
 
+def traced_prefill(model, params, batch, max_len) -> dict:
+    """One prefill (after an untraced one) under ``torch.profiler``: device
+    time by kernel and idle share, and the host-clock seconds spent in the
+    sLSTM blocks (``models.xlstm.slstm_core``, synchronised around each
+    call) over the prefill's seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import serve as serve_lib, xlstm
+    serve_lib.prefill(model, params, batch, max_len)
+    torch.cuda.synchronize()
+    core, spent = xlstm.slstm_core, [0.0]
+
+    def timed_core(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = core(*args)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return out
+
+    xlstm.slstm_core = timed_core
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            serve_lib.prefill(model, params, batch, max_len)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        xlstm.slstm_core = core
+    return {**device_breakdown(prof, wall, top=8), "slstm_seconds": spent[0],
+            "slstm_share": spent[0] / wall}
+
+
+def serve_ssm_phase(seed: int) -> dict:
+    """The ssm family on the card (phase 6f): xlstm-125m at full size (12
+    layers: 3 super-blocks of 3 mLSTM and 1 sLSTM block, d_model 768,
+    d_in 1536, 4 heads of 384, vocab 50304; seeded random weights),
+    ``conv_impl="fused"``.  (a) bf16 ``serve()`` at batch 8, prompt 1024,
+    32 greedy tokens, with the captured decode program and eagerly (equal
+    tokens): 12 K5 launches (one a block) and no K1-K4 in each run.
+    (b) bf16: K5 launches 12 times a prefill and 0 times a decode step;
+    graph against eager over 4 steps (equal bits, logits and every cache
+    leaf); decode against prefill (reported); four decode steps traced,
+    eagerly and captured; one prefill traced, with the sLSTM scan's share.
+    (c) f32: a prefill of 1024 tokens and one decode step against a
+    prefill of 1025, and the lowered conv against the fused one on the
+    same prompt, each within 2e-2 (bf16 reported).  (d) long_500k:
+    ``configs.shapes.make_batch`` (batch 1, the cache at position 524287),
+    its state bytes equal to a cache's of 64 and of max_seq (524352)
+    positions, then 8 captured decode steps from it."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.shapes import SHAPES, make_batch
+    from repro_torch.kernels import mec_conv as K, mec_conv1d as C
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm as lm_mod, serve as serve_lib
+    from repro_torch.models.layers import f32_accumulation
+    from repro_torch.serving import DecodeProgram
+
+    t_phase = time.perf_counter()
+    free_card()
+    cfg = ARCHS[SSM_ARCH].with_(conv_impl="fused")
+    n_blocks = cfg.n_layers
+    no_conv2d = {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0,
+                 "mec_conv_fused2": 0}
+    served = serve_both(cfg, seed, batch=SSM_BATCH, prompt_len=SSM_PROMPT,
+                        gen=SSM_GEN)
+    for mode in ("graph", "eager"):
+        counts = served[mode]["launches"]
+        check(counts == {**no_conv2d, "mec_conv1d": n_blocks},
+              f"xlstm-125m {mode} launched {counts}, not {n_blocks} K5 and "
+              "no K1-K4")
+    out = {"phase": "serve_ssm", "arch": SSM_ARCH, "dtype": cfg.dtype,
+           "conv_impl": cfg.conv_impl, "layers": cfg.n_layers,
+           "blocks": {"mlstm": n_blocks - n_blocks // cfg.slstm_every,
+                      "slstm": n_blocks // cfg.slstm_every},
+           "d_model": cfg.d_model, "d_in": 2 * cfg.d_model,
+           "heads": cfg.n_heads, "head_dim": 2 * cfg.d_model // cfg.n_heads,
+           "vocab": cfg.vocab, "param_count_approx": cfg.param_count(),
+           "serve": {"batch": SSM_BATCH, "prompt": SSM_PROMPT,
+                     "generated": SSM_GEN,
+                     **{m: public(served[m]) for m in served}},
+           "k5_launches_served": served["graph"]["launches"]["mec_conv1d"]}
+    fused_logits = served["graph"]["prefill_logits"]
+    del served
+    free_card()
+    model = lm_mod.LM(cfg)
+    with torch.inference_mode(), f32_accumulation():
+        params = launch_serve.init_params(cfg, seed, DEVICE)
+        out["params"] = sum(t.numel() for t in tree_leaves(params).values())
+        out["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(params).values())
+        # serve()'s prompt, and GRAPH_STEPS tokens more
+        head = {"tokens": launch_serve.make_prompt(cfg, SSM_BATCH, SSM_PROMPT,
+                                                   seed, DEVICE)}
+        extra = launch_serve.make_prompt(cfg, SSM_BATCH, GRAPH_STEPS,
+                                         seed + 7, DEVICE)
+        # (b) K5 per prefill and per decode step; serve() against a prefill
+        C.mec_conv1d.launches = 0
+        logits, cache = serve_lib.prefill(model, params, head,
+                                          SSM_PROMPT + GRAPH_STEPS)
+        torch.cuda.synchronize()
+        prefill_k5 = C.mec_conv1d.launches
+        C.mec_conv1d.launches = 0
+        for i in range(GRAPH_STEPS):
+            serve_lib.decode_step(model, params, cache, extra[:, i:i + 1])
+        torch.cuda.synchronize()
+        decode_k5 = C.mec_conv1d.launches
+        check(prefill_k5 == n_blocks and decode_k5 == 0,
+              f"xlstm-125m: K5 launched {prefill_k5} times in a prefill (not "
+              f"{n_blocks}) and {decode_k5} in {GRAPH_STEPS} decode steps")
+        out["k5_launches"] = {"prefill": prefill_k5,
+                              "decode_steps": GRAPH_STEPS,
+                              "decode": decode_k5}
+        out["serve_vs_prefill_err"] = scaled_err(fused_logits, logits)
+        check(out["serve_vs_prefill_err"] <= LOGITS_TOL,
+              f"xlstm-125m: serve() and a prefill of its prompt differ by "
+              f"{out['serve_vs_prefill_err']}")
+        out["decode_profile"] = profile_decode(model, params, cache,
+                                               extra[:, -1:], GRAPH_STEPS)
+        del cache, logits
+        out["prefill_profile"] = traced_prefill(model, params, head,
+                                                SSM_PROMPT)
+        out["family_checks"] = family_checks(model, params, head, extra,
+                                             gate=False)
+        out["family_checks"]["fused_vs_lowered"] = scaled_err(
+            serve_lib.prefill(model, params, head, SSM_PROMPT)[0],
+            serve_lib.prefill(lm_mod.LM(cfg.with_(conv_impl="lowered")),
+                              params, head, SSM_PROMPT)[0])
+        del params, head, extra
+        free_card()
+        # (c) the f32 gates
+        f32 = cfg.with_(dtype="float32")
+        model32 = lm_mod.LM(f32)
+        params = launch_serve.init_params(f32, seed, DEVICE)
+        prompt = launch_serve.make_prompt(f32, SSM_BATCH, SSM_PROMPT + 1,
+                                          seed, DEVICE)
+        head = {"tokens": prompt[:, :SSM_PROMPT]}
+        _, cache = serve_lib.prefill(model32, params, head, SSM_PROMPT + 1)
+        dec, _ = serve_lib.decode_step(model32, params, cache,
+                                       prompt[:, SSM_PROMPT:])
+        del cache
+        full, _ = serve_lib.prefill(model32, params, {"tokens": prompt},
+                                    SSM_PROMPT + 1)
+        fused, _ = serve_lib.prefill(model32, params, head, SSM_PROMPT)
+        lowered, _ = serve_lib.prefill(lm_mod.LM(f32.with_(conv_impl="lowered")),
+                                       params, head, SSM_PROMPT)
+        gates = {"decode_vs_prefill": scaled_err(dec, full),
+                 "fused_vs_lowered": scaled_err(fused, lowered),
+                 "finite": all(bool(torch.isfinite(t).all())
+                               for t in (dec, full, fused, lowered))}
+        for name in ("decode_vs_prefill", "fused_vs_lowered"):
+            check(gates[name] <= LOGITS_TOL, f"xlstm-125m f32 {name}: "
+                  f"{gates[name]} > {LOGITS_TOL}")
+        check(gates["finite"], "xlstm-125m f32: logits are not finite")
+        out["f32_gates"] = {**gates, "tol": LOGITS_TOL,
+                            "prompt": SSM_PROMPT}
+        del params, prompt, head, dec, full, fused, lowered
+        free_card()
+        # (d) long_500k: the state does not grow; captured steps from it
+        cell = SHAPES["long_500k"]
+        params = launch_serve.init_params(cfg, seed, DEVICE)
+        batch = make_batch(cfg, cell, seed, DEVICE)
+        cache = batch["cache"]
+        sizes = {n: pool_bytes(serve_lib.init_decode_cache(
+                     model, cell.global_batch, n, device=DEVICE))
+                 for n in (64, cfg.max_seq)}
+        check(int(cache["len"]) == cell.seq_len - 1
+              and set(sizes.values()) == {pool_bytes(cache)},
+              f"long_500k: len {int(cache['len'])}, state bytes "
+              f"{pool_bytes(cache)} against {sizes}")
+        t0 = time.perf_counter()
+        prog = DecodeProgram(
+            lambda c, t: serve_lib.decode_step(model, params, c, t), cache,
+            batch["tokens"].clone())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(prog.graph is not None, "long_500k: no graph captured")
+        t0 = time.perf_counter()
+        for _ in range(SSM_LONG_STEPS):
+            logits = prog()
+            prog.tokens.copy_(torch.argmax(logits, dim=-1, keepdim=True))
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all()) and
+              int(cache["len"]) == cell.seq_len - 1 + SSM_LONG_STEPS,
+              f"long_500k: len {int(cache['len'])} after {SSM_LONG_STEPS} steps")
+        out["long_500k"] = {"batch": cell.global_batch, "seq_len": cell.seq_len,
+                            "len_after": int(cache["len"]),
+                            "state_bytes": pool_bytes(cache),
+                            "state_bytes_at": sizes, "steps": SSM_LONG_STEPS,
+                            "build_seconds": build_s, "seconds": long_s,
+                            "tokens_per_s": (cell.global_batch * SSM_LONG_STEPS
+                                             / long_s)}
+        del prog, cache, batch, params, logits
+    free_card()
+    out["phase_seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit(out)
+    return out
+
+
 def profile_decode(model, params, cache, tok, steps: int = 4) -> dict:
     """Device time and idle share of ``steps`` decode steps from ``cache``
     (batch ``tok``), eagerly and through the captured program, each after
@@ -2675,6 +2904,9 @@ def main(argv=None) -> int:
     # 6e. serve_vlm: llava-next-34b through the warmed patch embed -----------
     vlm = serve_vlm_phase(args.seed)
 
+    # 6f. serve_ssm: xlstm-125m at full size, K5 in every block's prefill ---
+    ssm = serve_ssm_phase(args.seed)
+
     # 7. timing ------------------------------------------------------------
     def bound(flops, nbytes, peak=None):
         t_ops, t_bytes = flops / (peak or peak_flops), nbytes / peak_bw
@@ -2849,6 +3081,12 @@ def main(argv=None) -> int:
     # in_proj output, 59.7 MB, is not in the L2 when K5 reads it).
     k5 = conv1d_timing(C, gen, cfg.conv_width, peak_flops, peak_bw)
     emit({"phase": "timing", "kernel": "mec_conv1d", **k5})
+    # and at the xlstm-125m mLSTM conv input (x_in, a strided view of the
+    # up projection), its second caller
+    k5_ssm = conv1d_timing(C, gen, ARCHS[SSM_ARCH].conv_width, peak_flops,
+                           peak_bw, shape=SSM_CONV)
+    emit({"phase": "timing", "kernel": "mec_conv1d", "model": SSM_ARCH,
+          **k5_ssm})
     # and its runtime-k_w path at the same shape (no model reaches it)
     k5_any = conv1d_timing(C, gen, ANY_KW_TIMED, peak_flops, peak_bw)
     emit({"phase": "timing", "kernel": "mec_conv1d", "path": "runtime k_w",
@@ -2890,7 +3128,17 @@ def main(argv=None) -> int:
                 "memcpy_ms_per_call": k5["memcpy_ms"],
                 "any_kw": {"k_w": ANY_KW_TIMED,
                            **{f: k5_any[f] for f in ("ms", "plain_ms", "bound_ms",
-                                                     "library_ms")}}})
+                                                     "library_ms")}},
+                # the second caller, read around its own runs
+                "xlstm_125m": {
+                    "launches_served": ssm["k5_launches_served"],
+                    "launches_per_prefill": ssm["k5_launches"]["prefill"],
+                    "launches_per_decode_step": ssm["k5_launches"]["decode"],
+                    "shape": k5_ssm["shape"],
+                    "input_row_stride": k5_ssm["input_row_stride"],
+                    **{f: k5_ssm[f] for f in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms",
+                                              "copy_ms", "memcpy_ms")}}})
             continue
         recs = [(w, shapes[kname][(n, SLICE_BATCH)]) for n, w in weights[kname].items()]
 

@@ -10,10 +10,13 @@ prefill + decode loop.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \
         --warm-plans [--shape-classes 2x336x336] [--device cpu --smoke]
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+        [--smoke --device cpu]
+
 Runs on the card unless ``--device cpu``.  The dense, vlm (llava), hybrid
-(zamba2) and audio (whisper) families are served; moe and ssm raise
-``NotImplementedError`` naming their ROADMAP item (Queue 1 items 10.3 and
-10.4), and any ``--mesh`` but ``host`` item 11.  Prefill runs eagerly;
+(zamba2), ssm (xLSTM) and audio (whisper) families are served; moe raises
+``NotImplementedError`` naming its ROADMAP item (Queue 1 item 10.3), and
+any ``--mesh`` but ``host`` item 11.  Prefill runs eagerly;
 each decode step is a :class:`~repro_torch.serving.step_graph.
 DecodeProgram`: one CUDA-graph replay on the card (the counterpart of the
 JAX package's jitted step), an eager step on the CPU; sampling stays
@@ -30,9 +33,10 @@ patch 4) to ``prefix_len`` vision tokens.  The default classes are
 embeddings and the vlm prefill stub vision tokens (batch, prefix_len,
 d_model).  Where the JAX package feeds zeros (a zero mel or image, zero
 frames or vision tokens), the port feeds seeded N(0, 1) draws, so the
-model sees data.  ``ModelConfig.conv_impl`` has no flag: a caller that
-wants the fused conv1d kernel (K5) passes ``cfg.with_(conv_impl="fused")``
-to :func:`serve`.
+model sees data.  ``ModelConfig.conv_impl`` has no flag, as in the JAX
+package: a caller that wants the fused conv1d kernel (K5, in every Mamba2
+and xLSTM block's prefill) passes ``cfg.with_(conv_impl="fused")`` to
+:func:`serve`.
 """
 from __future__ import annotations
 

@@ -1,21 +1,25 @@
 """Language-model assembly (counterpart of ``repro.models.lm``).
 
-Four families are ported, for serving (``models.serve``):
+Five families are ported, for serving (``models.serve``):
   dense   a GQA transformer: stacked blocks of attention and SwiGLU;
   vlm     llava: the dense backbone, with a ``vision_proj`` linear that
           maps vision tokens into the prompt's prefix;
   hybrid  zamba2: Mamba2 layers and ONE shared attention+SwiGLU block
           applied after every ``attn_every`` layers (weight sharing);
+  ssm     xLSTM: super-blocks of ``slstm_every - 1`` mLSTM blocks and one
+          sLSTM block (``models.xlstm``);
   audio   whisper: an encoder over frame embeddings (non-causal attention
           and a GELU MLP) and a decoder with causal self-attention and
           cross-attention to the encoder output.
-The moe and ssm (xLSTM) families, and the training path (``forward``),
-raise ``NotImplementedError`` naming their ROADMAP item.
+The moe family and the training path (``forward``) raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Parameters are nested dicts of tensors with the JAX package's tree and
 layer-stacked leaves: the dense and vlm blocks are stacked (layers, ...),
 the Mamba2 layers of the super-blocks (n_super, attn_every, ...) and the
-tail (tail, ...), so ``convert.params_from_jax`` maps leaf for leaf.  The
+tail (tail, ...), the xLSTM super-blocks' mLSTM blocks (n_super,
+slstm_every - 1, ...) and sLSTM blocks (n_super, ...), so
+``convert.params_from_jax`` maps leaf for leaf.  The
 JAX package's ``lax.scan`` over the stack becomes a Python loop over its
 leading axes.  The audio family's encoder and decoder blocks are stacked
 (layers, ...).
@@ -28,7 +32,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention_block,
                                        init_attention, init_linear,
@@ -44,10 +48,9 @@ def torch_dtype(cfg) -> torch.dtype:
 
 
 #: the families this package serves
-PORTED_FAMILIES = ("hybrid", "audio", "dense", "vlm")
+PORTED_FAMILIES = ("hybrid", "audio", "dense", "vlm", "ssm")
 #: the ROADMAP items that port the rest
-UNPORTED_ITEMS = {"moe": "ROADMAP Queue 1 item 10.3",
-                  "ssm": "ROADMAP Queue 1 item 10.4"}
+UNPORTED_ITEMS = {"moe": "ROADMAP Queue 1 item 10.3"}
 TRAINING_ITEM = "ROADMAP Queue 1 item 10.6"
 
 
@@ -175,6 +178,15 @@ class LM:
                 (cfg.n_layers,))
             params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dt,
                                             device=device)
+            return params
+        if cfg.family == "ssm":
+            n_super, k_m = cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+            params["mlstm"] = stack_init(
+                lambda: xlstm.init_mlstm(generator, cfg, dt, device=device),
+                (n_super, k_m))
+            params["slstm"] = stack_init(
+                lambda: xlstm.init_slstm(generator, cfg, dt, device=device),
+                (n_super,))
             return params
         n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
 

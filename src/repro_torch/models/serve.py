@@ -1,9 +1,9 @@
 """Serving paths (counterpart of ``repro.models.serve``): prefill (build
 caches from a prompt) and single-token decode.
 
-The dense, vlm (llava), hybrid (zamba2) and audio (whisper) families are
-ported; moe and ssm raise ``NotImplementedError`` naming their ROADMAP
-item (Queue 1 items 10.3 and 10.4).  Caches are dicts with the JAX
+The dense, vlm (llava), hybrid (zamba2), ssm (xLSTM) and audio (whisper)
+families are ported; moe raises ``NotImplementedError`` naming its
+ROADMAP item (Queue 1 item 10.3).  Caches are dicts with the JAX
 package's tree and layer-stacked leaves:
 
     dense, vlm: {"k", "v": (n_layers, B, max_len, KV, D),
@@ -17,6 +17,12 @@ package's tree and layer-stacked leaves:
              "attn_k", "attn_v": (n_super, B, max_len, KV, D),
              "tail": the tail layers' {"state", "conv"} or None,
              "len": 0-d int32}
+    ssm:    {"mlstm": {"c": (n_super, k_m, B, H, P, P), "n": (..., B, H, P),
+                       "m": (..., B, H), "conv": (..., B, k_w - 1, d_in)},
+             "slstm": {"c", "n", "m", "h": (n_super, B, H, P),
+                       "conv": (n_super, B, k_w - 1, d_in)},
+             "len": 0-d int32}, all f32, k_m = slstm_every - 1 and
+            d_in = 2 d_model; no leaf grows with the sequence.
     audio:  {"k", "v": (n_layers, B, max_len, KV, D),
              "cross_k", "cross_v": (n_layers, B, T_enc, KV, D),
              "len": 0-d int32}
@@ -30,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, xlstm
 from repro_torch.models.layers import (attention_decode, decode_attention,
                                        kv_planes, linear, rms_norm, swiglu)
 from repro_torch.models.lm import (LM, dense_block, gelu_mlp, require_ported,
@@ -57,10 +63,26 @@ def _logits_one(model: LM, params, h):
     return _logits_last(model, params, h)
 
 
-def _stacked_mamba_cache(cfg, prefix, batch: int, device):
+def _stacked(layer_cache: dict, prefix) -> dict:
+    """One layer's zero cache stacked over ``prefix``: buffers of their own
+    (clones), not ``expand`` views, since decode writes them in place."""
     return tree_map(lambda t: t.expand(prefix + tuple(t.shape)).clone(),
-                    mamba2.init_mamba_cache(cfg, batch, torch_dtype(cfg),
-                                            device=device))
+                    layer_cache)
+
+
+def _stacked_mamba_cache(cfg, prefix, batch: int, device):
+    return _stacked(mamba2.init_mamba_cache(cfg, batch, torch_dtype(cfg),
+                                            device=device), prefix)
+
+
+def _ssm_caches(cfg, batch: int, device):
+    """The ssm family's zero mLSTM (n_super, k_m, ...) and sLSTM
+    (n_super, ...) caches."""
+    n_super, k_m = cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+    return (_stacked(xlstm.init_mlstm_cache(cfg, batch, device=device),
+                     (n_super, k_m)),
+            _stacked(xlstm.init_slstm_cache(cfg, batch, device=device),
+                     (n_super,)))
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +212,50 @@ def _hybrid_decode(model: LM, params, cache, tokens):
 
 
 # ---------------------------------------------------------------------------
+# ssm (xLSTM)
+# ---------------------------------------------------------------------------
+
+def _ssm_prefill(model: LM, params, batch, max_len: int):  # lint-ignore: accepted-kwarg-not-forwarded
+    """Super-blocks of k_m mLSTM blocks and one sLSTM block; each block's
+    state goes straight into the stacked cache.  ssm caches are
+    length-free: ``max_len`` (the dispatch signature's) is not read."""
+    cfg = model.cfg
+    h = model.embed(params, batch["tokens"])
+    b, s = h.shape[:2]
+    mc, sc = _ssm_caches(cfg, b, h.device)
+    n_super, k_m = mc["c"].shape[:2]
+    for i in range(n_super):
+        for j in range(k_m):
+            out, c = xlstm.mlstm_prefill(tree_at(params["mlstm"], (i, j)),
+                                         cfg, h)
+            tree_set(mc, (i, j), c)
+            h = h + out
+        out, c = xlstm.slstm_core(tree_at(params["slstm"], (i,)), cfg, h)
+        tree_set(sc, (i,), c)
+        h = h + out
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    cache = {"mlstm": mc, "slstm": sc,
+             "len": torch.tensor(s, dtype=torch.int32, device=h.device)}
+    return _logits_last(model, params, h), cache
+
+
+def _ssm_decode(model: LM, params, cache, tokens):
+    cfg = model.cfg
+    h = model.embed(params, tokens)
+    n_super, k_m = cache["mlstm"]["c"].shape[:2]
+    for i in range(n_super):
+        for j in range(k_m):
+            out, _ = xlstm.mlstm_decode(tree_at(params["mlstm"], (i, j)), cfg,
+                                        h, tree_at(cache["mlstm"], (i, j)))
+            h = h + out
+        out, _ = xlstm.slstm_decode(tree_at(params["slstm"], (i,)), cfg, h,
+                                    tree_at(cache["slstm"], (i,)))
+        h = h + out
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _logits_one(model, params, h), dict(cache, len=cache["len"] + 1)
+
+
+# ---------------------------------------------------------------------------
 # audio (whisper enc-dec)
 # ---------------------------------------------------------------------------
 
@@ -247,9 +313,11 @@ def _audio_decode(model: LM, params, cache, tokens):
 # ---------------------------------------------------------------------------
 
 _PREFILL = {"dense": _attn_families_prefill, "vlm": _attn_families_prefill,
-            "hybrid": _hybrid_prefill, "audio": _audio_prefill}
+            "hybrid": _hybrid_prefill, "ssm": _ssm_prefill,
+            "audio": _audio_prefill}
 _DECODE = {"dense": _attn_families_decode, "vlm": _attn_families_decode,
-           "hybrid": _hybrid_decode, "audio": _audio_decode}
+           "hybrid": _hybrid_decode, "ssm": _ssm_decode,
+           "audio": _audio_decode}
 
 
 def prefill(model: LM, params, batch, max_len: int):
@@ -285,6 +353,9 @@ def init_decode_cache(model: LM, batch: int, max_len: int, device="cuda"):
                 "cross_k": zeros(cfg.n_layers, batch, cfg.encoder_len, kv, hd),
                 "cross_v": zeros(cfg.n_layers, batch, cfg.encoder_len, kv, hd),
                 "len": length}
+    if cfg.family == "ssm":
+        mc, sc = _ssm_caches(cfg, batch, device)
+        return {"mlstm": mc, "slstm": sc, "len": length}
     n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
     return {"mamba": _stacked_mamba_cache(cfg, (n_super, cfg.attn_every),
                                           batch, device),

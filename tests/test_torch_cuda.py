@@ -701,6 +701,27 @@ def test_conv1d_kernel_at_the_zamba2_shape_on_a_column_slice(cuda, dtype):
     assert torch.equal(y, C.mec_conv1d_plain(x.contiguous(), k))
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_conv1d_kernel_at_the_xlstm_shape_on_a_strided_view(cuda, dtype):
+    """(8, 1024, 1536, k_w = 4): the conv input of every xlstm-125m mLSTM
+    block at chip_smoke's prefill, x_in, the first half of each
+    3072-wide row of the up projection, read through its strides (no
+    copy): one launch, equal to the plain version to the bit.  CPU
+    counterpart: tests/test_torch_xlstm.py
+    test_k5_runs_once_a_block_in_prefill_and_never_in_decode."""
+    g = torch.Generator(cuda).manual_seed(11)
+    up = torch.randn((8, 1024, 3072), generator=g, device=cuda).to(DTYPES[dtype])
+    x = up[..., :1536]
+    k = torch.randn((4, 1536), generator=g, device=cuda).to(DTYPES[dtype])
+    before = C.mec_conv1d.launches
+    y = C.mec_conv1d(x, k)
+    torch.cuda.synchronize()
+    assert C.mec_conv1d.launches == before + 1
+    assert C.vector_bytes(x, k, y) == 16
+    assert torch.equal(y, C.mec_conv1d_plain(x.contiguous(), k))
+    assert _within(y, ref.conv1d_ref(x.double(), k.double()), CONV1D_TOL[dtype])
+
+
 # (dtype, first column, c, vector bytes): the zamba2 column slice (columns
 # 7168 .. 14463 of a 14576-wide row), slices moved by 1, 2 and 4 elements,
 # and a c off the 16-byte vector: every vector width of every dtype
@@ -1136,7 +1157,8 @@ def test_padding_region_is_zero_after_a_larger_request(cuda, name):
 # the decode step as one program, the batcher and the int8 cache
 # ---------------------------------------------------------------------------
 
-DECODE_ARCHS = ["yi-6b", "llava-next-34b", "zamba2-7b", "whisper-tiny"]
+DECODE_ARCHS = ["yi-6b", "llava-next-34b", "zamba2-7b", "whisper-tiny",
+                "xlstm-125m"]
 INT8_ATTN_GATE, INT8_DECODE_GATE = 0.03, 0.05      # tests/test_kv_quant.py
 
 
@@ -1202,6 +1224,43 @@ def test_capture_leaves_the_cache_as_built(cuda):
                       cache, torch.zeros_like(extra[:, :1]))
         torch.cuda.synchronize()
         assert _tree_equal(cache, before)
+
+
+def test_xlstm_capture_leaves_the_cache_as_built(cuda):
+    """The ssm family's mLSTM and sLSTM state, conv history and length are
+    as the prefill left them until the first replay, which advances them
+    as one eager step does.  CPU counterpart: tests/test_torch_xlstm.py
+    test_decode_writes_the_cache_in_place."""
+    from repro_torch.serving import DecodeProgram
+    with torch.inference_mode(), f32_accumulation():
+        model, params, cache, extra = _smoke_prefill("xlstm-125m", cuda)
+        before = lm.tree_map(torch.clone, cache)
+        prog = DecodeProgram(
+            lambda c, t: serve.decode_step(model, params, c, t), cache,
+            torch.zeros_like(extra[:, :1]))
+        torch.cuda.synchronize()
+        assert prog.graph is not None and _tree_equal(cache, before)
+        prog.tokens.copy_(extra[:, :1])
+        prog()
+        _, want = serve.decode_step(model, params, before, extra[:, :1])
+        assert _tree_equal(cache, want)
+
+
+def test_xlstm_serve_on_the_card_launches_k5_per_block(cuda):
+    """conv_impl="fused": one K5 launch a block in the prefill (4 at smoke
+    size), none in decode, no K1-K4; the greedy tokens of the lowered
+    path."""
+    cfg = smoke_config("xlstm-125m")
+    runs = {}
+    for impl in ("fused", "lowered"):
+        C.mec_conv1d.launches = 0
+        K.reset_launch_counts()
+        runs[impl] = launch_serve.serve(cfg.with_(conv_impl=impl), batch=2,
+                                        prompt_len=16, gen=5, device=cuda)
+        assert C.mec_conv1d.launches == (cfg.n_layers if impl == "fused" else 0)
+        assert K.launch_counts() == NO_LAUNCHES
+        assert runs[impl]["decode_graph"]
+    assert torch.equal(runs["fused"]["tokens"], runs["lowered"]["tokens"])
 
 
 def test_serve_decodes_through_the_graph_on_the_card(cuda, monkeypatch):
