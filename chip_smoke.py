@@ -25,7 +25,12 @@ the script exits non-zero without its last line:
              k_w = 9, 16 and 33, to the bit.  Then mixed operand dtypes
              (fault F4: bf16 x f32, f32 x bf16, f16 x bf16): K1, K4,
              K2+K3 and K5 equal to the bit to their f32 runs on the
-             promoted operands, cast to the input's dtype.
+             promoted operands, cast to the input's dtype.  Then K5's
+             gradient (fault F10): the wrapper's autograd node at the
+             zamba2-7b and xlstm-125m conv inputs (strided slices) in f32
+             and bf16, dx and dk against the plain version's autograd
+             within the f32 gradient budget; one launch a forward, none in
+             the backward.
 4. slice   - the inference path: the 34 convolutions of the ResNet-101
              Table-3 stack at batch 16 through ``conv2d(algorithm="auto")``
              (K1), then each of its five layers through ``mec_lowered``
@@ -168,6 +173,39 @@ the script exits non-zero without its last line:
              ``configs.shapes.make_batch``: its state bytes equal at 64 and
              524,352 positions, 8 captured decode steps from position
              524,287.
+6g. serve_moe - qwen3-moe-30b-a3b at full size (48 layers, 128 experts
+             of d_ff 768, top-8, 30.5 B parameters, bf16, seeded random
+             weights drawn layer by layer on the card): ``serve()`` at batch
+             8, prompt 128, 32 tokens, graph and eager (equal tokens, last
+             logits and drop counts; the prefill's and each step's dropped
+             assignments printed); graph against eager over 4 steps on the
+             float cache and on the cache quantized to int8 (equal bits;
+             int8 against float reported); in f32 at 8 of 48 layers, 4
+             decode steps from prefills of 1 x 1 up to 2 x 2048 tokens,
+             each against a prefill of the same tokens within 2e-2 where
+             neither path dropped an assignment.  kimi-k2-1t-a32b at full width (384
+             experts of d_ff 2048 at d_model 7168, one shared expert) and
+             the depth that fits the card, printed: ``serve()`` at batch 2,
+             prompt 32, 8 tokens, graph against eager.
+6h. train_lm - LM training: one ``training.steps.make_train_step`` step
+             (bf16, remat, AdamW in place) per family at full width and the
+             largest depth whose 12 bytes a parameter fit beside 14 GB and
+             a layer's f32 attention probabilities, printed: xlstm-125m, whisper-tiny, qwen3-4b at full size,
+             zamba2-7b, qwen3-moe-30b-a3b and llava-next-34b cut; batch 2 x
+             512 tokens; step seconds and peak bytes; xlstm-125m and
+             zamba2-7b with ``conv_impl="fused"``, K5 counted in the step
+             (its forward and its remat recompute).  Their gradients in f32
+             at full width (2 and 4 layers) through K5 against the lowered
+             conv, each leaf within 1e-4.  The chunked loss at 8 x 2048
+             tokens and vocab 151,936: peak within one chunk's f32 logits
+             plus the head's f32 copy and gradient, beside one chunk.
+             ``launch.train`` on xlstm-125m at full size for 20 steps with a
+             checkpoint at 10, then a new process from that checkpoint:
+             steps 10-19's losses equal to the bit, the loss falling
+             (deterministic algorithms, cuBLAS workspace pinned).  The
+             optimizer learns: xlstm-125m's loss on one repeated batch
+             falls by 10 times the spread between batches in 6 steps.
+             One zamba2-7b step traced: K5's device time in it.
 7. timing  - each conv2d kernel at each Table-3 layer, batch 1 and 16,
              with CUDA events (median of 15 after 3 warm-up calls),
              beside its plain version, one library call and its bound.
@@ -183,7 +221,8 @@ the script exits non-zero without its last line:
              copies of the same bytes and its bound, again at k_w = 16
              (its runtime-k_w path), and at xlstm-125m's mLSTM conv input
              (8, 1024, 1536, k_w = 4; a strided view of the up
-             projection).  K2 against its library call
+             projection) and at its training caller's input (zamba2-7b's
+             conv input at the train step's 2 x 512).  K2 against its library call
              (``as_strided().contiguous()``) over the five Table-3 layers
              at batch 16 in 5 alternating L2-cold rounds: medians and
              spreads.
@@ -338,6 +377,65 @@ SSM_ARCH = "xlstm-125m"
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 1024, 32
 SSM_LONG_STEPS = 8
 SSM_CONV = (SSM_BATCH, SSM_PROMPT, 3072, 0, 1536)
+# the moe family served (phase 6g): qwen3-moe-30b-a3b at full size through
+# serve() (batch, prompt, generated tokens), the float and the int8 cache;
+# its f32 gates at MOE_F32_LAYERS of 48 layers: GRAPH_STEPS decode steps
+# from a prefill of each (batch, prompt, capacity) of MOE_GATE_CASES, each
+# step against a prefill of the same tokens, gated where neither path
+# dropped an assignment.  Batches of at most 4 rows never drop in decode (a
+# step's top-8 assignments never fill an expert's minimum capacity of 4),
+# nor does a prefill of at most 4 tokens, so the (1, 1) case gates its
+# first three steps whatever the router; the longer prompts drop on random
+# weights (their router sends most tokens to a few experts) and are gated
+# where they do not; "no_drop" sets the capacity factor to n_experts /
+# top_k, where every bucket holds every token, so nothing can drop.  kimi-k2-1t-a32b at full width
+# and the depth whose bf16 weights fit beside its head's f32 copy and
+# KIMI_HEADROOM bytes, through serve() (batch, prompt, tokens)
+MOE_ARCH, MOE_BIG_ARCH = "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 128, 32
+MOE_F32_LAYERS = 8
+MOE_GATE_CASES = ((1, 1, None), (1, 16, None), (2, 256, None),
+                  (2, 2048, None), (2, 256, "no_drop"))
+KIMI_BATCH, KIMI_PROMPT, KIMI_GEN = 2, 32, 8
+KIMI_HEADROOM = 1.5e9
+# LM training on one card (phase 6h): one step per family at full width and
+# the largest depth whose parameters, gradients and AdamW moments (12 bytes
+# a parameter) fit beside TRAIN_HEADROOM bytes, batch x sequence
+# TRAIN_BATCH x TRAIN_SEQ; zamba2-7b and xlstm-125m with the fused conv
+# (K5), their gradients at full width against the lowered conv in f32 at
+# TRAIN_GRAD_LAYERS; the chunked loss's peak at LOSS_TOKENS tokens of
+# qwen3-4b's head (vocab 151,936) against the same loss in one chunk;
+# launch.train on xlstm-125m for RESUME_STEPS steps, checkpointed at
+# RESUME_AT, then resumed from that checkpoint in a new process
+TRAIN_ARCHS = ("xlstm-125m", "whisper-tiny", "qwen3-4b", "zamba2-7b",
+               "qwen3-moe-30b-a3b", "llava-next-34b")
+TRAIN_FUSED = ("xlstm-125m", "zamba2-7b")
+# its step traced with torch.profiler (a third step), for K5's device time
+# in a train step: the kernels of csrc/mec_conv1d.cu by name
+TRAIN_TRACED = "zamba2-7b"
+K5_KERNELS = ("conv1d_kernel", "conv1d_any_kw_kernel")
+TRAIN_BATCH, TRAIN_SEQ = 2, 512
+# beside the state: activations, a stacked leaf's gradient stacked from
+# its layers' (6.4 GiB for zamba2-7b's in_proj at 71 layers) and the
+# allocator's fragmentation; a step's peak above 12 bytes a parameter read
+# 6.4 GB for zamba2-7b at 62 layers, 3.8-3.9 GB for qwen3-4b and
+# qwen3-moe-30b-a3b (the plain attention's state apart) on an H100 80GB
+TRAIN_HEADROOM = 14e9
+TRAIN_BYTES_PER_PARAM = 12
+TRAIN_GRAD_LAYERS = {"zamba2-7b": 2, "xlstm-125m": 4}
+TRAIN_GRAD_TOL = 1e-4
+LOSS_ARCH, LOSS_TOKENS, LOSS_CHUNK = "qwen3-4b", (8, 2048), 512
+# its rate: below 7e-4, at which both packages' xlstm-125m reach NaN
+# within 12 steps (F11); over 20 steps its loss still moves about as much
+# as the batches differ
+RESUME_STEPS, RESUME_AT, RESUME_LR = 20, 10, 5e-4
+# whether the optimizer learns, which the resume's 20 steps cannot show
+# (its loss moves about as much as the batches differ): xlstm-125m at
+# RESUME_LR on one repeated batch of launch.train's shape, its fall over
+# OVERFIT_STEPS steps against OVERFIT_SPREADS x the spread of the initial
+# parameters' loss over OVERFIT_BATCHES batches
+OVERFIT_STEPS, OVERFIT_BATCHES, OVERFIT_SPREADS = 6, 8, 10
+OVERFIT_SHAPE = (8, 128)
 # K2 against its library call (timing phase): alternate rounds, L2 cold
 K2_ROUNDS = 5
 # repro_torch.examples.train_cnn at its defaults (200 steps) through K4.
@@ -509,6 +607,53 @@ def conv1d_timing(C, gen, kw: int, peak_flops: float, peak_bw: float,
             "timer": "L2-cold", "cold": timed}
 
 
+def k5_gradient_case(C, ref, gen, grad_tolerance, cases=None) -> list:
+    """K5's gradient (fault F10): the wrapper's autograd node at zamba2-7b's
+    and xlstm-125m's conv inputs (strided column slices of their
+    projections; ``cases`` maps a name to (n, t, row width, first column,
+    last column + 1)), dx and dk against the plain version's autograd in
+    f32 and bf16, within the f32 gradient budget; one launch a forward,
+    none in the backward."""
+    out = []
+    cases = cases or {"zamba2-7b": ZAMBA2_CONV, "xlstm-125m": SSM_CONV}
+    for name, (n, t, width, lo, hi) in cases.items():
+        for dname in ("float32", "bfloat16"):
+            dtype = DTYPES[dname]
+            row = torch.randn((n, t, width), generator=gen, device=DEVICE).to(dtype)
+            k = torch.randn((4, hi - lo), generator=gen, device=DEVICE).to(dtype)
+            g = torch.randn((n, t, hi - lo), generator=gen, device=DEVICE).to(dtype)
+            got = {}
+            for path, fn in (("kernel", C.mec_conv1d), ("plain", C.mec_conv1d_plain)):
+                xr = row.clone().requires_grad_(True)
+                kr = k.clone().requires_grad_(True)
+                C.mec_conv1d.launches = 0
+                y = fn(xr[..., lo:hi], kr)
+                fwd_launches = C.mec_conv1d.launches
+                check(y.grad_fn is not None, f"K5 {name} {dname} {path}: no grad_fn")
+                y.backward(g)
+                torch.cuda.synchronize()
+                got[path] = (xr.grad[..., lo:hi], kr.grad, fwd_launches,
+                             C.mec_conv1d.launches)
+            check(got["kernel"][2:] == (1, 1) and got["plain"][2:] == (0, 0),
+                  f"K5 {name} {dname}: launches {got['kernel'][2:]} (kernel) "
+                  f"and {got['plain'][2:]} (plain) around forward, backward")
+            tols = {"dx": grad_tolerance("mec_fused", "float32", 4),
+                    "dk": grad_tolerance("mec_fused", "float32", n * t)}
+            errs = {"dx": ref.scaled_error(got["kernel"][0], got["plain"][0]),
+                    "dk": ref.scaled_error(got["kernel"][1], got["plain"][1])}
+            for what in errs:
+                check(errs[what] <= tols[what], f"K5 {name} {dname} {what}: "
+                      f"{errs[what]} > {tols[what]} against the plain autograd")
+            out.append({"model": name, "dtype": dname, "shape": [n, t, hi - lo],
+                        "err": errs, "tol": tols,
+                        "bits_equal": {w: bool(torch.equal(got["kernel"][i],
+                                                           got["plain"][i]))
+                                       for i, w in enumerate(("dx", "dk"))}})
+            del row, k, g, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def lowered_view(x, k_w, s_w):
     """L as a strided view of I: L[n, w, h, q] = I[n, h, s_w*w, q]."""
     n, ih, iw, ic = x.shape
@@ -558,17 +703,23 @@ def conv1d_case(C, ref, name, dname, x, k, window=None):
             "scaled_err_vs_f64": scaled_err(y, oracle)}
 
 
+def dev_us(e) -> float:
+    """A torch.profiler event's own device microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_kernels(prof) -> list:
+    """The device kernels of a torch.profiler trace, by name."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+
+
 def device_breakdown(prof, wall_s: float, top: int = 15) -> dict:
     """Device time by kernel from a torch.profiler trace, and the device's
     busy share of the ``wall_s`` host-clock window."""
-    from torch.autograd import DeviceType
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    kernels = device_kernels(prof)
     busy_us = sum(dev_us(e) for e in kernels)
     kernels.sort(key=dev_us, reverse=True)
     return {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
@@ -1543,7 +1694,9 @@ def serve_both(cfg, seed: int, **kw) -> dict:
                      "warmup": [(r.warning_count, r.plan_cache_io_errors,
                                  [p.algorithm for p in r.plans.values()])
                                 for r in res["warmup"]],
-                     "tokens": toks, "prefill_logits": res["prefill_logits"]}
+                     "drops": res["drops"],
+                     "tokens": toks, "prefill_logits": res["prefill_logits"],
+                     "logits": res["logits"]}
         del res
     check(torch.equal(out["graph"]["tokens"], out["eager"]["tokens"]),
           f"{cfg.name}: graph and eager decode gave other greedy tokens")
@@ -2319,6 +2472,518 @@ def serve_ssm_phase(seed: int) -> dict:
     return out
 
 
+def int8_cache_of(cache: dict) -> dict:
+    """The float attention cache quantized into int8 planes with bf16
+    scales (``models.layers.kv_planes``/``kv_entries``), its length kept."""
+    from repro_torch.models.layers import kv_entries, kv_planes
+    q = kv_planes(tuple(cache["k"].shape), None, True, cache["k"].device)
+    for name, val in kv_entries(q, cache["k"], cache["v"]):
+        q[name].copy_(val)
+    return {**q, "len": cache["len"].clone()}
+
+
+def layer_bytes(cfg, es: int):
+    """(bytes of one layer, bytes of everything else) of the model's
+    parameters at ``es`` bytes each, from ``param_count``."""
+    base = cfg.with_(n_layers=0).param_count()
+    return (cfg.with_(n_layers=1).param_count() - base) * es, base * es
+
+
+def serve_moe_phase(seed: int) -> dict:
+    """The moe family on the card (phase 6g).  (a) qwen3-moe-30b-a3b at full
+    size (48 layers, 128 experts of d_ff 768, top-8, seeded random bf16
+    weights drawn layer by layer on the card): ``serve()`` at batch 8,
+    prompt 128, 32 greedy tokens, with the captured decode program and
+    eagerly: equal tokens and last logits, equal drop counts (printed: the
+    prefill's and each decode step's), no conv kernel.  (b) bf16: from a
+    prefill of the same prompt, GRAPH_STEPS decode steps through the graph
+    against the eager step (equal bits, logits and every cache leaf), on
+    the float cache and on the cache quantized to int8; the int8 steps'
+    logits against the float steps' (reported).  (c) f32 at 8 of 48 layers
+    (full depth in f32 is 122 GB): GRAPH_STEPS decode steps from prefills
+    of MOE_GATE_CASES (batch x prompt 1 x 1 up to 2 x 2048), each step's
+    logits against a prefill of the same tokens within 2e-2, gated on the
+    steps where neither the decode path (its prefill and steps) nor the
+    reference prefill dropped an assignment; a prefill of at most 4 tokens
+    must not drop, nor may any at a capacity factor of n_experts / top_k
+    (one case at 2 x 256), and at least one step is gated.  (d) kimi-k2-1t-a32b at full
+    width (384 experts of d_ff 2048 at d_model 7168, one shared expert) and
+    the depth that fits: ``serve()`` at batch 2, prompt 32, 8 tokens,
+    graph against eager (equal tokens, logits and drops)."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm as lm_mod, moe, serve as serve_lib
+    from repro_torch.models.layers import f32_accumulation
+
+    t_phase = time.perf_counter()
+    free_card()
+    out = {"phase": "serve_moe"}
+
+    def served_record(cfg, served, **kw):
+        for mode in ("graph", "eager"):
+            check(not any(served[mode]["launches"].values()),
+                  f"{cfg.name} {mode} launched {served[mode]['launches']}")
+        check(torch.equal(served["graph"]["logits"], served["eager"]["logits"])
+              and served["graph"]["drops"] == served["eager"]["drops"],
+              f"{cfg.name}: graph and eager decode differ in their last "
+              f"logits or drops ({served['graph']['drops']} against "
+              f"{served['eager']['drops']})")
+        return {**kw, **{m: public(served[m]) for m in served}}
+
+    cfg = ARCHS[MOE_ARCH]
+    served = serve_both(cfg, seed, batch=MOE_BATCH, prompt_len=MOE_PROMPT,
+                        gen=MOE_GEN)
+    out[MOE_ARCH] = {
+        "dtype": cfg.dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "experts": cfg.n_experts, "top_k": cfg.top_k,
+        "moe_d_ff": cfg.moe_d_ff, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "vocab": cfg.vocab, "params": cfg.param_count(),
+        "param_bytes": cfg.param_count() * 2,
+        "capacity": {"prefill": moe._capacity(MOE_BATCH * MOE_PROMPT, cfg),
+                     "decode": moe._capacity(MOE_BATCH, cfg)},
+        "serve": served_record(cfg, served, batch=MOE_BATCH,
+                               prompt=MOE_PROMPT, generated=MOE_GEN)}
+    del served
+    free_card()
+    model = lm_mod.LM(cfg)
+    with torch.inference_mode(), f32_accumulation():
+        params = launch_serve.init_params(cfg, seed, DEVICE)
+        prompt = launch_serve.make_prompt(cfg, MOE_BATCH,
+                                          MOE_PROMPT + GRAPH_STEPS, seed,
+                                          DEVICE)
+        _, cache = serve_lib.prefill(model, params,
+                                     {"tokens": prompt[:, :MOE_PROMPT]},
+                                     MOE_PROMPT + GRAPH_STEPS)
+        extra = prompt[:, MOE_PROMPT:]
+        q8 = int8_cache_of(cache)
+        rec, float_logits, _ = graph_vs_eager(model, params, cache, extra)
+        rec8, int8_logits, _ = graph_vs_eager(
+            lm_mod.LM(cfg.with_(kv_cache_int8=True)), params, q8, extra)
+        rec8["int8_vs_float_logits"] = scaled_err(int8_logits, float_logits)
+        check(bool(torch.isfinite(int8_logits).all()),
+              f"{MOE_ARCH}: int8 cache decode logits are not finite")
+        out[MOE_ARCH]["graph_vs_eager"] = {"float": rec, "int8": rec8}
+        del params, cache, q8, prompt, extra, float_logits, int8_logits
+        free_card()
+        # (c) the f32 gates at MOE_F32_LAYERS layers
+        f32 = cfg.with_(dtype="float32", n_layers=MOE_F32_LAYERS)
+        params = launch_serve.init_params(f32, seed, DEVICE)
+        cases = []
+        for batch, prompt_len, capacity in MOE_GATE_CASES:
+            ccfg = (f32.with_(capacity_factor=f32.n_experts / f32.top_k)
+                    if capacity == "no_drop" else f32)
+            model32 = lm_mod.LM(ccfg)
+            prompt = launch_serve.make_prompt(
+                f32, batch, prompt_len + GRAPH_STEPS, seed, DEVICE)
+            max_len = prompt_len + GRAPH_STEPS
+            with moe.count_drops(DEVICE) as dropped:
+                _, cache = serve_lib.prefill(
+                    model32, params, {"tokens": prompt[:, :prompt_len]},
+                    max_len)
+                path_drops = int(dropped)
+                steps = []
+                for j in range(GRAPH_STEPS):
+                    n = prompt_len + j
+                    dropped.zero_()
+                    dec, cache = serve_lib.decode_step(model32, params, cache,
+                                                       prompt[:, n:n + 1])
+                    path_drops += int(dropped)
+                    dropped.zero_()
+                    ref, _ = serve_lib.prefill(model32, params,
+                                               {"tokens": prompt[:, :n + 1]},
+                                               max_len)
+                    ref_drops = int(dropped)
+                    err = scaled_err(dec, ref)
+                    gated = path_drops == 0 and ref_drops == 0
+                    check(not gated or err <= LOGITS_TOL,
+                          f"{MOE_ARCH} f32, {MOE_F32_LAYERS} layers, batch "
+                          f"{batch}, prompt {prompt_len}, step {j}: decode "
+                          f"against prefill {err} > {LOGITS_TOL}")
+                    check(bool(torch.isfinite(dec).all()),
+                          f"{MOE_ARCH} f32 step {j}: logits are not finite")
+                    if batch * (n + 1) <= 4 or capacity == "no_drop":
+                        check(gated, f"{MOE_ARCH} f32: {batch} x {n + 1} "
+                              f"tokens, capacity {capacity}, dropped "
+                              f"({path_drops}, {ref_drops})")
+                    steps.append({"err": err, "decode_path_drops": path_drops,
+                                  "prefill_drops": ref_drops, "gated": gated})
+            cases.append({"batch": batch, "prompt": prompt_len,
+                          "capacity_factor": ccfg.capacity_factor,
+                          "capacity_prefill": moe._capacity(
+                              batch * prompt_len, ccfg), "steps": steps})
+            del cache, prompt, dec, ref
+        gated = [st["err"] for c in cases for st in c["steps"] if st["gated"]]
+        check(bool(gated), f"{MOE_ARCH} f32: no gated step: {cases}")
+        out[MOE_ARCH]["f32_gates"] = {
+            "layers": MOE_F32_LAYERS, "tol": LOGITS_TOL, "gated_steps":
+            len(gated), "worst_gated_err": max(gated), "cases": cases}
+        del params
+    free_card()
+    # (d) kimi-k2-1t-a32b at full width, the depth that fits
+    big = ARCHS[MOE_BIG_ARCH]
+    per_layer, rest = layer_bytes(big, 2)
+    free = torch.cuda.mem_get_info()[0]
+    head32 = big.d_model * big.vocab * 4
+    layers = int((free - rest - head32 - KIMI_HEADROOM) // per_layer)
+    check(layers >= 1, f"{MOE_BIG_ARCH}: no layer fits in {free} B")
+    kcfg = big.with_(n_layers=layers)
+    served = serve_both(kcfg, seed, batch=KIMI_BATCH, prompt_len=KIMI_PROMPT,
+                        gen=KIMI_GEN)
+    out[MOE_BIG_ARCH] = {
+        "dtype": kcfg.dtype, "layers": layers, "of_layers": big.n_layers,
+        "d_model": big.d_model, "experts": big.n_experts,
+        "moe_d_ff": big.moe_d_ff, "shared_experts": big.n_shared_experts,
+        "layer_param_bytes": per_layer, "other_param_bytes": rest,
+        "param_bytes": kcfg.param_count() * 2, "free_bytes_before": free,
+        "serve": served_record(kcfg, served, batch=KIMI_BATCH,
+                               prompt=KIMI_PROMPT, generated=KIMI_GEN)}
+    del served
+    free_card()
+    out["phase_seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit(out)
+    return out
+
+
+def attention_bytes(cfg) -> int:
+    """What the plain chunked attention keeps for its backward when one
+    layer is recomputed, at the train step's batch and full sequence (the
+    vlm family's prefix included): for every chunk pair the f32 scores,
+    the f32 probabilities and their bf16 and f32 casts, 14 bytes a score
+    (23 GB for llava-next-34b's 2 x 3392 tokens)."""
+    s = TRAIN_SEQ + (cfg.prefix_len if cfg.family == "vlm" else 0)
+    pad_q = -(-s // min(cfg.q_chunk, s)) * min(cfg.q_chunk, s)
+    pad_k = -(-s // min(cfg.kv_chunk, s)) * min(cfg.kv_chunk, s)
+    return TRAIN_BATCH * cfg.n_heads * pad_q * pad_k * 14
+
+
+def train_depth(cfg, budget: float) -> int:
+    """The most layers (from ``cfg.n_layers`` down, whole xLSTM
+    super-blocks) whose parameters at TRAIN_BYTES_PER_PARAM fit in
+    ``budget`` bytes."""
+    step = cfg.slstm_every if cfg.family == "ssm" else 1
+    for n in range(cfg.n_layers, 0, -step):
+        if TRAIN_BYTES_PER_PARAM * cfg.with_(n_layers=n).param_count() <= budget:
+            return n
+    raise AssertionError(f"{cfg.name}: no depth fits {budget} B")
+
+
+RESUME_CODE = """
+import json, sys
+import torch
+torch.use_deterministic_algorithms(True)
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs.archs import ARCHS
+from repro_torch.kernels import mec_conv1d as C
+from repro_torch.launch import train
+args = train.parse_args(sys.argv[2:])
+res = train.train(args, ARCHS[args.arch].with_(conv_impl="fused"))
+print("RESUME " + json.dumps({"start": res["start"], "losses": res["losses"],
+                              "step_s": res["step_s"],
+                              "k5_launches": C.mec_conv1d.launches}))
+"""
+
+
+def resume_run(ckpt_dir: Path) -> dict:
+    """``launch.train.train`` on xlstm-125m at full size (fused conv) in a
+    process of its own, deterministic algorithms on and cuBLAS's workspace
+    pinned before its first CUDA call, checkpointing into ``ckpt_dir``."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, "-c", RESUME_CODE, str(ROOT / "src"),
+         "--arch", "xlstm-125m", "--steps", str(RESUME_STEPS),
+         "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(RESUME_AT),
+         "--lr", str(RESUME_LR), "--log-every", "5"],
+        capture_output=True, text=True, env=env, timeout=600)
+    print(proc.stdout[-2000:], proc.stderr[-4000:], sep="\\n", file=sys.stderr)
+    check(proc.returncode == 0, f"launch.train exited {proc.returncode}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESUME ")]
+    check(len(line) == 1, "launch.train printed no result")
+    return json.loads(line[0][len("RESUME "):])
+
+
+def traced_train_step(step, params, opt, batch, conv1d) -> dict:
+    """One train step under ``torch.profiler``: its device time, and K5's
+    in it, the device time of the kernels named in K5_KERNELS summed over
+    the trace, their count beside the wrapper's launches in that step (the
+    trace may miss a kernel: 129 of 130 on an H100 80GB HBM3, where the
+    wrapper's count is exact)."""
+    from torch.profiler import ProfilerActivity, profile
+    conv1d.mec_conv1d.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, met = step(params, opt, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = conv1d.mec_conv1d.launches
+    k5 = [e for e in device_kernels(prof)
+          if any(n in e.key for n in K5_KERNELS)]
+    out = {"loss": loss, "k5_launches": launches,
+           "k5_kernels": sum(e.count for e in k5),
+           "k5_device_ms": sum(dev_us(e) for e in k5) / 1e3,
+           **device_breakdown(prof, wall, top=8)}
+    check(math.isfinite(loss) and 0 < out["k5_kernels"] <= launches,
+          f"traced train step: loss {loss}, {out['k5_kernels']} K5 kernels "
+          f"in the trace for {launches} launches")
+    return out
+
+
+def train_lm_phase(seed: int, tmp_dir: Path) -> dict:
+    """LM training on the card (phase 6h).  (a) One ``make_train_step``
+    step per family at full width (bf16, remat, AdamW in place), at the
+    largest depth whose 12 bytes a parameter fit beside 14 GB and what one
+    layer's plain attention keeps for its backward
+    (:func:`attention_bytes`): xlstm-125m,
+    whisper-tiny and qwen3-4b at full size, zamba2-7b, qwen3-moe-30b-a3b
+    and llava-next-34b cut (each depth printed); batch 2 x 512 tokens from
+    ``SyntheticLMData``; two steps, the second timed; finite loss and grad
+    norm, the parameters moved; peak bytes.  xlstm-125m and zamba2-7b run
+    ``conv_impl="fused"``: K5 in every block's forward (twice a step with
+    remat: the forward and its recompute), its counts read around the
+    step.  (b) Their gradients at full width and 2 (zamba2) or 4 (one
+    xLSTM super-block) layers in f32 through the fused conv against the
+    lowered conv, each leaf within 1e-4.  (c) The chunked loss at 8 x 2048
+    tokens of qwen3-4b's head (vocab 151,936, bf16): forward and backward
+    peak near one chunk's f32 logits (plus the head's f32 copy and its f32
+    gradient), beside the same loss in one chunk.  (d) ``launch.train`` on
+    xlstm-125m at full size, 20 steps with a checkpoint at 10, then a new
+    process from that checkpoint alone: its losses for steps 10-19 equal
+    the uninterrupted run's to the bit; the loss falls (the last five
+    steps' mean below the first five's, all finite: at this rate no more
+    than the batches differ).  (e) The optimizer learns: xlstm-125m on
+    one repeated batch of (8, 128) tokens, its loss falls by at least 10
+    times the spread of the initial loss over 8 batches in 6 steps.  The
+    zamba2-7b step is traced once more (:func:`traced_train_step`): K5's
+    device time in a train step."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import mec_conv as K, mec_conv1d as C
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.layers import f32_accumulation
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves as leaves_of
+    from repro_torch.training import steps as steps_lib
+    from repro_torch.training.loss import chunked_softmax_xent
+
+    t_phase = time.perf_counter()
+    out = {"phase": "train_lm", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "bytes_per_param": TRAIN_BYTES_PER_PARAM,
+           "headroom_bytes": TRAIN_HEADROOM, "runs": {}}
+    for arch in TRAIN_ARCHS:
+        free_card()
+        full = ARCHS[arch]
+        budget = (torch.cuda.mem_get_info()[0] - TRAIN_HEADROOM
+                  - attention_bytes(full))
+        layers = train_depth(full, budget)
+        cfg = full.with_(n_layers=layers)
+        if arch in TRAIN_FUSED:
+            cfg = cfg.with_(conv_impl="fused")
+        model = lm_mod.LM(cfg)
+        params = launch_serve.init_params(cfg, seed, DEVICE)
+        n_params = sum(t.numel() for t in leaves_of(params))
+        opt = steps_lib.init_opt_state(params)
+        data = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed,
+                               device=DEVICE)
+        # warmup 1: the first step at the full rate, which moves bf16
+        # embeddings (a 1e-6 step would round away)
+        step = steps_lib.make_train_step(
+            model, AdamWConfig(warmup_steps=1, total_steps=10))
+        before = params["emb"].clone()
+        rec = {"layers": layers, "of_layers": full.n_layers,
+               "conv_impl": cfg.conv_impl, "params": n_params,
+               "state_bytes": sum(t.numel() * t.element_size()
+                                  for t in leaves_of(params) + leaves_of(opt))}
+        with f32_accumulation():
+            for i in range(2):
+                batch = data.next_batch()
+                K.reset_launch_counts()
+                C.mec_conv1d.launches = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                loss = float(met["loss"])
+                torch.cuda.synchronize()
+                rec[f"step{i}_seconds"] = time.perf_counter() - t0
+                rec[f"step{i}_loss"] = loss
+        rec["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        rec["grad_norm"] = float(met["grad_norm"])
+        rec["launches"] = {**K.launch_counts(),
+                           "mec_conv1d": C.mec_conv1d.launches}
+        if arch == TRAIN_TRACED:
+            with f32_accumulation():
+                rec["traced_step"] = traced_train_step(
+                    step, params, opt, data.next_batch(), C)
+        check(math.isfinite(rec["step1_loss"]) and math.isfinite(rec["grad_norm"]),
+              f"{arch}: train step loss {rec['step1_loss']}, grad norm "
+              f"{rec['grad_norm']}")
+        check(not torch.equal(before, params["emb"]),
+              f"{arch}: the train step left the parameters unchanged")
+        # one K5 call a Mamba2 layer or xLSTM block, and again in its
+        # recompute under remat
+        want = (2 if cfg.remat else 1) * layers if arch in TRAIN_FUSED else 0
+        check(rec["launches"] == {"mec_conv_fused": 0, "mec_lower": 0,
+                                  "mec_gemm": 0, "mec_conv_fused2": 0,
+                                  "mec_conv1d": want},
+              f"{arch} train step launched {rec['launches']}, not {want} K5")
+        out["runs"][arch] = rec
+        emit({"phase": "train_lm", "arch": arch, **rec}, sys.stderr)
+        del params, opt, data, step, batch, met, before
+    free_card()
+    # (b) fused against lowered gradients, f32, full width
+    grads = {}
+    for arch, layers in TRAIN_GRAD_LAYERS.items():
+        cfg = ARCHS[arch].with_(n_layers=layers, dtype="float32")
+        params = launch_serve.init_params(cfg, seed, DEVICE)
+        batch = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed,
+                                device=DEVICE).next_batch()
+        got = {}
+        with f32_accumulation():
+            for impl in ("fused", "lowered"):
+                p = lm_mod.tree_map(lambda t: t.detach().clone()
+                                    .requires_grad_(True), params)
+                C.mec_conv1d.launches = 0
+                loss, _ = steps_lib.make_loss_fn(
+                    lm_mod.LM(cfg.with_(conv_impl=impl)))(p, batch)
+                loss.backward()
+                torch.cuda.synchronize()
+                got[impl] = ({n: t.grad for n, t in tree_leaves(p).items()},
+                             C.mec_conv1d.launches, float(loss.detach()))
+        # leaves the cut depth leaves unused (zamba2-7b's shared block
+        # below attn_every layers) have no gradient on either path
+        unused = {n for n, g in got["fused"][0].items() if g is None}
+        check(unused == {n for n, g in got["lowered"][0].items() if g is None},
+              f"{arch}: the two conv paths reach other leaves")
+        errs = {n: scaled_err(g, got["lowered"][0][n])
+                for n, g in got["fused"][0].items() if n not in unused}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= TRAIN_GRAD_TOL,
+              f"{arch} f32 {layers} layers: fused against lowered gradient "
+              f"of {worst}: {errs[worst]} > {TRAIN_GRAD_TOL}")
+        check(got["fused"][1] > 0 and got["lowered"][1] == 0,
+              f"{arch}: K5 launched {got['fused'][1]} (fused) and "
+              f"{got['lowered'][1]} (lowered) times")
+        grads[arch] = {"layers": layers, "leaves": len(errs),
+                       "unused_leaves": sorted(unused),
+                       "worst_leaf": worst, "worst_err": errs[worst],
+                       "conv_w_err": max(e for n, e in errs.items()
+                                         if n.endswith("conv_w")),
+                       "k5_launches": got["fused"][1],
+                       "loss": {i: got[i][2] for i in got},
+                       "tol": TRAIN_GRAD_TOL}
+        del params, batch, got, p, loss
+        free_card()
+    out["fused_vs_lowered_grads"] = grads
+    # (c) the chunked loss's memory
+    lcfg = ARCHS[LOSS_ARCH]
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 8)
+    b, s = LOSS_TOKENS
+    h0 = torch.randn((b, s, lcfg.d_model), generator=g, device=DEVICE,
+                     dtype=torch.bfloat16)
+    w0 = (torch.randn((lcfg.d_model, lcfg.vocab), generator=g, device=DEVICE)
+          * 0.02).to(torch.bfloat16)
+    labels = torch.randint(0, lcfg.vocab, (b, s), generator=g, device=DEVICE)
+    chunk_bytes = b * LOSS_CHUNK * lcfg.vocab * 4
+    head32 = lcfg.d_model * lcfg.vocab * 4
+    loss_mem = {"tokens": [b, s], "vocab": lcfg.vocab,
+                "chunk_logits_bytes": chunk_bytes, "head_f32_bytes": head32}
+    with f32_accumulation():
+        for name, chunk in (("chunked", LOSS_CHUNK), ("one_chunk", s)):
+            h = h0.clone().requires_grad_(True)
+            w = w0.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, met = chunked_softmax_xent(h, w, labels, chunk=chunk)
+            torch.cuda.synchronize()
+            fwd_peak = torch.cuda.max_memory_allocated() - base
+            loss.backward()
+            torch.cuda.synchronize()
+            loss_mem[name] = {"chunk": chunk, "loss": float(loss),
+                              "seconds": time.perf_counter() - t0,
+                              "forward_peak_bytes": fwd_peak,
+                              "peak_bytes": torch.cuda.max_memory_allocated()
+                              - base}
+            check(math.isfinite(float(loss)) and bool(torch.isfinite(w.grad).all()),
+                  f"chunked loss ({name}): not finite")
+            del h, w, loss, met
+    grad_bytes = (h0.numel() + w0.numel()) * 2 + h0.numel() * 4
+    bound = chunk_bytes + 2 * head32 + grad_bytes
+    loss_mem["bound_bytes"] = bound
+    check(loss_mem["chunked"]["peak_bytes"] <= 1.1 * bound,
+          f"chunked loss peak {loss_mem['chunked']['peak_bytes']} B > 1.1 x "
+          f"(one chunk's logits + the head's f32 copy and gradient + the "
+          f"input gradients) {bound} B")
+    check(abs(loss_mem["chunked"]["loss"] - loss_mem["one_chunk"]["loss"])
+          <= 1e-4 * abs(loss_mem["one_chunk"]["loss"]),
+          f"chunked loss {loss_mem['chunked']['loss']} against one chunk "
+          f"{loss_mem['one_chunk']['loss']}")
+    out["loss_memory"] = loss_mem
+    del h0, w0, labels
+    free_card()
+    # (d) launch.train: 20 steps, then a restart from step 10's checkpoint
+    first_dir, second_dir = tmp_dir / "resume_a", tmp_dir / "resume_b"
+    first = resume_run(first_dir)
+    second_dir.mkdir()
+    shutil.copytree(first_dir / f"step_{RESUME_AT:08d}",
+                    second_dir / f"step_{RESUME_AT:08d}")
+    second = resume_run(second_dir)
+    check(first["start"] == 0 and len(first["losses"]) == RESUME_STEPS,
+          f"the first run took {len(first['losses'])} steps from {first['start']}")
+    check(second["start"] == RESUME_AT
+          and second["losses"] == first["losses"][RESUME_AT:],
+          f"the resumed run's losses {second['losses']} differ from the "
+          f"uninterrupted run's {first['losses'][RESUME_AT:]}")
+    head, tail = first["losses"][:5], first["losses"][-5:]
+    check(all(map(math.isfinite, first["losses"]))
+          and statistics.mean(tail) < statistics.mean(head),
+          f"xlstm-125m loss did not fall (the last five steps' mean against "
+          f"the first five's): {first['losses']}")
+    out["resume"] = {"arch": "xlstm-125m", "steps": RESUME_STEPS,
+                     "checkpoint_at": RESUME_AT, "lr": RESUME_LR,
+                     "losses": first["losses"],
+                     "first_five_mean": statistics.mean(head),
+                     "last_five_mean": statistics.mean(tail),
+                     "resumed_losses_equal": True,
+                     "step_seconds_median": statistics.median(first["step_s"]),
+                     "k5_launches": {"uninterrupted": first["k5_launches"],
+                                     "resumed": second["k5_launches"]}}
+    # (e) the optimizer learns: the train step on one repeated batch
+    ocfg = ARCHS["xlstm-125m"].with_(conv_impl="fused")
+    model = lm_mod.LM(ocfg)
+    params = launch_serve.init_params(ocfg, seed, DEVICE)
+    data = SyntheticLMData(ocfg, *OVERFIT_SHAPE, seed=seed, device=DEVICE)
+    batches = [data.next_batch() for _ in range(OVERFIT_BATCHES)]
+    with torch.no_grad(), f32_accumulation():
+        initial = [float(steps_lib.make_loss_fn(model)(params, b)[0])
+                   for b in batches]
+    spread = statistics.pstdev(initial)
+    step = steps_lib.make_train_step(model, AdamWConfig(
+        lr=RESUME_LR, warmup_steps=2, total_steps=OVERFIT_STEPS))
+    opt = steps_lib.init_opt_state(params)
+    losses = []
+    with f32_accumulation():
+        for _ in range(OVERFIT_STEPS):
+            params, opt, met = step(params, opt, batches[0])
+            losses.append(float(met["loss"]))
+    fall = losses[0] - losses[-1]
+    check(all(map(math.isfinite, losses)) and fall >= OVERFIT_SPREADS * spread,
+          f"xlstm-125m on one repeated batch: the loss fell {fall} "
+          f"({losses}), not {OVERFIT_SPREADS} x the batches' spread {spread}")
+    out["repeated_batch"] = {"arch": "xlstm-125m", "shape": list(OVERFIT_SHAPE),
+                             "lr": RESUME_LR, "losses": losses, "fall": fall,
+                             "initial_losses": initial, "spread": spread,
+                             "fall_over_spread": fall / spread}
+    del params, opt, data, batches, step, met
+    free_card()
+    out["phase_seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit(out)
+    return out
+
+
 def profile_decode(model, params, cache, tok, steps: int = 4) -> dict:
     """Device time and idle share of ``steps`` decode steps from ``cache``
     (batch ``tok``), eagerly and through the captured program, each after
@@ -2547,6 +3212,10 @@ def main(argv=None) -> int:
     emit({"phase": "kernels", "mixed_dtypes": len(mixed) * 5,
           "equal_to_promoted_f32_run": True})
 
+    # K5's gradient (fault F10)
+    emit({"phase": "kernels", "kernel": "K5",
+          "gradient": k5_gradient_case(C, ref, gen, grad_tolerance)})
+
     # 4. slice: the main path ----------------------------------------------
     stack = []
     for name, count in RESNET101.items():
@@ -2651,6 +3320,7 @@ def main(argv=None) -> int:
           "lowered_seconds": round(lowered_s, 4),
           "max_scaled_err": scaled, "max_abs_err_vs_plain": abs_err,
           "memory": mem})
+    del outs, outs_low
 
     # 4b. plan: the planner ------------------------------------------------
     planned = plan_phase(stack, Path(plan_dir))
@@ -2907,6 +3577,12 @@ def main(argv=None) -> int:
     # 6f. serve_ssm: xlstm-125m at full size, K5 in every block's prefill ---
     ssm = serve_ssm_phase(args.seed)
 
+    # 6g. serve_moe: qwen3-moe-30b-a3b at full size, kimi-k2 at full width --
+    serve_moe_phase(args.seed)
+
+    # 6h. train_lm: a train step per family, K5's gradient, the resume ------
+    train_lm = train_lm_phase(args.seed, Path(plan_dir))
+
     # 7. timing ------------------------------------------------------------
     def bound(flops, nbytes, peak=None):
         t_ops, t_bytes = flops / (peak or peak_flops), nbytes / peak_bw
@@ -3087,6 +3763,13 @@ def main(argv=None) -> int:
                            peak_bw, shape=SSM_CONV)
     emit({"phase": "timing", "kernel": "mec_conv1d", "model": SSM_ARCH,
           **k5_ssm})
+    # and at its training caller's input: zamba2-7b's conv input at the
+    # train step's batch and sequence
+    k5_train = conv1d_timing(C, gen, cfg.conv_width, peak_flops, peak_bw,
+                             shape=(TRAIN_BATCH, TRAIN_SEQ, IN_PROJ, CONV_LO,
+                                    CONV_HI))
+    emit({"phase": "timing", "kernel": "mec_conv1d", "caller": "train_lm",
+          **k5_train})
     # and its runtime-k_w path at the same shape (no model reaches it)
     k5_any = conv1d_timing(C, gen, ANY_KW_TIMED, peak_flops, peak_bw)
     emit({"phase": "timing", "kernel": "mec_conv1d", "path": "runtime k_w",
@@ -3138,7 +3821,24 @@ def main(argv=None) -> int:
                     "input_row_stride": k5_ssm["input_row_stride"],
                     **{f: k5_ssm[f] for f in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms",
-                                              "copy_ms", "memcpy_ms")}}})
+                                              "copy_ms", "memcpy_ms")}},
+                # the training caller: launches a train step (forward and
+                # remat recompute), read around the step, and K5 at the
+                # step's conv input
+                "train_lm": {
+                    "launches_per_step": {
+                        a: train_lm["runs"][a]["launches"]["mec_conv1d"]
+                        for a in TRAIN_FUSED},
+                    "layers": {a: train_lm["runs"][a]["layers"]
+                               for a in TRAIN_FUSED},
+                    "shape": k5_train["shape"],
+                    **{f: k5_train[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+                    # one zamba2-7b step traced: K5's device time in it
+                    "traced_step": {
+                        f: train_lm["runs"][TRAIN_TRACED]["traced_step"][f]
+                        for f in ("k5_launches", "k5_kernels", "k5_device_ms",
+                                  "device_busy_s", "wall_s")}}})
             continue
         recs = [(w, shapes[kname][(n, SLICE_BATCH)]) for n, w in weights[kname].items()]
 

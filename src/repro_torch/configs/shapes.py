@@ -10,8 +10,7 @@ A spec is a :class:`Spec` (shape, torch dtype), the port's stand-in for
 ``jax.ShapeDtypeStruct``.  Decode specs come from
 ``models.serve.init_decode_cache`` on the ``meta`` device, so nothing is
 allocated.  :func:`make_batch` builds a concrete batch on an explicit
-device from a seeded ``torch.Generator``.  The moe family raises ROADMAP
-Queue 1 item 10.3 (``models.lm.require_ported``).
+device from a seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ import torch
 
 from repro_torch.models import serve
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM, require_ported, torch_dtype, tree_map
+from repro_torch.models.lm import LM, torch_dtype, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +61,6 @@ def smoke_shape(cell: ShapeCell) -> ShapeCell:
 
 
 def train_input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict:
-    require_ported(cfg, "input specs")
     b, s = cell.global_batch, cell.seq_len
     dt = torch_dtype(cfg)
     if cfg.family == "vlm":
@@ -107,7 +105,6 @@ def make_batch(cfg: ModelConfig, cell: ShapeCell, seed: int = 0,
     otherwise token ids and labels uniform in [0, max(2, vocab - 1)) and
     zero float entries.  Ids come from a generator on ``device`` seeded
     with ``seed``, drawn in the specs' order."""
-    require_ported(cfg, "make_batch")
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     if cell.kind == "decode":

@@ -24,6 +24,14 @@ f32 over the k_w taps in order, rounding each product and each add, which
 is the plain version's arithmetic: the two agree to the bit.  It moves
 whole vectors of channels, as wide as :func:`vector_bytes` finds the
 operands allow.
+
+``mec_conv1d`` is a ``torch.autograd.Function``: its forward is K5 (or
+the plain version on the CPU), its backward plain PyTorch on either
+device, :func:`conv1d_grads`: dx is the anti-causal conv of the cotangent
+and dk the cotangent's products with the left-padded input, each written
+out as the plain version's autograd computes it, so on the CPU the
+gradients equal that autograd's to the bit.  The backward launches no
+kernel.  It is once-differentiable: a second backward through it raises.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core.mec import mec_conv1d_shift
 from repro_torch.kernels import build
@@ -89,12 +98,66 @@ def vector_bytes(x: torch.Tensor, kernel: torch.Tensor, out: torch.Tensor) -> in
     return es
 
 
+def conv1d_grads(g: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
+                 need_x: bool = True, need_k: bool = True):
+    """(dx, dk) of the causal depthwise conv1d at cotangent g (n, t, c), in
+    x's and the kernel's own dtypes (None where not needed).  In the
+    operands' promoted dtype p, with g in f32 and the k_w - 1 zeros of the
+    causal pad:
+
+        dx[t] = sum_j (g[t + (k_w - 1) - j] * k[j]) rounded to p, summed in
+                p over j = k_w - 1 .. 0 (the anti-causal conv of g);
+        dk[j] = sum over (n, t) of g[n, t] * x[n, t - (k_w - 1) + j] in f32,
+                rounded to p.
+
+    These are the plain version's autograd, term for term and in its
+    order of accumulation."""
+    xp, kp = _promoted(x, kernel)
+    n, t, c = x.shape
+    k_w = kernel.shape[0]
+    pad = k_w - 1
+    g32 = g.to(torch.float32)
+    dx = dk = None
+    if need_x:
+        acc = torch.zeros((n, t + pad, c), dtype=xp.dtype, device=x.device)
+        for j in reversed(range(k_w)):
+            acc[:, j:j + t] += (g32 * kp[j]).to(xp.dtype)
+        dx = acc[:, pad:].to(x.dtype)
+    if need_k:
+        xpad = torch.nn.functional.pad(xp, (0, 0, pad, 0)) if pad else xp
+        dk = torch.stack([(g32 * xpad[:, j:j + t].to(torch.float32))
+                          .sum(dim=(0, 1)).to(kp.dtype) for j in range(k_w)])
+        dk = dk.to(kernel.dtype)
+    return dx, dk
+
+
+class _Conv1d(torch.autograd.Function):
+    """K5 (the plain version on the CPU) forward, :func:`conv1d_grads`
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        ctx.save_for_backward(x, kernel)
+        return _conv1d_forward(x, kernel)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        return conv1d_grads(g, x, kernel, *ctx.needs_input_grad)
+
+
 def mec_conv1d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv1d: x (n, t, c), kernel (k_w, c), any k_w >= 1,
     both promoted to their common dtype.  Returns (n, t, c) contiguous in
-    x.dtype.  x may be strided along its batch and time axes (the kernel
-    reads its strides); an x whose channels are not contiguous, or whose
-    dtype is promoted, is copied first."""
+    x.dtype, differentiable in both operands (:func:`conv1d_grads`).  x may
+    be strided along its batch and time axes (the kernel reads its
+    strides); an x whose channels are not contiguous, or whose dtype is
+    promoted, is copied first."""
+    return _Conv1d.apply(x, kernel)
+
+
+def _conv1d_forward(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     if x.dim() != 3 or kernel.dim() != 2 or kernel.shape[1] != x.shape[2]:
         raise ValueError(f"x {tuple(x.shape)} and kernel {tuple(kernel.shape)}"
                          f" are not (n, t, c) and (k_w, c)")

@@ -1,2 +1,2 @@
-"""Launchers (counterpart of ``repro.launch``): the costmodel and the
-serving launcher."""
+"""Launchers (counterpart of ``repro.launch``): the costmodel, the serving
+launcher and the training launcher."""

@@ -13,10 +13,13 @@ prefill + decode loop.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
         [--smoke --device cpu]
 
-Runs on the card unless ``--device cpu``.  The dense, vlm (llava), hybrid
-(zamba2), ssm (xLSTM) and audio (whisper) families are served; moe raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1 item 10.3), and
-any ``--mesh`` but ``host`` item 11.  Prefill runs eagerly;
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b [--smoke --device cpu]
+
+Runs on the card unless ``--device cpu``.  Every family is served: dense,
+vlm (llava), moe (local dispatch, ``models.moe``), hybrid (zamba2), ssm
+(xLSTM) and audio (whisper); any ``--mesh`` but ``host`` raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 11.  Prefill runs eagerly;
 each decode step is a :class:`~repro_torch.serving.step_graph.
 DecodeProgram`: one CUDA-graph replay on the card (the counterpart of the
 JAX package's jitted step), an eager step on the CPU; sampling stays
@@ -46,9 +49,10 @@ import time
 import torch
 
 from repro_torch.configs.archs import ARCHS, smoke_config
+from repro_torch.models import moe
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.layers import f32_accumulation
-from repro_torch.models.lm import LM, require_ported
+from repro_torch.models.lm import LM
 from repro_torch.serving.step_graph import DecodeProgram
 
 #: the whisper frontend's mel bins
@@ -111,7 +115,6 @@ def warm_frontend(cfg, classes, seed: int, device):
     3``; (None, []) when the family has no conv frontend."""
     from repro_torch.serving.conv_service import (patch_embed_service,
                                                   whisper_frontend_service)
-    require_ported(cfg, "the conv frontend")
     if cfg.family == "vlm":
         # classes are (batch, H, W) image buckets
         frontend, svc = patch_embed_service(
@@ -182,12 +185,14 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
     ``warm_plans`` also ``warmup`` (each service's WarmupReport),
     ``warm_s``, ``frontend_s`` (mel or image to the prefix, after
     warmup) and ``frontend_replays`` (the services' class-executor
-    replays), else ``warmup`` empty, both None and no replays.  Products accumulate in
-    f32 (:func:`f32_accumulation`).
+    replays), else ``warmup`` empty, both None and no replays.  ``drops``
+    counts the moe family's dropped (token, expert) assignments
+    (``models.moe.count_drops``): ``prefill`` (an int) and ``decode`` (a
+    list, one int a step); zeros for the other families.  Products
+    accumulate in f32 (:func:`f32_accumulation`).
     """
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
-    require_ported(cfg, "serve")
     device = torch.device(device)
     model = LM(cfg)
     max_len = prompt_len + gen + (cfg.prefix_len if cfg.family == "vlm"
@@ -212,26 +217,36 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
         generator = _seeded(seed + 2, device)
 
         _sync(device)
-        t0 = time.perf_counter()
-        logits, cache = serve_lib.prefill(model, params, inputs, max_len)
-        _sync(device)
-        prefill_s = time.perf_counter() - t0
-        prefill_logits = logits
-        tok = sample(logits, temperature, generator)
-        out = [tok]
-        t0 = time.perf_counter()
-        step = DecodeProgram(
-            lambda c, t: serve_lib.decode_step(model, params, c, t), cache,
-            torch.zeros_like(tok))
-        _sync(device)
-        capture_s = time.perf_counter() - t0
-        for _ in range(gen - 1):
-            step.tokens.copy_(tok)
-            logits = step()
+        with moe.count_drops(device) as dropped:
+            t0 = time.perf_counter()
+            logits, cache = serve_lib.prefill(model, params, inputs, max_len)
+            _sync(device)
+            prefill_s = time.perf_counter() - t0
+            prefill_drops = dropped.clone()
+            prefill_logits = logits
             tok = sample(logits, temperature, generator)
-            out.append(tok)
-        _sync(device)
-        decode_s = time.perf_counter() - t0
+            out = [tok]
+            t0 = time.perf_counter()
+            step = DecodeProgram(
+                lambda c, t: serve_lib.decode_step(model, params, c, t), cache,
+                torch.zeros_like(tok))
+            _sync(device)
+            capture_s = time.perf_counter() - t0
+            # the program's build ran a step: count from here (device
+            # copies a step, read after the loop)
+            dropped.zero_()
+            totals = []
+            for _ in range(gen - 1):
+                step.tokens.copy_(tok)
+                logits = step()
+                totals.append(dropped.clone())
+                tok = sample(logits, temperature, generator)
+                out.append(tok)
+            _sync(device)
+            decode_s = time.perf_counter() - t0
+        totals = [int(v) for v in totals]
+        drops = {"prefill": int(prefill_drops),
+                 "decode": [b - a for a, b in zip([0] + totals, totals)]}
     return {"tokens": torch.cat(out, dim=1), "prefill_logits": prefill_logits,
             "logits": logits.clone(), "prefill_s": prefill_s,
             "decode_s": decode_s,
@@ -239,7 +254,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
                                     if gen > 1 else 0.0),
             "decode_graph": step.graph is not None, "capture_s": capture_s,
             "warmup": [svc.warmup for svc in services], "warm_s": warm_s,
-            "frontend_s": frontend_s,
+            "frontend_s": frontend_s, "drops": drops,
             "frontend_replays": sum(sum(svc.replays.values())
                                     for svc in services)}
 

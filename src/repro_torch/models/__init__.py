@@ -1,2 +1,2 @@
-"""Models (counterpart of ``repro.models``): layers, the Mamba2 block, the
-LM assembly and its serving paths."""
+"""Models (counterpart of ``repro.models``): layers, the Mamba2, xLSTM and
+MoE blocks, the LM assembly and its serving paths."""

@@ -1,9 +1,12 @@
 """Language-model assembly (counterpart of ``repro.models.lm``).
 
-Five families are ported, for serving (``models.serve``):
+All six families are ported, for serving (``models.serve``) and training
+(:meth:`LM.forward`):
   dense   a GQA transformer: stacked blocks of attention and SwiGLU;
   vlm     llava: the dense backbone, with a ``vision_proj`` linear that
           maps vision tokens into the prompt's prefix;
+  moe     the GQA transformer with a mixture-of-experts FFN
+          (``models.moe``, local dispatch on one device);
   hybrid  zamba2: Mamba2 layers and ONE shared attention+SwiGLU block
           applied after every ``attn_every`` layers (weight sharing);
   ssm     xLSTM: super-blocks of ``slstm_every - 1`` mLSTM blocks and one
@@ -11,28 +14,34 @@ Five families are ported, for serving (``models.serve``):
   audio   whisper: an encoder over frame embeddings (non-causal attention
           and a GELU MLP) and a decoder with causal self-attention and
           cross-attention to the encoder output.
-The moe family and the training path (``forward``) raise
-``NotImplementedError`` naming their ROADMAP item.
 
 Parameters are nested dicts of tensors with the JAX package's tree and
-layer-stacked leaves: the dense and vlm blocks are stacked (layers, ...),
-the Mamba2 layers of the super-blocks (n_super, attn_every, ...) and the
-tail (tail, ...), the xLSTM super-blocks' mLSTM blocks (n_super,
+layer-stacked leaves: the dense, vlm and moe blocks are stacked (layers,
+...), the Mamba2 layers of the super-blocks (n_super, attn_every, ...) and
+the tail (tail, ...), the xLSTM super-blocks' mLSTM blocks (n_super,
 slstm_every - 1, ...) and sLSTM blocks (n_super, ...), so
-``convert.params_from_jax`` maps leaf for leaf.  The
-JAX package's ``lax.scan`` over the stack becomes a Python loop over its
-leading axes.  The audio family's encoder and decoder blocks are stacked
-(layers, ...).
+``convert.params_from_jax`` maps leaf for leaf.  The JAX package's
+``lax.scan`` over the stack becomes a Python loop over its leading axes;
+a layer's parameters are views into the stacked leaves, each leaf split
+once a forward (:func:`layer_trees`), so gradients reach them and are
+stacked once.  ``cfg.remat`` wraps each block in
+``torch.utils.checkpoint`` (non-reentrant); the ``"dots"`` policy keeps
+the matmul outputs and recomputes the rest, the JAX package's
+``checkpoint_dots``.  The audio family's encoder and decoder blocks are
+stacked (layers, ...).
 """
 from __future__ import annotations
 
+import functools
 import itertools
+import math
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
-from repro_torch.models import mamba2, xlstm
+from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention_block,
                                        init_attention, init_linear,
@@ -47,18 +56,9 @@ def torch_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-#: the families this package serves
-PORTED_FAMILIES = ("hybrid", "audio", "dense", "vlm", "ssm")
-#: the ROADMAP items that port the rest
-UNPORTED_ITEMS = {"moe": "ROADMAP Queue 1 item 10.3"}
-TRAINING_ITEM = "ROADMAP Queue 1 item 10.6"
-
-
-def require_ported(cfg, what: str) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"{what} of the {cfg.family!r} family "
-                                  f"({cfg.name}): "
-                                  f"{UNPORTED_ITEMS[cfg.family]}")
+#: the aten products the ``"dots"`` remat policy keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
 
 
 def tree_map(fn: Callable, tree):
@@ -71,6 +71,19 @@ def tree_map(fn: Callable, tree):
 def tree_at(tree, idx: Tuple[int, ...]):
     """The tree of the layer at ``idx`` of stacked leaves (views)."""
     return tree_map(lambda t: t[idx], tree)
+
+
+def layer_trees(tree, prefix: Tuple[int, ...]) -> list:
+    """The trees of every layer of stacked leaves over the leading axes
+    ``prefix``, in index order: each leaf split once (``unbind``), so a
+    backward stacks the layers' gradients once.  A view ``t[idx]`` a layer
+    instead makes, in its backward, a zero tensor of the whole stack for
+    that layer's gradient, which autograd adds into the stack's gradient:
+    layers x stack bytes where the JAX package's scan moves the stack."""
+    n = math.prod(prefix)
+    parts = tree_map(lambda t: t.reshape((n,) + tuple(t.shape[len(prefix):]))
+                     .unbind(0), tree)
+    return [tree_map(lambda p, k=k: p[k], parts) for k in range(n)]
 
 
 def tree_set(tree, idx: Tuple[int, ...], value) -> None:
@@ -120,6 +133,57 @@ def dense_block(p, cfg, x, positions):
     return x + f, kv
 
 
+def init_moe_block(generator: torch.Generator, cfg, dtype, device="cuda",
+                   prefix: Tuple[int, ...] = ()) -> dict:
+    """A moe block's tree, every leaf stacked over ``prefix`` (the layers):
+    the attention of each layer drawn and written into its slot, the expert
+    weights drawn in chunks (``models.moe.init_moe``), so no layer's f32
+    draws sit beside the whole stack."""
+    ones = torch.ones(prefix + (cfg.d_model,), dtype=dtype, device=device)
+    return {
+        "norm1": ones,
+        "attn": stack_init(lambda: init_attention(generator, cfg, dtype,
+                                                  device=device), prefix),
+        "norm2": ones.clone(),
+        "moe": moe.init_moe(generator, cfg, dtype, device=device,
+                            prefix=prefix),
+    }
+
+
+def moe_block(p, cfg, x, positions):
+    """-> (x, (k, v), aux)."""
+    a, kv = attention_block(p["attn"], cfg,
+                            rms_norm(x, p["norm1"], cfg.norm_eps), positions)
+    x = x + a
+    f, aux = moe.moe_ffn(p["moe"], cfg, rms_norm(x, p["norm2"], cfg.norm_eps))
+    return x + f, kv, aux
+
+
+def _save_dots(ctx, op, *args, **kwargs):  # lint-ignore: accepted-kwarg-not-forwarded (torch.utils.checkpoint's policy signature)
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn: Callable, cfg) -> Callable:
+    """``fn`` under non-reentrant activation checkpointing when
+    ``cfg.remat`` and autograd records: ``"dots"`` keeps the matmul
+    outputs (selective checkpointing), anything else recomputes the whole
+    block."""
+    if not cfg.remat:
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _save_dots)
+
+    def remat(*args):
+        # without autograd (serving) there is nothing to recompute
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch_checkpoint.checkpoint(fn, *args, **kw)
+    return remat
+
+
 def init_gelu_mlp(generator: torch.Generator, d: int, f: int, dtype,
                   device="cuda") -> dict:
     return {"up": init_linear(generator, d, f, dtype, bias=True,
@@ -150,7 +214,6 @@ class LM:
         """Parameters drawn from ``generator`` on its device, layer by
         layer, then moved to ``device``."""
         cfg = self.cfg
-        require_ported(cfg, "LM.init")
         dt = torch_dtype(cfg)
         params: Dict[str, Any] = {
             "emb": init_normal(generator, (cfg.vocab, cfg.d_model), 0.02, dt,
@@ -168,6 +231,10 @@ class LM:
                 params["vision_proj"] = init_linear(generator, cfg.d_model,
                                                     cfg.d_model, dt,
                                                     device=device)
+            return params
+        if cfg.family == "moe":
+            params["blocks"] = init_moe_block(generator, cfg, dt, device,
+                                              prefix=(cfg.n_layers,))
             return params
         if cfg.family == "audio":
             params["enc_blocks"] = stack_init(
@@ -227,8 +294,96 @@ class LM:
             return params["emb"].T
         return params["lm_head"]["w"]
 
-    def forward(self, params, batch):
-        raise NotImplementedError(f"LM training (forward): {TRAINING_ITEM}")
+    # ------------------------------------------------------------ train --
+    def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (final hidden (B, S, d), aux loss (0-d f32)).  Logits are
+        produced by the (chunked) loss, so (B, S, V) is never formed.  The
+        moe family's aux is the blocks' sum scaled by ``router_aux_coef /
+        n_layers``; the vlm family's hidden is its text positions only."""
+        cfg = self.cfg
+        fam = cfg.family
+        if fam == "audio":
+            return self._forward_audio(params, batch)
+        h = self.embed(params, batch["tokens"])
+        if fam == "vlm":
+            vis = linear(batch["vision"].to(h.dtype), params["vision_proj"])
+            h = torch.cat([vis, h], dim=1)
+        positions = torch.arange(h.shape[1], device=h.device)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if fam in ("dense", "vlm"):
+            body = _maybe_remat(
+                lambda p, x: dense_block(p, cfg, x, positions)[0], cfg)
+            for p in layer_trees(params["blocks"], (cfg.n_layers,)):
+                h = body(p, h)
+        elif fam == "moe":
+            def moe_body(p, x):
+                x2, _, a = moe_block(p, cfg, x, positions)
+                return x2, a
+            body = _maybe_remat(moe_body, cfg)
+            for p in layer_trees(params["blocks"], (cfg.n_layers,)):
+                h, a = body(p, h)
+                aux = aux + a
+            aux = aux * cfg.router_aux_coef / cfg.n_layers
+        elif fam == "hybrid":
+            h = self._hybrid_stack(params, h, positions)
+        elif fam == "ssm":
+            h = self._ssm_stack(params, h)
+        else:
+            raise ValueError(fam)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if fam == "vlm":   # loss only over text positions
+            h = h[:, batch["vision"].shape[1]:, :]
+        return h, aux
+
+    def _hybrid_stack(self, params, h, positions):
+        """Super-blocks of ``attn_every`` Mamba2 layers (each normed by its
+        row of ``mamba_norms``) and the shared attention+SwiGLU block, then
+        the tail layers."""
+        cfg = self.cfg
+        n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
+        mamba_body = _maybe_remat(
+            lambda p, nrm, x: x + mamba2.mamba_forward(
+                p, cfg, rms_norm(x, nrm, cfg.norm_eps)), cfg)
+        norms = params["mamba_norms"].unbind(0)
+        layers = layer_trees(params["mamba"], (n_super, cfg.attn_every))
+        if tail:
+            layers += layer_trees(params["mamba_tail"], (tail,))
+        for i in range(n_super):
+            for j in range(cfg.attn_every):
+                n = i * cfg.attn_every + j
+                h = mamba_body(layers[n], norms[n], h)
+            h, _ = dense_block(params["shared"], cfg, h, positions)
+        for n in range(n_super * cfg.attn_every, cfg.n_layers):
+            h = mamba_body(layers[n], norms[n], h)
+        return h
+
+    def _ssm_stack(self, params, h):
+        """Super-blocks of ``slstm_every - 1`` mLSTM blocks and one sLSTM
+        block, each a residual."""
+        cfg = self.cfg
+        m_body = _maybe_remat(
+            lambda p, x: x + xlstm.mlstm_forward(p, cfg, x), cfg)
+        s_body = _maybe_remat(
+            lambda p, x: x + xlstm.slstm_forward(p, cfg, x), cfg)
+        n_super, k_m = params["mlstm"]["up"]["w"].shape[:2]
+        mlstm = layer_trees(params["mlstm"], (n_super, k_m))
+        for i, p in enumerate(layer_trees(params["slstm"], (n_super,))):
+            for j in range(k_m):
+                h = m_body(mlstm[i * k_m + j], h)
+            h = s_body(p, h)
+        return h
+
+    def _forward_audio(self, params, batch):
+        cfg = self.cfg
+        enc = self.encode(params, batch["frames"])
+        h = self.embed(params, batch["tokens"])
+        positions = torch.arange(h.shape[1], device=h.device)
+        body = _maybe_remat(
+            lambda p, x, e: self._dec_block(p, x, positions, e)[0], cfg)
+        for p in layer_trees(params["dec_blocks"], (cfg.n_layers,)):
+            h = body(p, h, enc)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
     # ------------------------------------------------------------- audio --
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -237,13 +392,17 @@ class LM:
         cfg = self.cfg
         h = frames.to(torch_dtype(cfg))
         positions = torch.arange(h.shape[1], device=h.device)
-        for i in range(cfg.encoder_layers):
-            p = tree_at(params["enc_blocks"], (i,))
+
+        def enc_body(p, x):
             a, _ = attention_block(p["attn"], cfg,
-                                   rms_norm(h, p["norm1"], cfg.norm_eps),
+                                   rms_norm(x, p["norm1"], cfg.norm_eps),
                                    positions, causal=False)
-            h = h + a
-            h = h + gelu_mlp(rms_norm(h, p["norm2"], cfg.norm_eps), p["mlp"])
+            x = x + a
+            return x + gelu_mlp(rms_norm(x, p["norm2"], cfg.norm_eps),
+                                p["mlp"])
+        body = _maybe_remat(enc_body, cfg)
+        for p in layer_trees(params["enc_blocks"], (cfg.encoder_layers,)):
+            h = body(p, h)
         return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
     def _dec_block(self, p, x, positions, enc, cross_kv=None):

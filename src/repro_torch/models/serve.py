@@ -1,12 +1,11 @@
 """Serving paths (counterpart of ``repro.models.serve``): prefill (build
 caches from a prompt) and single-token decode.
 
-The dense, vlm (llava), hybrid (zamba2), ssm (xLSTM) and audio (whisper)
-families are ported; moe raises ``NotImplementedError`` naming its
-ROADMAP item (Queue 1 item 10.3).  Caches are dicts with the JAX
-package's tree and layer-stacked leaves:
+Every family is ported: dense, vlm (llava), moe, hybrid (zamba2), ssm
+(xLSTM) and audio (whisper).  Caches are dicts with the JAX package's
+tree and layer-stacked leaves:
 
-    dense, vlm: {"k", "v": (n_layers, B, max_len, KV, D),
+    dense, vlm, moe: {"k", "v": (n_layers, B, max_len, KV, D),
                  "len": 0-d int32}; an int8 cache (``init_decode_cache``
                  with ``cfg.kv_cache_int8``) holds int8 "k", "v" and bf16
                  "k_s", "v_s": (n_layers, B, max_len, KV, 1).  Prefill
@@ -36,10 +35,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import mamba2, xlstm
+from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.layers import (attention_decode, decode_attention,
                                        kv_planes, linear, rms_norm, swiglu)
-from repro_torch.models.lm import (LM, dense_block, gelu_mlp, require_ported,
+from repro_torch.models.lm import (LM, dense_block, gelu_mlp, moe_block,
                                    torch_dtype, tree_at, tree_map, tree_set)
 
 
@@ -86,13 +85,14 @@ def _ssm_caches(cfg, batch: int, device):
 
 
 # ---------------------------------------------------------------------------
-# dense / vlm
+# dense / vlm / moe
 # ---------------------------------------------------------------------------
 
 def _attn_families_prefill(model: LM, params, batch, max_len: int):
     """The vlm family prepends ``linear(vision, vision_proj)`` to the
-    prompt's embeddings.  Each layer's k/v go straight into the stacked
-    cache, not into a list stacked after."""
+    prompt's embeddings; the moe family's blocks run the MoE FFN.  Each
+    layer's k/v go straight into the stacked cache, not into a list
+    stacked after."""
     cfg = model.cfg
     h = model.embed(params, batch["tokens"])
     if cfg.family == "vlm":
@@ -103,9 +103,10 @@ def _attn_families_prefill(model: LM, params, batch, max_len: int):
     shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads, cfg.head_dim)
     kc = torch.zeros(shape, dtype=h.dtype, device=h.device)
     vc = torch.zeros(shape, dtype=h.dtype, device=h.device)
+    block = moe_block if cfg.family == "moe" else dense_block
     for i in range(cfg.n_layers):
-        h, (k, v) = dense_block(tree_at(params["blocks"], (i,)), cfg, h,
-                                positions)
+        h, (k, v) = block(tree_at(params["blocks"], (i,)), cfg, h,
+                          positions)[:2]
         kc[i, :, :s] = k
         vc[i, :, :s] = v
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -125,7 +126,11 @@ def _attn_families_decode(model: LM, params, cache, tokens):
         xn = rms_norm(h, p["norm1"], cfg.norm_eps)
         a, _ = attention_decode(p["attn"], cfg, xn, dict(lcache, len=ln))
         h = h + a
-        h = h + swiglu(rms_norm(h, p["norm2"], cfg.norm_eps), p["mlp"])
+        xn2 = rms_norm(h, p["norm2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            h = h + moe.moe_ffn(p["moe"], cfg, xn2)[0]
+        else:
+            h = h + swiglu(xn2, p["mlp"])
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits_one(model, params, h), dict(cache, len=ln + 1)
 
@@ -313,30 +318,27 @@ def _audio_decode(model: LM, params, cache, tokens):
 # ---------------------------------------------------------------------------
 
 _PREFILL = {"dense": _attn_families_prefill, "vlm": _attn_families_prefill,
-            "hybrid": _hybrid_prefill, "ssm": _ssm_prefill,
-            "audio": _audio_prefill}
+            "moe": _attn_families_prefill, "hybrid": _hybrid_prefill,
+            "ssm": _ssm_prefill, "audio": _audio_prefill}
 _DECODE = {"dense": _attn_families_decode, "vlm": _attn_families_decode,
-           "hybrid": _hybrid_decode, "ssm": _ssm_decode,
-           "audio": _audio_decode}
+           "moe": _attn_families_decode, "hybrid": _hybrid_decode,
+           "ssm": _ssm_decode, "audio": _audio_decode}
 
 
 def prefill(model: LM, params, batch, max_len: int):
     """-> (last-token logits (B, V) f32, cache)."""
-    require_ported(model.cfg, "prefill")
     return _PREFILL[model.cfg.family](model, params, batch, max_len)
 
 
 def decode_step(model: LM, params, cache, tokens):
     """tokens (B, 1) -> (logits (B, V) f32, cache), the cache updated in
     place."""
-    require_ported(model.cfg, "decode_step")
     return _DECODE[model.cfg.family](model, params, cache, tokens)
 
 
 def init_decode_cache(model: LM, batch: int, max_len: int, device="cuda"):
     """Zero caches for decode-only benchmarking (no prefill)."""
     cfg = model.cfg
-    require_ported(cfg, "init_decode_cache")
     dt = torch_dtype(cfg)
 
     def zeros(*shape):
@@ -344,7 +346,7 @@ def init_decode_cache(model: LM, batch: int, max_len: int, device="cuda"):
 
     length = torch.tensor(max_len - 1, dtype=torch.int32, device=device)
     hd, kv = cfg.head_dim, cfg.n_kv_heads
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "moe"):
         return {**kv_planes((cfg.n_layers, batch, max_len, kv, hd), dt,
                             cfg.kv_cache_int8, device), "len": length}
     if cfg.family == "audio":

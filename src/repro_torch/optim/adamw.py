@@ -4,8 +4,13 @@ dicts of tensors.
 
 Not ``torch.optim.AdamW``: the JAX package clips by the global norm of
 all gradients, decays only tensors with ndim >= 2, and keeps f32 moments
-whatever the parameter dtype, so this is a line-for-line port.  Every
-function is pure: ``update`` returns new parameters and a new state.
+whatever the parameter dtype, so this is a line-for-line port.  ``update``
+is pure: it returns new parameters and a new state.  ``update_`` is the
+same arithmetic in place (the counterpart of the JAX launcher's donated
+buffers): it writes the parameters, the moments and the step counter,
+leaf by leaf in slices of at most :data:`SLICE` elements, so its f32
+temporaries stay a slice's, and the two give the same bits.  The global
+norm sums each leaf's squares by slices in order, in both.
 """
 from __future__ import annotations
 
@@ -14,6 +19,10 @@ import math
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+
+
+#: elements of one slice of a leaf in ``global_norm`` and ``update_``
+SLICE = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,33 +78,74 @@ def init(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _slices(x: torch.Tensor):
+    """The flat slices of at most :data:`SLICE` elements of ``x``."""
+    return x.reshape(-1).split(SLICE)
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    total = None
+    for part in _slices(x):
+        s = torch.sum(torch.square(part.to(torch.float32)))
+        total = s if total is None else total + s
+    return total
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+    return torch.sqrt(sum(_sum_squares(x) for x in tree_leaves(tree)))
 
 
-def update(cfg: AdamWConfig, grads, opt_state, params
-           ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """One AdamW step: (new params, new state, {"grad_norm", "lr"})."""
+def _scalars(cfg: AdamWConfig, grads, opt_state):
+    """(step, grad norm, clip scale, lr, bias corrections) of one step."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     step_f = step.to(torch.float32)
-    b1c = 1 - cfg.b1 ** step_f
-    b2c = 1 - cfg.b2 ** step_f
+    return step, gnorm, scale, lr, 1 - cfg.b1 ** step_f, 1 - cfg.b2 ** step_f
+
+
+def _new_leaf(cfg: AdamWConfig, g, m, v, p, scale, lr, b1c, b2c, decay):
+    g = g.to(torch.float32) * scale
+    m2 = cfg.b1 * m + (1 - cfg.b1) * g
+    v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+    mhat, vhat = m2 / b1c, v2 / b2c
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+    if decay:  # decay matrices only
+        delta = delta + cfg.weight_decay * p.to(torch.float32)
+    return (p.to(torch.float32) - lr * delta).to(p.dtype), m2, v2
+
+
+def update(cfg: AdamWConfig, grads, opt_state, params
+           ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step: (new params, new state, {"grad_norm", "lr"})."""
+    step, gnorm, scale, lr, b1c, b2c = _scalars(cfg, grads, opt_state)
 
     def upd(g, m, v, p):
-        g = g.to(torch.float32) * scale
-        m2 = cfg.b1 * m + (1 - cfg.b1) * g
-        v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        mhat, vhat = m2 / b1c, v2 / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.dim() >= 2:  # decay matrices only
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), m2, v2
+        return _new_leaf(cfg, g, m, v, p, scale, lr, b1c, b2c, p.dim() >= 2)
 
     out = tree_map(upd, grads, opt_state["m"], opt_state["v"], params)
     new_params, new_m, new_v = (tree_map(lambda o: o[i], out) for i in range(3))
     return new_params, {"m": new_m, "v": new_v, "step": step}, \
         {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def update_(cfg: AdamWConfig, grads, opt_state, params
+            ) -> Dict[str, torch.Tensor]:
+    """:func:`update` in place: ``params``' leaves, ``opt_state``'s moments
+    and its step counter are written; returns {"grad_norm", "lr"}.  Every
+    leaf must be contiguous."""
+    step, gnorm, scale, lr, b1c, b2c = _scalars(cfg, grads, opt_state)
+
+    def upd(g, m, v, p):
+        if not all(t.is_contiguous() for t in (m, v, p)):
+            raise ValueError("update_ writes contiguous leaves only")
+        for parts in zip(*map(_slices, (g, m, v, p))):
+            new = _new_leaf(cfg, *parts, scale, lr, b1c, b2c, p.dim() >= 2)
+            for dst, val in zip(parts[1:], (new[1], new[2], new[0])):
+                dst.copy_(val)
+
+    tree_map(upd, grads, opt_state["m"], opt_state["v"], params)
+    opt_state["step"].copy_(step)
+    return {"grad_norm": gnorm, "lr": lr}

@@ -46,7 +46,7 @@ from repro_torch.models.layers import (apply_rope, attention_qkv,
                                        decode_attention, kv_entries,
                                        kv_planes, linear, rms_norm,
                                        rope_cos_sin, swiglu)
-from repro_torch.models.lm import LM, require_ported, torch_dtype, tree_at
+from repro_torch.models.lm import LM, torch_dtype, tree_at
 from repro_torch.serving.step_graph import DecodeProgram
 
 __all__ = ["batched_decode_step", "insert_prefill", "init_pool", "Request",
@@ -156,7 +156,6 @@ class ContinuousBatcher:
     def __init__(self, model: LM, params, n_slots: int = 4,
                  max_len: int = 256):
         if model.cfg.family not in ("dense", "vlm"):
-            require_ported(model.cfg, "ContinuousBatcher")
             raise ValueError("the continuous batcher serves the dense and "
                              f"vlm families, not {model.cfg.family!r}")
         self.model = model

@@ -1158,7 +1158,7 @@ def test_padding_region_is_zero_after_a_larger_request(cuda, name):
 # ---------------------------------------------------------------------------
 
 DECODE_ARCHS = ["yi-6b", "llava-next-34b", "zamba2-7b", "whisper-tiny",
-                "xlstm-125m"]
+                "xlstm-125m", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"]
 INT8_ATTN_GATE, INT8_DECODE_GATE = 0.03, 0.05      # tests/test_kv_quant.py
 
 
@@ -1398,6 +1398,187 @@ def test_triangle_attention_on_the_card_equals_plain_bits(cuda, dtype):
         plain = chunked_attention(q, k, v, causal=True, q_chunk=64,
                                   kv_chunk=128)
     assert torch.equal(tri, plain)
+
+
+# ---------------------------------------------------------------------------
+# K5's gradient, the moe family and LM training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k_w", [4, 9])
+def test_conv1d_on_the_card_is_differentiable(cuda, k_w, dtype):
+    """K5's autograd node on a CUDA tensor that requires grad: a grad_fn,
+    one launch a forward and none in the backward, dx and dk equal to the
+    plain version's autograd on the card (same formulas, same order) on a
+    strided slice."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(k_w)
+    row = torch.randn((2, 300, 96), generator=gen).to(dt).to(cuda)
+    k = torch.randn((k_w, 64), generator=gen).to(dt).to(cuda)
+    g = torch.randn((2, 300, 64), generator=gen).to(dt).to(cuda)
+    grads = []
+    for fn in (C.mec_conv1d, C.mec_conv1d_plain):
+        x = row.clone().requires_grad_(True)
+        kk = k.clone().requires_grad_(True)
+        C.mec_conv1d.launches = 0
+        y = fn(x[..., 16:80], kk)
+        assert y.grad_fn is not None
+        y.backward(g)
+        torch.cuda.synchronize()
+        grads.append((x.grad, kk.grad, C.mec_conv1d.launches))
+    assert grads[0][2] == 1 and grads[1][2] == 0
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+
+
+def test_expert_product_has_an_f32_result_and_a_gradient(cuda):
+    """The bf16 expert product on the card: torch.bmm's f32-result form
+    without an f32 copy of the weights, equal to the product of the
+    widened operands within f32 rounding, and its gradients from the f32
+    cotangent, equal to the widened product's."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((4, 16, 64), generator=gen).to(torch.bfloat16).to(cuda)
+    b = torch.randn((4, 64, 32), generator=gen).to(torch.bfloat16).to(cuda)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    with f32_accumulation():
+        y = moe._product_f32(a, b)
+        want = torch.bmm(a.detach().float(), b.detach().float())
+    assert y.dtype == torch.float32
+    assert _scaled(y.detach(), want) < 1e-6
+    y.square().sum().backward()
+    assert a.grad.dtype == torch.bfloat16 and b.grad.dtype == torch.bfloat16
+    ga = (2 * want) @ b.detach().float().transpose(1, 2)
+    assert _scaled(a.grad.float(), ga) < 2e-2
+    # the backward takes the f32 cotangent, as the widened product's
+    # autograd (the CPU's path) does: equal bits at one cotangent, where
+    # the cotangent rounded to bf16 first does not give them
+    g = torch.randn((4, 16, 32), generator=gen).to(cuda)
+    grads = []
+    for widen in (False, True):
+        aw = a.detach().clone().requires_grad_(True)
+        bw = b.detach().clone().requires_grad_(True)
+        with f32_accumulation():
+            out = (torch.bmm(aw.float(), bw.float()) if widen
+                   else moe._product_f32(aw, bw))
+            out.backward(g)
+        grads.append((aw.grad, bw.grad))
+    with f32_accumulation():
+        rounded = moe._product_f32_grads(a.detach(), b.detach(),
+                                         g.to(torch.bfloat16).float())
+    assert all(map(torch.equal, grads[0], grads[1]))
+    assert not all(map(torch.equal, rounded, grads[0]))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
+def test_moe_serve_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke moe model (f32, capacity factor 8: no drops) with the same
+    weights on the card and the CPU: a 16-token prefill and 4 decode
+    steps, every step's logits within 1e-4, no drop counted on either, no
+    conv kernel on the card."""
+    from repro_torch.models import moe
+    cfg = smoke_config(arch)
+    model = lm.LM(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    logits = {}
+    K.reset_launch_counts()
+    C.mec_conv1d.launches = 0
+    with f32_accumulation():
+        for device in ("cpu", cuda):
+            p = _to(params, device)
+            with moe.count_drops(device) as dropped:
+                out, cache = serve.prefill(
+                    model, p, {"tokens": toks[:, :16].to(device)}, 24)
+                steps = [out]
+                for i in range(4):
+                    out, cache = serve.decode_step(
+                        model, p, cache, toks[:, 16 + i:17 + i].to(device))
+                    steps.append(out)
+                assert int(dropped) == 0
+            logits[str(device)] = steps
+    assert K.launch_counts() == NO_LAUNCHES and C.mec_conv1d.launches == 0
+    for got, want in zip(logits["cuda"], logits["cpu"]):
+        assert got.device.type == "cuda" and _scaled(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
+def test_moe_drops_on_the_card_are_counted_alike_in_graph_and_eager(
+        cuda, arch, monkeypatch):
+    """At a capacity factor that drops: the captured decode counts the
+    same drops a step as the eager one, with the same tokens."""
+    import functools
+    from repro_torch.serving import DecodeProgram
+    cfg = smoke_config(arch).with_(capacity_factor=0.5)
+    graph = launch_serve.serve(cfg, batch=4, prompt_len=12, gen=6, device=cuda)
+    monkeypatch.setattr(launch_serve, "DecodeProgram",
+                        functools.partial(DecodeProgram, graph=False))
+    eager = launch_serve.serve(cfg, batch=4, prompt_len=12, gen=6, device=cuda)
+    assert graph["decode_graph"] and not eager["decode_graph"]
+    assert graph["drops"]["prefill"] > 0
+    assert graph["drops"] == eager["drops"]
+    assert torch.equal(graph["tokens"], eager["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b", "zamba2-7b",
+                                  "xlstm-125m", "whisper-tiny",
+                                  "llava-next-34b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One smoke train step (f32, the fused conv where the family has one)
+    on the card against the CPU: loss and grad norm within 1e-4, K5
+    launched once a block on the card."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import steps
+    cfg = smoke_config(arch).with_(conv_impl="fused")
+    model = lm.LM(cfg)
+    out = {}
+    for device in ("cpu", cuda):
+        params = _to(model.init(torch.Generator().manual_seed(0),
+                                device="cpu"), device)
+        batch = SyntheticLMData(cfg, 2, 32, device=device).next_batch()
+        step = steps.make_train_step(model, AdamWConfig(total_steps=10))
+        C.mec_conv1d.launches = 0
+        with f32_accumulation():
+            _, _, met = step(params, steps.init_opt_state(params), batch)
+        out[str(device)] = (float(met["loss"]), float(met["grad_norm"]),
+                            C.mec_conv1d.launches)
+    (l0, g0, n0), (l1, g1, n1) = out["cpu"], out[str(cuda)]
+    assert abs(l1 - l0) <= 1e-4 * abs(l0) and abs(g1 - g0) <= 1e-4 * abs(g0)
+    blocks = cfg.n_layers if cfg.family in ("hybrid", "ssm") else 0
+    assert n0 == 0 and n1 == blocks
+
+
+def test_chunked_loss_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.training.loss import chunked_softmax_xent
+    gen = torch.Generator().manual_seed(0)
+    h = torch.randn((2, 70, 32), generator=gen)
+    w = torch.randn((32, 300), generator=gen)
+    labels = torch.randint(-1, 300, (2, 70), generator=gen)
+    out = []
+    for device in ("cpu", cuda):
+        hh = h.detach().clone().to(device).requires_grad_(True)
+        ww = w.detach().clone().to(device).requires_grad_(True)
+        with f32_accumulation():
+            loss, _ = chunked_softmax_xent(hh, ww, labels.to(device), chunk=16)
+            loss.backward()
+        out.append((loss.detach().cpu(), hh.grad.cpu(), ww.grad.cpu()))
+    for a, b in zip(*out):
+        assert _scaled(b, a) < 1e-5
+
+
+def test_checkpoint_of_card_tensors_restores_on_the_card(cuda, tmp_path):
+    from repro_torch.ckpt.manager import CheckpointManager
+    tree = {"w": torch.randn((3, 5), device=cuda).to(torch.bfloat16),
+            "s": torch.zeros((), dtype=torch.int32, device=cuda)}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_async(2, {"params": tree})
+    mgr.wait()
+    out = mgr.restore(2, {"params": lm.tree_map(torch.zeros_like, tree)})
+    assert out["params"]["w"].device.type == "cuda"
+    assert _tree_equal(out["params"], tree)
 
 
 def test_zz_a_failed_capture_raises(cuda):

@@ -463,14 +463,6 @@ def test_int8_decode_matches_jax_on_the_same_cache(arch):
         assert int(tc["len"]) == int(jc["len"]) == t + 1
 
 
-def test_int8_cache_decode_moe_raises_until_ported():
-    """The JAX package's moe int8 decode (test_int8_cache_decode_moe_finite)
-    waits for the moe family (ROADMAP Queue 1 item 10.3)."""
-    cfg = tarchs.smoke_config("qwen3-moe-30b-a3b").with_(kv_cache_int8=True)
-    with pytest.raises(NotImplementedError, match="item 10.3"):
-        tserve.init_decode_cache(tlm.LM(cfg), 2, 8, device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["yi-6b", "llava-next-34b"])
 def test_int8_cache_half_bytes(arch):
     cfg = tarchs.smoke_config(arch)

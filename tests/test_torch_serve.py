@@ -49,8 +49,6 @@ from repro_torch.models import serve as tserve       # noqa: E402
 F32_TOL = 1e-5
 SLICE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ARCH = "zamba2-7b"
-UNPORTED = sorted(a for a, c in tarchs.ARCHS.items()
-                  if c.family not in tlm.PORTED_FAMILIES)
 
 
 def _err(port, ref) -> float:
@@ -430,17 +428,6 @@ def test_example_serve_lm_runs_on_cpu():
     assert gen.shape == (4, 12)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu"])
-    model = tlm.LM(tarchs.smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tserve.prefill(model, {}, {"tokens": torch.zeros((1, 4))}, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tserve.decode_step(model, {}, {}, torch.zeros((1, 1)))
-
-
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "production"], "item 11"), (["--mesh", "multipod"], "item 11")])
 def test_unported_flags_raise(flags, item):
@@ -471,9 +458,3 @@ def test_warm_plans_on_a_family_without_a_frontend(capsys):
     gen = tlaunch.main(SMOKE_ARGS + ["--warm-plans"])
     assert gen.shape == (2, 5)
     assert "has no conv frontend; nothing to warm" in capsys.readouterr().out
-
-
-def test_unported_attention_options_raise():
-    _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="training"):
-        tlm.LM(cfg).forward({}, {})

@@ -2,11 +2,10 @@
 ``repro.configs.shapes``, on the CPU.
 
 The cells, the long-context archs and ``cell_applicable`` are copies; every
-ported family's input specs at full size have the JAX package's shapes and
+family's input specs at full size have the JAX package's shapes and
 dtypes (its decode specs from ``jax.eval_shape``, the port's from the
 ``meta`` device, so neither allocates); ``make_batch`` at ``smoke_shape``
-builds what the specs say and the ported models take it; the moe family
-raises ROADMAP item 10.3.
+builds what the specs say and the models take it.
 """
 import dataclasses
 
@@ -25,12 +24,10 @@ from repro_torch.configs import shapes as tshapes    # noqa: E402
 from repro_torch.models import lm as tlm             # noqa: E402
 from repro_torch.models import serve as tserve       # noqa: E402
 
-PORTED = sorted(a for a, c in tarchs.ARCHS.items()
-                if c.family in tlm.PORTED_FAMILIES)
-UNPORTED = sorted(set(tarchs.ARCHS) - set(PORTED))
-# one arch of each ported family, for the batches at smoke size
+PORTED = sorted(tarchs.ARCHS)
+# one arch of each family, for the batches at smoke size
 FAMILY_ARCHS = ["qwen3-4b", "llava-next-34b", "zamba2-7b", "xlstm-125m",
-                "whisper-tiny"]
+                "whisper-tiny", "qwen3-moe-30b-a3b"]
 
 
 def _leaves(tree, prefix=""):
@@ -140,14 +137,3 @@ def test_long_500k_decode_state_is_length_free():
     short = tserve.init_decode_cache(tlm.LM(cfg), 1, 64, device="cpu")
     size = {n: t.numel() for n, t in _leaves(batch["cache"]).items()}
     assert size == {n: t.numel() for n, t in _leaves(short).items()}
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_family_raises(arch):
-    cfg = tarchs.smoke_config(arch)
-    cell = tshapes.smoke_shape(tshapes.SHAPES["decode_32k"])
-    for fn in (tshapes.input_specs, tshapes.make_batch):
-        with pytest.raises(NotImplementedError, match="item 10.3"):
-            fn(cfg, cell)
-    with pytest.raises(NotImplementedError, match="item 10.3"):
-        tshapes.input_specs(cfg, tshapes.smoke_shape(tshapes.SHAPES["train_4k"]))
