@@ -206,6 +206,36 @@ the script exits non-zero without its last line:
              optimizer learns: xlstm-125m's loss on one repeated batch
              falls by 10 times the spread between batches in 6 steps.
              One zamba2-7b step traced: K5's device time in it.
+6i. dist  - distributed execution on ranks that share the card: gloo
+             processes on cuda:0 (NCCL refuses two ranks on one device;
+             ``nccl`` over more ranks than cards must raise, and NCCL at
+             world size 1 runs an all-reduce and ``sharded_conv2d`` over a
+             1-way mesh to the single-device bits).  Four ranks: Table 2
+             at batch 1 under ``spatial`` over 2 and 4 ranks where viable
+             and ``channel`` over 2 and 4, and at batch 8 under the three
+             composites over 2 x 2, through ``mec_fused`` (K1) and
+             ``mec_lowered`` (K2+K3) in f32, forward and both gradients
+             against the single-device conv on the card within the f32
+             budgets; the bytes each rank hands the halo exchange and the
+             cotangent sums, counted by wrapping ``torch.distributed``,
+             equal to ``conv_partition_costs`` to the byte; each rank's
+             body's requested bytes (memaudit's measurement) within the
+             Eq. 3 rule on its local geometry, the halo concat's copy
+             beside; the ResNet-101 stack at batch 16 under
+             ``partition="auto"`` on 2 x 2 in f32 and bf16 (picks, plans,
+             errors); the bench ``dist`` suite (65 records' exact fields
+             against ``benchmarks/baselines/dist.json``, the smoke cells
+             timed); GPipe over 4 stages.  Two ranks: a data-parallel
+             gradient of xlstm-125m (full width, 4 layers, f32, K5)
+             within 1e-5 of the whole batch's, the compressed step's loss
+             falling on one repeated batch.  Then ``torch.distributed.run
+             --nproc-per-node 2 -m repro_torch.launch.train --arch
+             xlstm-125m --mesh host --backend gloo`` at full size, 10
+             steps of 8 x 128 at lr 5e-4, plain and ``--compress-grads``:
+             finite losses, K5 24 times a step on each rank, the last
+             losses within 0.35.  The phase's seconds, the ranks' spawn
+             and start, and the host-staged bytes a step.  No scaling is
+             read from any of it.
 7. timing  - each conv2d kernel at each Table-3 layer, batch 1 and 16,
              with CUDA events (median of 15 after 3 warm-up calls),
              beside its plain version, one library call and its bound.
@@ -2984,6 +3014,695 @@ def train_lm_phase(seed: int, tmp_dir: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- 6i. dist
+# Distributed execution on ranks that share the one card: NCCL refuses two
+# ranks on one device, so the ranks are processes under gloo, collectives
+# staged through host memory.  The rank bodies below are module-level so
+# launch.mesh.spawn can send them to fresh processes (which import this
+# file as their main module, without running main()).
+
+DIST_WORLD = 4
+DIST_BACKEND = "gloo"
+DIST_TIMEOUT_S = 180          # a collective's wait for a peer
+DIST_JOIN_S = 900             # a spawn's whole run
+DIST_ALGOS = ("mec_fused", "mec_lowered")
+DIST_COMPOSITE_BATCH = 8
+DIST_LM_ARCH = "xlstm-125m"
+DIST_LM_STEPS = 10
+DIST_LM_ARGS = ["--global-batch", "8", "--seq-len", "128", "--lr", "5e-4",
+                "--conv-impl", "fused", "--log-every", "5"]
+DIST_LM_GAP = 0.35            # tests/test_distribution.py:119
+DIST_GRAD_LAYERS = 4          # xlstm-125m at full width, f32, for the
+DIST_GRAD_BATCH = (4, 64)     # data-parallel gradient check
+DIST_GRAD_TOL = 1e-5
+DIST_INT8_TOL = 1e-6          # the int8 reduction against its f64 formula
+DIST_OVERFIT_STEPS = 6
+PIPE_SHAPE = (8, 16, 12)      # tests/test_pipeline.py: L, D, B
+PIPE_TOLS = (1e-5, 1e-4)
+
+
+class WireCount:
+    """Bytes this rank hands to ``torch.distributed`` inside the block:
+    point-to-point sends (the halo), all-reduce operands (cotangent sums)
+    and all-gather operands (returning global tensors)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist = dist
+        self.saved = (dist.batch_isend_irecv, dist.all_reduce,
+                      dist.all_gather)
+        self.p2p = self.reduce = self.gather = 0
+        batch, reduce, gather = self.saved
+
+        def counted_batch(ops):
+            self.p2p += sum(op.tensor.nbytes for op in ops
+                            if op.op.__name__ == "isend")
+            return batch(ops)
+
+        def counted_reduce(t, *a, **k):
+            self.reduce += t.nbytes
+            return reduce(t, *a, **k)
+
+        def counted_gather(out, t, *a, **k):
+            self.gather += t.nbytes
+            return gather(out, t, *a, **k)
+
+        dist.batch_isend_irecv = counted_batch
+        dist.all_reduce = counted_reduce
+        dist.all_gather = counted_gather
+        return self
+
+    def __exit__(self, *exc):
+        (self.dist.batch_isend_irecv, self.dist.all_reduce,
+         self.dist.all_gather) = self.saved
+
+    def take(self) -> dict:
+        out = {"p2p": self.p2p, "reduce": self.reduce, "gather": self.gather}
+        self.p2p = self.reduce = self.gather = 0
+        return out
+
+
+def dist_table2_cases():
+    """(layer, batch, partition, n_dev, mesh shape, mesh axes, algorithm):
+    Table 2 at batch 1 under spatial and channel over 2 and 4 ranks where
+    viable, and at batch 8 under the three composites over 2 x 2."""
+    from repro_torch.bench.scenarios import CV_LAYERS, layer_spec
+    from repro_torch.parallel.conv import (COMPOSITE_PARTITIONS,
+                                           partition_viable)
+    cases = []
+    for name in CV_LAYERS:
+        spec = layer_spec(name)
+        for part in ("spatial", "channel"):
+            for n in (2, 4):
+                if partition_viable(spec, part, n):
+                    cases += [(name, 1, part, n, (n,), ("data",), alg)
+                              for alg in DIST_ALGOS]
+        spec8 = layer_spec(name, batch=DIST_COMPOSITE_BATCH)
+        for comp in COMPOSITE_PARTITIONS:
+            if partition_viable(spec8, comp, (2, 2)):
+                cases += [(name, DIST_COMPOSITE_BATCH, comp, (2, 2), (2, 2),
+                           ("data", "model"), alg) for alg in DIST_ALGOS]
+    return cases
+
+
+def _scaled(a, ref) -> float:
+    return float((a.double() - ref.double()).abs().max()
+                 / ref.double().abs().max().clamp_min(1e-30))
+
+
+def _checksum(*ts) -> list:
+    return [float(t.double().sum()) for t in ts]
+
+
+class BodyAudit:
+    """Wraps ``parallel.conv._single_device``, the body every rank runs
+    inside ``sharded_conv2d``, so that its own call is measured: the
+    operands it receives (after the shard, the halo concat and the
+    staging) and the bytes a call on them requests (memaudit's
+    measurement, ``_temp_bytes``: the second of two calls without
+    autograd, on detached copies of those operands).  The body then runs
+    as it would."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.analysis.memaudit import _temp_bytes
+        from repro_torch.parallel import conv as pconv
+        self._mod, self._real = pconv, pconv._single_device
+        real = self._real
+
+        def audited(x, kernel, stride, algorithm, solution):
+            xd, kd = x.detach(), kernel.detach()
+            with torch.no_grad():
+                temp = _temp_bytes(lambda: real(xd, kd, stride, algorithm,
+                                                solution))[0]
+            self.calls.append({"x": tuple(x.shape), "k": tuple(kernel.shape),
+                               "stride": tuple(stride), "temp_bytes": temp,
+                               "x_bytes": x.numel() * x.element_size()})
+            return real(x, kernel, stride, algorithm, solution)
+
+        pconv._single_device = audited
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._single_device = self._real
+
+
+def dist_table2_rank(seed: int) -> list:
+    """Every Table-2 case on this rank: output and gradients against the
+    single-device conv (rank 0), wire bytes, and the body's requested
+    bytes against Eq. 3 on the local geometry."""
+    import torch.distributed as dist
+    from repro_torch.analysis.memaudit import gate
+    from repro_torch.bench.scenarios import CV_LAYERS
+    from repro_torch.core import memory
+    from repro_torch.core.conv_api import conv2d
+    from repro_torch.core.convspec import spec_of
+    from repro_torch.core.numerics import fwd_tolerance, grad_tolerance
+    from repro_torch.launch.costmodel import conv_partition_costs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.conv import normalize_partition, sharded_conv2d
+    rank = dist.get_rank()
+    meshes, out = {}, []
+    for i, (name, batch, part, n_dev, shape, axes, alg) in \
+            enumerate(dist_table2_cases()):
+        if (shape, axes) not in meshes:
+            meshes[(shape, axes)] = make_host_mesh(shape=shape, axes=axes)
+        mesh = meshes[(shape, axes)]
+        coord = mesh.get_coordinate()
+        if coord is None:
+            out.append(None)
+            continue
+        ih, iw, ic, kh, kw, kc, s = CV_LAYERS[name]
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed + i)
+        x = torch.randn((batch, ih, iw, ic), generator=gen, device=DEVICE)
+        k = torch.randn((kh, kw, ic, kc), generator=gen,
+                        device=DEVICE) * (kh * kw * ic) ** -0.5
+        spec = spec_of(x, k, (s, s))
+        g = torch.randn(spec.out_shape, generator=gen, device=DEVICE)
+        xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+        with WireCount() as wire:
+            # the body's own extra calls (the audit's) are local: the
+            # wire counts only the sharded call's collectives
+            with BodyAudit() as audit:
+                y = sharded_conv2d(xg, kg, stride=s, algorithm=alg,
+                                   partition=part, mesh=mesh,
+                                   axis=axes if len(axes) > 1 else None)
+            fwd = wire.take()
+            (y * g).sum().backward()
+            bwd = wire.take()
+        torch.cuda.synchronize()
+        parts = normalize_partition(part)
+        cost = conv_partition_costs(spec, n_dev)[
+            parts if len(parts) > 1 else parts[0]]
+        # the body's own call: its operands and requested bytes
+        check(len(audit.calls) == 1,
+              f"dist {name}/{part}/{alg}: the body ran "
+              f"{len(audit.calls)} times")
+        body = audit.calls[0]
+        lspec = spec_of(torch.empty(body["x"], device="meta"),
+                        torch.empty(body["k"], device="meta"),
+                        body["stride"])
+        temp = body["temp_bytes"]
+        predicted = memory.algorithm_overhead(lspec, alg) * 4
+        verdict, fails = gate(f"dist/{name}/{part}", alg, predicted, temp)
+        rec = {"case": i, "layer": name, "batch": batch,
+               "partition": "+".join(parts), "n_dev": n_dev,
+               "algorithm": alg, "fwd": fwd, "bwd": bwd,
+               "halo_bytes_model": cost["halo_bytes_per_device"],
+               "bwd_bytes_model": cost["comm_bytes_bwd_per_device"],
+               "local_spec": [lspec.i_n, lspec.i_h, lspec.i_w, lspec.i_c,
+                              lspec.k_c],
+               "temp_bytes": temp, "predicted_bytes": predicted,
+               "eq3_bytes": cost["per_device_overhead_elems"] * 4,
+               "halo_concat_bytes": (body["x_bytes"]
+                                     if "spatial" in parts else 0),
+               "memory_verdict": verdict["verdict"], "memory_fails": fails,
+               "checksum": _checksum(y.detach(), xg.grad, kg.grad)}
+        if rank == 0:
+            xr, kr = x.clone().requires_grad_(), k.clone().requires_grad_()
+            yr = conv2d(xr, kr, stride=s, algorithm=alg, partition="none")
+            (yr * g).sum().backward()
+            rec.update(
+                fwd_err=_scaled(y.detach(), yr.detach()),
+                dx_err=_scaled(xg.grad, xr.grad),
+                dk_err=_scaled(kg.grad, kr.grad),
+                equal_bits=bool(torch.equal(y.detach(), yr.detach())),
+                fwd_tol=fwd_tolerance(alg, "float32", kh * kw * ic),
+                dx_tol=grad_tolerance(alg, "float32", kh * kw * kc),
+                dk_tol=grad_tolerance(alg, "float32",
+                                      batch * spec.o_h * spec.o_w))
+        out.append(rec)
+        del x, k, g, xg, kg, y
+    return out
+
+
+def dist_stack_rank(seed: int) -> dict:
+    """The ResNet-101 Table-3 stack (34 convs, batch 16) under
+    ``partition="auto"`` on a 2 x 2 mesh, f32 and bf16, through
+    rules-aware ``conv2d``: picks, plans and errors against the
+    single-device stack (rank 0)."""
+    import torch.distributed as dist
+    from repro_torch.bench.scenarios import CV_LAYERS
+    from repro_torch.bench.scenarios import RESNET101_WEIGHTS as RESNET101
+    from repro_torch.core.conv_api import conv2d, conv2d_spec
+    from repro_torch.core.numerics import fwd_tolerance
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.axes import default_rules, use_rules
+    from repro_torch.parallel.conv import partition_name
+    from repro_torch.plan import plan_conv2d
+    rules = default_rules(make_host_mesh(shape=(2, 2),
+                                         axes=("data", "model")))
+    rank = dist.get_rank()
+    out = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed)
+        worst, picks, plans, convs = 0.0, {}, {}, 0
+        for name, count in RESNET101.items():
+            ih, iw, ic, kh, kw, kc, s = CV_LAYERS[name]
+            x = torch.randn((SLICE_BATCH, ih, iw, ic), generator=gen,
+                            device=DEVICE).to(dtype)
+            for _ in range(count):
+                w = (torch.randn((kh, kw, ic, kc), generator=gen,
+                                 device=DEVICE)
+                     * (kh * kw * ic) ** -0.5).to(dtype)
+                with use_rules(rules), torch.no_grad():
+                    y = conv2d(x, w, stride=s)
+                    if name not in plans:
+                        plan = plan_conv2d(conv2d_spec(x, w, stride=s),
+                                           dtype=dname, backend="cuda",
+                                           partition="auto")
+                        picks[name] = (partition_name(plan.partition)
+                                       if plan.partition else None)
+                        plans[name] = plan.explain() if rank == 0 else None
+                if rank == 0:
+                    with torch.no_grad():
+                        ref = conv2d(x, w, stride=s, partition="none")
+                    err = _scaled(y, ref)
+                    check(err <= fwd_tolerance("mec_fused", dname,
+                                               kh * kw * ic),
+                          f"dist stack {name} {dname}: sharded against one "
+                          f"device {err}")
+                    worst = max(worst, err)
+                convs += 1
+                del y
+        out[dname] = {"convs": convs, "picks": picks, "plans": plans,
+                      "max_scaled_err": worst}
+    return out
+
+
+def dist_pipeline_rank(seed: int) -> dict:
+    """GPipe: 4 stages on the 4 ranks, 4 microbatches, against the
+    sequential stack on this rank."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    n_layers, width, batch = PIPE_SHAPE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    w = torch.randn((n_layers, width, width), generator=gen,
+                    device=DEVICE) * width ** -0.5
+    b = torch.randn((n_layers, width), generator=gen, device=DEVICE) * 0.1
+    x = torch.randn((batch, width), generator=gen, device=DEVICE)
+
+    def block(p, h):
+        return torch.tanh(h @ p["w"] + p["b"]) + h
+
+    mesh = make_host_mesh(shape=(dist.get_world_size(),), axes=("pipe",))
+    p1 = {"w": w.clone().requires_grad_(), "b": b.clone().requires_grad_()}
+    x1 = x.clone().requires_grad_()
+    out = pipeline_apply(block, p1, x1, mesh, "pipe", 4)
+    (out ** 2).sum().backward()
+    p2 = {"w": w.clone().requires_grad_(), "b": b.clone().requires_grad_()}
+    x2 = x.clone().requires_grad_()
+    h = x2
+    for i in range(n_layers):
+        h = block({"w": p2["w"][i], "b": p2["b"][i]}, h)
+    (h ** 2).sum().backward()
+    err = float((out - h).detach().abs().max())
+    gerr = max(float((a.grad - c.grad).abs().max())
+               for a, c in ((x1, x2), (p1["w"], p2["w"]), (p1["b"], p2["b"])))
+    return {"err": err, "gerr": gerr}
+
+
+def dist_rank_main(seed: int) -> dict:
+    """The 4-rank body of the dist phase."""
+    import torch.distributed as dist
+    from repro_torch.bench import harness
+    from repro_torch.kernels import mec_conv as K
+    from repro_torch.parallel import comm
+    entered = time.time()
+    rank = dist.get_rank()
+    K.reset_launch_counts()
+    staged0 = comm.stage_to_host.bytes + comm.stage_to_device.bytes
+    t0 = time.perf_counter()
+    table2 = dist_table2_rank(seed)
+    t_table2 = time.perf_counter() - t0
+    table2_launches = K.launch_counts()
+    stack = dist_stack_rank(seed)
+    t_stack = time.perf_counter() - t0 - t_table2
+    K.reset_launch_counts()
+    # Four ranks share the card and a host-staged wire: the Table-2
+    # cells' times would be the wire's, and the table2 cases above
+    # already run those geometries; they keep their analytics.
+    suite = harness.run_suite("dist", iters=3, device="cuda",
+                              time_only="smoke*")
+    suite_launches = K.launch_counts()
+    gpipe = dist_pipeline_rank(seed)
+    return {"rank": rank, "entered": entered,
+            "backend": dist.get_backend(), "world": dist.get_world_size(),
+            "device": str(torch.cuda.current_device()),
+            "table2": table2, "table2_launches": table2_launches,
+            "table2_s": t_table2, "stack": stack, "stack_s": t_stack,
+            "suite": suite if rank == 0 else None,
+            "suite_launches": suite_launches, "gpipe": gpipe,
+            "staged_bytes": (comm.stage_to_host.bytes
+                             + comm.stage_to_device.bytes - staged0)}
+
+
+def dist_dp_rank(seed: int) -> dict:
+    """Two ranks: one data-parallel gradient of xlstm-125m (full width,
+    DIST_GRAD_LAYERS layers, f32, K5) against the single-rank gradient of
+    the whole batch (rank 0), then the compressed step on one repeated
+    batch."""
+    import torch.distributed as dist
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import mec_conv1d as C
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.parallel.axes import default_rules
+    from repro_torch.training import steps
+    cfg = ARCHS[DIST_LM_ARCH].with_(n_layers=DIST_GRAD_LAYERS,
+                                    dtype="float32", conv_impl="fused")
+    model = LM(cfg)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    params = model.init(gen, device=DEVICE)
+    rules = default_rules(make_host_mesh())
+    rank, world = dist.get_rank(), dist.get_world_size()
+    batch, seq = DIST_GRAD_BATCH
+    local = SyntheticLMData(cfg, batch, seq, host_id=rank, num_hosts=world,
+                            device=DEVICE).next_batch()
+    k5 = C.mec_conv1d.launches
+    loss2, _, grads2 = steps.make_grad_fn(model, rules)(params, local)
+    out = {"rank": rank, "k5_launches_dp_grad": C.mec_conv1d.launches - k5}
+    if rank == 0:
+        whole = SyntheticLMData(cfg, batch, seq, device=DEVICE).next_batch()
+        loss1, _, grads1 = steps.make_grad_fn(model)(params, whole)
+        errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(tree_leaves(grads2), tree_leaves(grads1))]
+        out.update(loss_dp=float(loss2), loss_one=float(loss1),
+                   max_leaf_err=max(errs), leaves=len(errs))
+    del grads2
+    out.update(int8_reduction_errors(seed))
+    step = steps.make_compressed_train_step(
+        model, AdamWConfig(lr=1e-3, total_steps=DIST_OVERFIT_STEPS,
+                           warmup_steps=1), rules)
+    opt = steps.init_opt_state(params, compressed=True)
+    losses = []
+    for _ in range(DIST_OVERFIT_STEPS):
+        params, opt, m = step(params, opt, local)
+        losses.append(float(m["loss"]))
+    out["repeated_batch_losses"] = losses
+    return out
+
+
+def _int8_case(seed: int, rank: int):
+    """Rank ``rank``'s seeded gradient and ef trees on the card, its
+    gradients at 10**rank times the scale of rank 0's."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 100 + rank)
+    g = {"a": torch.randn((257, 33), generator=gen, device=DEVICE),
+         "b": torch.randn((1000,), generator=gen, device=DEVICE)}
+    g = {k: v * 10.0 ** rank for k, v in g.items()}
+    e = {k: torch.randn(v.shape, generator=gen, device=DEVICE) * 0.01
+         for k, v in g.items()}
+    return g, e
+
+
+def int8_reduction_errors(seed: int) -> dict:
+    """``compression.compressed_psum`` over the world on the card, against
+    its formula on rank 0 (every rank's seeded trees regenerated there;
+    the int8 values and scales in f32 as the JAX package makes them, the
+    mean over ranks and the ef in f64): the mean over ranks of each rank's
+    per-leaf int8 quantisation of its folded gradient, and rank 0's new
+    ef.  Largest errors scaled by each leaf's largest |value| (of the
+    folded gradient for the ef)."""
+    import torch.distributed as dist
+    from repro_torch.parallel import compression
+    rank, world = dist.get_rank(), dist.get_world_size()
+    g, e = _int8_case(seed, rank)
+    reduced, new_ef = compression.compressed_psum(g, e)
+    if rank:
+        return {}
+    errs = {"int8_reduce_err": 0.0, "int8_ef_err": 0.0}
+    for name in g:
+        total, own = 0.0, None
+        for r in range(world):
+            gr, er = _int8_case(seed, r)
+            folded = gr[name] + er[name]
+            scale = folded.abs().max() / 127.0 + 1e-12
+            q = torch.clamp(torch.round(folded / scale), -127, 127)
+            deq = q.double() * scale.double()
+            total = total + deq
+            if r == 0:
+                own = (folded.double(), folded.double() - deq)
+        ref = total / world
+        errs["int8_reduce_err"] = max(errs["int8_reduce_err"], float(
+            (reduced[name].double() - ref).abs().max() / ref.abs().max()))
+        errs["int8_ef_err"] = max(errs["int8_ef_err"], float(
+            (new_ef[name].double() - own[1]).abs().max()
+            / own[0].abs().max()))
+    return errs
+
+
+def dist_nccl_rank(seed: int) -> dict:
+    """NCCL at world size 1: an all-reduce and ``sharded_conv2d`` over a
+    1-way mesh against the single-device conv, to the bit."""
+    import torch.distributed as dist
+    from repro_torch.core.conv_api import conv2d
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.conv import sharded_conv2d
+    t = torch.full((4,), 3.0, device=DEVICE)
+    dist.all_reduce(t)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    x = torch.randn((2, 56, 56, 64), generator=gen, device=DEVICE)
+    k = torch.randn((3, 3, 64, 64), generator=gen, device=DEVICE) / 24.0
+    mesh = make_host_mesh()
+    equal = {}
+    for part in ("batch", "channel"):
+        y = sharded_conv2d(x, k, algorithm="mec_fused", partition=part,
+                           mesh=mesh)
+        equal[part] = bool(torch.equal(
+            y, conv2d(x, k, algorithm="mec_fused", partition="none")))
+    return {"backend": dist.get_backend(), "all_reduce": t.tolist(),
+            "equal_bits": equal}
+
+
+def dist_lm_run(compress: bool) -> list:
+    """``launch.train --mesh host`` on xlstm-125m at full size through
+    ``torch.distributed.run`` over 2 ranks sharing the card (gloo): each
+    rank's summary line, read from the rank's own standard output file
+    (two ranks writing one pipe can interleave their lines)."""
+    logs = Path(tempfile.mkdtemp(prefix="dist-lm-"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "--log-dir", str(logs), "--redirects",
+           "1", "-m", "repro_torch.launch.train",
+           "--arch", DIST_LM_ARCH, "--mesh", "host", "--backend",
+           DIST_BACKEND, "--steps", str(DIST_LM_STEPS), *DIST_LM_ARGS]
+    if compress:
+        cmd.append("--compress-grads")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    outs = sorted(logs.rglob("stdout.log"))
+    texts = [out.read_text() for out in outs]
+    shutil.rmtree(logs, ignore_errors=True)
+    print(*(t[-3000:] for t in texts), proc.stderr[-4000:], sep="\n",
+          file=sys.stderr)
+    check(proc.returncode == 0,
+          f"torchrun launch.train (compress={compress}) exited "
+          f"{proc.returncode}")
+    lines = [json.loads(ln.split("summary ", 1)[1])
+             for text in texts for ln in text.splitlines()
+             if ln.startswith("[train] summary ")]
+    check(sorted(s["rank"] for s in lines) == [0, 1],
+          f"torchrun launch.train printed {len(lines)} rank summaries")
+    for s in lines:
+        s["wall_s"] = wall
+    return sorted(lines, key=lambda s: s["rank"])
+
+
+def dist_phase(seed: int) -> dict:
+    """Phase 6i; returns each kernel's launches on the ranks."""
+    import json as json_mod
+    from repro_torch.bench import check as bench_check
+    from repro_torch.launch.mesh import spawn
+    free_card()
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    emit({"phase": "dist", "step": "world", "backend": DIST_BACKEND,
+          "world_size": DIST_WORLD, "cards": cards,
+          "ranks_per_card": DIST_WORLD / cards,
+          "why": "NCCL refuses two ranks on one device; gloo stages "
+                 "collectives through host memory; one card shows no "
+                 "scaling"})
+    # NCCL refuses more ranks than cards: a choice, never a fallback.
+    try:
+        spawn(dist_nccl_rank, cards + 1, args=(seed,), backend="nccl",
+              device="cuda")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "--backend gloo" in refused,
+          f"nccl over {cards + 1} ranks on {cards} card(s) did not raise")
+    nccl = spawn(dist_nccl_rank, 1, args=(seed,), backend="nccl",
+                 device="cuda", timeout_s=DIST_TIMEOUT_S,
+                 join_timeout_s=300)[0]
+    check(nccl["backend"] == "nccl" and nccl["all_reduce"] == [3.0] * 4
+          and all(nccl["equal_bits"].values()),
+          f"NCCL at world size 1: {nccl}")
+    emit({"phase": "dist", "step": "nccl_world1", **nccl,
+          "refused_two_ranks": refused})
+
+    t_spawn = time.time()
+    ranks = spawn(dist_rank_main, DIST_WORLD, args=(seed,),
+                  backend=DIST_BACKEND, device="cuda",
+                  timeout_s=DIST_TIMEOUT_S, join_timeout_s=DIST_JOIN_S)
+    spawn_init_s = max(r["entered"] for r in ranks) - t_spawn
+    check(all(r["backend"] == DIST_BACKEND and r["world"] == DIST_WORLD
+              and r["device"] == "0" for r in ranks),
+          f"ranks: {[(r['backend'], r['world'], r['device']) for r in ranks]}")
+    # Table 2 under every viable partition
+    cases = dist_table2_cases()
+    worst = {"fwd": 0.0, "dx": 0.0, "dk": 0.0}
+    bits = {}
+    for i, case in enumerate(cases):
+        recs = [r["table2"][i] for r in ranks if r["table2"][i] is not None]
+        lead = recs[0]
+        tag = f"dist {case[0]} b{case[1]} {lead['partition']} {case[3]} {case[6]}"
+        check(len(recs) == math.prod(case[4]), f"{tag}: {len(recs)} ranks ran")
+        for f in ("fwd", "dx", "dk"):
+            check(lead[f"{f}_err"] <= lead[f"{f}_tol"],
+                  f"{tag}: {f} scaled error {lead[f + '_err']} > "
+                  f"{lead[f + '_tol']}")
+            worst[f] = max(worst[f], lead[f"{f}_err"])
+        check(all(r["checksum"] == lead["checksum"] for r in recs),
+              f"{tag}: ranks returned different global answers")
+        fwd_b = max(r["fwd"]["p2p"] + r["fwd"]["reduce"] for r in recs)
+        bwd_b = max(r["bwd"]["p2p"] + r["bwd"]["reduce"] for r in recs)
+        check(fwd_b == lead["halo_bytes_model"],
+              f"{tag}: halo sent {fwd_b} B, cost model "
+              f"{lead['halo_bytes_model']} B")
+        check(bwd_b == lead["bwd_bytes_model"],
+              f"{tag}: backward sent {bwd_b} B, cost model "
+              f"{lead['bwd_bytes_model']} B")
+        for r in recs:
+            check(r["memory_verdict"] == "pass",
+                  f"{tag} rank memory: {r['memory_fails']}")
+            if case[6] == "mec_lowered":
+                check(r["predicted_bytes"] == r["eq3_bytes"],
+                      f"{tag}: local Eq. 3 {r['predicted_bytes']} != the "
+                      f"cost model's {r['eq3_bytes']}")
+        if "batch" in lead["partition"]:
+            bits[f"{case[0]}/{lead['partition']}/{case[6]}"] = \
+                lead["equal_bits"]
+        emit({"phase": "dist", "step": "table2", "layer": case[0],
+              "batch": case[1], "partition": lead["partition"],
+              "n_dev": case[3], "algorithm": case[6],
+              "fwd_err": lead["fwd_err"], "dx_err": lead["dx_err"],
+              "dk_err": lead["dk_err"], "equal_bits": lead["equal_bits"],
+              "halo_bytes": fwd_b, "bwd_bytes": bwd_b,
+              "rank_temp_bytes": [r["temp_bytes"] for r in recs],
+              "eq3_bytes": lead["eq3_bytes"],
+              "halo_concat_bytes": lead["halo_concat_bytes"],
+              "local_spec": lead["local_spec"]})
+    for name, k in (("mec_conv_fused", "K1"), ("mec_lower", "K2"),
+                    ("mec_gemm", "K3")):
+        check(all(r["table2_launches"][name] > 0 for r in ranks),
+              f"{k} did not launch in every rank's body")
+    emit({"phase": "dist", "step": "table2_summary", "cases": len(cases),
+          "max_scaled_err": worst, "batch_equal_bits": bits,
+          "seconds": max(r["table2_s"] for r in ranks),
+          "launches": [r["table2_launches"] for r in ranks]})
+    # the ResNet-101 stack under partition="auto"
+    stack = ranks[0]["stack"]
+    check(all(stack[d]["convs"] == 34 for d in stack),
+          f"the stack ran {[stack[d]['convs'] for d in stack]} convs")
+    emit({"phase": "dist", "step": "resnet101_auto",
+          "seconds": max(r["stack_s"] for r in ranks), **stack})
+    # the dist bench suite
+    suite = ranks[0]["suite"]
+    base = json_mod.loads((ROOT / "benchmarks" / "baselines" /
+                           "dist.json").read_text())
+    check(len(suite["results"]) == len(base["results"]) == 65,
+          f"dist suite: {len(suite['results'])} records")
+    exact = ("partition", "n_dev", "n_dev_axes", "halo_bytes_per_device",
+             "per_device_overhead_elems", "comm_bytes_per_device",
+             "auto_partition")
+    for mine, ref in zip(suite["results"], base["results"]):
+        for f in exact:
+            check(mine[f] == ref[f],
+                  f"dist suite {mine['scenario']}: {f} {mine[f]} != "
+                  f"{ref[f]}")
+        check((mine["us_per_call"] is not None)
+              == mine["scenario"].startswith("smoke"),
+              f"dist suite {mine['scenario']}: timed {mine['us_per_call']}")
+    fails, _ = bench_check.compare(suite, base, schema_only_on_timing=True)
+    extra = [f for f in fails if not any(
+        k in f for k in ("shardcheck", "run_spec", "out_shape", "run_flops"))]
+    check(not extra, f"dist suite against the baseline: {extra}")
+    emit({"phase": "dist", "step": "bench_dist", "records": 65,
+          "smoke_us_on_this_card_not_scaling": {
+              f"{r['scenario']}/{r['algorithm']}": r["us_per_call"]
+              for r in suite["results"] if r["us_per_call"] is not None},
+          "launches": [r["suite_launches"] for r in ranks]})
+    # GPipe
+    for r in ranks:
+        check(r["gpipe"]["err"] < PIPE_TOLS[0]
+              and r["gpipe"]["gerr"] < PIPE_TOLS[1],
+              f"GPipe rank {r['rank']}: {r['gpipe']}")
+    emit({"phase": "dist", "step": "gpipe",
+          "per_rank": [r["gpipe"] for r in ranks]})
+
+    # data-parallel training: the gradient, the repeated batch, the launcher
+    dp = spawn(dist_dp_rank, 2, args=(seed,), backend=DIST_BACKEND,
+               device="cuda", timeout_s=DIST_TIMEOUT_S,
+               join_timeout_s=DIST_JOIN_S)
+    check(dp[0]["max_leaf_err"] <= DIST_GRAD_TOL,
+          f"data-parallel gradient against the whole batch's: "
+          f"{dp[0]['max_leaf_err']}")
+    check(dp[0]["int8_reduce_err"] <= DIST_INT8_TOL
+          and dp[0]["int8_ef_err"] <= DIST_INT8_TOL,
+          f"int8 reduction on the card against its formula: "
+          f"{dp[0]['int8_reduce_err']}, ef {dp[0]['int8_ef_err']}")
+    for r in dp:
+        ls = r["repeated_batch_losses"]
+        check(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0],
+              f"compressed step on a repeated batch, rank {r['rank']}: {ls}")
+    emit({"phase": "dist", "step": "dp_gradient", **dp[0],
+          "rank1_losses": dp[1]["repeated_batch_losses"]})
+    plain = dist_lm_run(False)
+    comp = dist_lm_run(True)
+    for run, label in ((plain, "plain"), (comp, "compressed")):
+        for s in run:
+            check(all(math.isfinite(v) for v in s["losses"]),
+                  f"{label} rank {s['rank']}: {s['losses']}")
+            check(s["k5_launches_per_step"] == 24,
+                  f"{label} rank {s['rank']}: K5 {s['k5_launches_per_step']}"
+                  " launches a step, not 24")
+            check(s["world"] == 2 and s["backend"] == DIST_BACKEND,
+                  f"{label}: {s['world']} ranks on {s['backend']}")
+    gap = abs(comp[0]["losses"][-1] - plain[0]["losses"][-1])
+    check(gap < DIST_LM_GAP, f"compressed against plain last loss: {gap}")
+    emit({"phase": "dist", "step": "lm_train", "arch": DIST_LM_ARCH,
+          "steps": DIST_LM_STEPS, "args": DIST_LM_ARGS,
+          "plain": plain, "compressed": comp, "last_loss_gap": gap})
+    emit({"phase": "dist", "step": "timings",
+          "phase_s": time.perf_counter() - t_phase,
+          "spawn_init_s": spawn_init_s,
+          "dp_staged_bytes_per_step": {
+              "plain": plain[0]["staged_bytes_per_step"],
+              "compressed": comp[0]["staged_bytes_per_step"]},
+          "rank_staged_bytes": [r["staged_bytes"] for r in ranks]})
+    launches = {n: sum(r["table2_launches"][n] + r["suite_launches"][n]
+                       for r in ranks)
+                for n in ranks[0]["table2_launches"]}
+    launches["mec_conv1d"] = sum(s["k5_launches_per_step"] * DIST_LM_STEPS
+                                 for s in plain + comp)
+    return launches
+
+
+
 def profile_decode(model, params, cache, tok, steps: int = 4) -> dict:
     """Device time and idle share of ``steps`` decode steps from ``cache``
     (batch ``tok``), eagerly and through the captured program, each after
@@ -3583,6 +4302,9 @@ def main(argv=None) -> int:
     # 6h. train_lm: a train step per family, K5's gradient, the resume ------
     train_lm = train_lm_phase(args.seed, Path(plan_dir))
 
+    # 6i. dist: ranks that share the card, every kernel in their bodies ----
+    dist_launches = dist_phase(args.seed)
+
     # 7. timing ------------------------------------------------------------
     def bound(flops, nbytes, peak=None):
         t_ops, t_bytes = flops / (peak or peak_flops), nbytes / peak_bw
@@ -3885,6 +4607,8 @@ def main(argv=None) -> int:
                 "llava_next_34b_served": (vlm["k1_launches"]
                                           if row["name"] == "mec_conv_fused"
                                           else 0)}
+    for row in rows:
+        row["dist_launches"] = dist_launches[row["name"]]
     rows[list(KERNEL_ROWS).index("mec_conv_fused")]["whisper_frontend"] = \
         serve_conv["whisper_k1"]
     rows[list(KERNEL_ROWS).index("mec_lower")]["vs_library_rounds"] = k2_rounds

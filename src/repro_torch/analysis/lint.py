@@ -15,8 +15,9 @@ have a meaning here and one of the port's own:
     ``os.environ[...]``, ``os.environ.get``/``setdefault`` or
     ``os.getenv`` read anywhere but the port's owners of environment
     surface: the plan cache (``plan/cache.py``), the calibration store
-    (``plan/calibrate.py``) and the kernel build (``kernels/build.py``,
-    which finds nvcc).
+    (``plan/calibrate.py``), the kernel build (``kernels/build.py``,
+    which finds nvcc) and the process plumbing (``launch/mesh.py``, which
+    reads the world ``torchrun`` describes).
 
 ``no-reference-import``
     ``import jax``, ``from jax ...``, ``import jaxlib``, ``import repro``
@@ -56,8 +57,10 @@ RULES = (
 )
 
 #: files allowed to read the environment raw: their overrides are their
-#: public configuration (cache and calibration paths, the CUDA toolkit)
-_ENVIRON_ALLOWED = ("plan/cache.py", "plan/calibrate.py", "kernels/build.py")
+#: public configuration (cache and calibration paths, the CUDA toolkit,
+#: the rank and world ``torchrun`` sets)
+_ENVIRON_ALLOWED = ("plan/cache.py", "plan/calibrate.py", "kernels/build.py",
+                    "launch/mesh.py")
 #: top-level modules the port never imports
 _REFERENCE_MODULES = ("jax", "jaxlib", "repro")
 

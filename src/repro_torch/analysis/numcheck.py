@@ -292,8 +292,10 @@ def trace_signature(spec, algorithm: str, dtype: str = "float32",
                         device="meta", requires_grad=grad)
         k = torch.empty((spec.k_h, spec.k_w, spec.i_c, spec.k_c), dtype=td,
                         device="meta", requires_grad=grad)
+        # The contract is the single-device body's, whatever rules are
+        # installed around the planner.
         out = conv2d(x, k, stride=(spec.s_h, spec.s_w), algorithm=algorithm,
-                     solution=solution)
+                     solution=solution, partition="none")
         if grad:
             torch.autograd.grad((out * out).sum(), (x, k))
 

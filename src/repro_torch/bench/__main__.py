@@ -15,8 +15,15 @@ the conv-serving cells under the warm, cold and auto policies
   python -m repro_torch.bench.check BENCH_torch_serve.json \\
       --baseline benchmarks/baselines/serve.json --schema-only-on-timing
 
-The JAX package's
-``--interpret`` and ``--no-hlo`` have no meaning here.
+The ``dist`` suite runs its cells over ranks when started under
+``torchrun`` (every rank runs the suite; rank 0 writes the report);
+``--time-only`` keeps the Table-2 cells, at the paper's widths,
+analytic on the CPU::
+
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.bench \\
+      --suite dist --device cpu --backend gloo --time-only 'smoke*'
+
+The JAX package's ``--interpret`` and ``--no-hlo`` have no meaning here.
 """
 from __future__ import annotations
 
@@ -55,7 +62,19 @@ def main(argv=None) -> int:
                          "measurements (adds a 'crosscheck' section)")
     ap.add_argument("--device", choices=DEVICES, default="cuda",
                     help="where to run (default: the CUDA card)")
+    ap.add_argument("--time-only", default=None, metavar="GLOB",
+                    help="run only the scenarios whose names match GLOB; "
+                         "the others keep their analytic fields")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="process-group backend under torchrun (default: "
+                         "nccl on cuda, gloo on the CPU; ranks that share "
+                         "one card pass gloo)")
     args = ap.parse_args(argv)
+
+    from repro_torch.launch.mesh import default_backend, init_world
+    init_world(args.backend or default_backend(args.device), args.device)
+    import torch.distributed as dist
+    rank = dist.get_rank() if dist.is_initialized() else 0
 
     def progress(msg):
         print(msg, file=sys.stderr)
@@ -91,8 +110,11 @@ def main(argv=None) -> int:
         return 0
     doc = run_suite(args.suite, iters=args.iters, warmup=args.warmup,
                     with_timing=not args.no_timing,
-                    crosscheck=args.crosscheck, progress=progress,
-                    device=args.device)
+                    crosscheck=args.crosscheck,
+                    progress=progress if rank == 0 else None,
+                    device=args.device, time_only=args.time_only)
+    if rank != 0:
+        return 0
     if args.format == "csv":
         for line in render_csv(doc):
             print(line)

@@ -14,15 +14,25 @@ flops (``launch.costmodel``), the ``auto`` pick and the analytic plan for
 the run's backend.  ``repro_torch.bench.check`` gates on those; timing
 is tolerance- or schema-only checked.
 
-Where the JAX package's harness skips timing for a partitioned cell or a
-conv that will not compile, here a partitioned cell raises (ROADMAP
-Queue 1 item 11) and so does every variant that fails on the device: no
-record gets ``us_per_call: null`` because a kernel failed to build or
-launch.
+A partitioned cell (suite ``dist``) always carries the JAX package's
+per-device analytics (``launch.costmodel.conv_partition_costs``: the
+partition, its device counts, the halo, Eq. 3 overhead and wire bytes
+per device, and the ``auto`` partition).  It is executed, through
+``parallel.conv.sharded_conv2d`` on a host mesh of the first ranks, when
+the initialised world holds its devices and the geometry splits (the
+JAX package's rule); every rank of the world must then run the suite,
+cell for cell.  ``run_suite(time_only=)`` narrows which cells run at all
+(the others keep their analytics), for a caller whose ranks share one
+card or the CPU.  Such a call is timed on the host clock around a
+synchronised call, since its collectives run on the host.  Where the JAX
+package's harness skips timing for a conv that will not compile, here a
+variant that fails on the device raises: no record gets
+``us_per_call: null`` because a kernel failed to build or launch.
 """
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 import functools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -36,7 +46,9 @@ from repro_torch.bench.scenarios import (ALGORITHM_VARIANTS, Scenario,
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.memory import algorithm_overhead
 from repro_torch.launch.costmodel import (conv2d_algorithm_costs,
-                                          pick_conv2d_algorithm)
+                                          conv_partition_costs,
+                                          pick_conv2d_algorithm,
+                                          pick_conv_partition)
 
 DEVICES = ("cuda", "cpu")
 
@@ -98,6 +110,28 @@ def slept_event_ms(run, iters: int, margin_ms: float) -> List[float]:
     return [s.elapsed_time(e) for s, e in pairs]
 
 
+def _host_us(call, iters: int, device=None) -> List[float]:
+    """Host-clock microseconds of ``iters`` calls, each ending with the
+    card synchronised when ``device`` is a CUDA device."""
+    us: List[float] = []
+    for _ in range(max(iters, 1)):
+        t0 = time.perf_counter()
+        call()
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        us.append((time.perf_counter() - t0) * 1e6)
+    return us
+
+
+def _stats(us: Sequence[float], iters: int, warmup: int) -> Dict:
+    median = float(np.median(us))
+    std = float(np.std(us))
+    return {"iters": max(iters, 1), "warmup": max(warmup, 1),
+            "us_median": median, "us_min": float(min(us)),
+            "us_mean": float(np.mean(us)), "us_std": std,
+            "us_rel_spread": (std / median if median > 0 else None)}
+
+
 def time_compiled(call, iters: int = 3, warmup: int = 1) -> Dict:
     """Steady-state stats (microseconds) of a nullary call returning a
     tensor.
@@ -115,17 +149,19 @@ def time_compiled(call, iters: int = 3, warmup: int = 1) -> Dict:
         with torch.cuda.device(out.device):
             us = [ms * 1e3 for ms in slept_event_ms(call, iters, 0.05)]
     else:
-        us: List[float] = []
-        for _ in range(max(iters, 1)):
-            t0 = time.perf_counter()
-            call()
-            us.append((time.perf_counter() - t0) * 1e6)
-    median = float(np.median(us))
-    std = float(np.std(us))
-    return {"iters": max(iters, 1), "warmup": max(warmup, 1),
-            "us_median": median, "us_min": float(min(us)),
-            "us_mean": float(np.mean(us)), "us_std": std,
-            "us_rel_spread": (std / median if median > 0 else None)}
+        us = _host_us(call, iters)
+    return _stats(us, iters, warmup)
+
+
+def time_host(call, iters: int = 3, warmup: int = 1) -> Dict:
+    """:func:`time_compiled`'s stats on the host clock around each call,
+    the card synchronised after it: the timer of calls whose collectives
+    run on the host."""
+    out = None
+    for _ in range(max(warmup, 1)):
+        out = call()
+    return _stats(_host_us(call, iters, getattr(out, "device", None)),
+                  iters, warmup)
 
 
 def require_device(device: str) -> None:
@@ -162,10 +198,6 @@ def measure(sc: Scenario, algorithm: str, iters: int = 3, warmup: int = 1,
     algorithm-independent) plan once instead of per cell."""
     from repro_torch.core.conv_api import conv2d
     require_device(device)
-    if sc.partition is not None:
-        raise NotImplementedError(
-            f"{sc.name}: partitioned cells are not ported yet: ROADMAP "
-            "Queue 1 item 11")
     kwargs = dict(ALGORITHM_VARIANTS[algorithm])
     dtype_bytes = getattr(torch, sc.dtype).itemsize
     overhead = int(algorithm_overhead(sc.spec, algorithm))
@@ -200,19 +232,79 @@ def measure(sc: Scenario, algorithm: str, iters: int = 3, warmup: int = 1,
         "numcheck": cell_numcheck(sc.run_spec, kwargs["algorithm"], sc.dtype,
                                   solution=kwargs.get("solution", "auto")),
     }
+    mesh = None
+    if sc.partition is not None:
+        mesh = _dist_fields(record, sc, dtype_bytes, with_timing)
+        with_timing = mesh is not None
+        if mesh is not None and mesh.get_coordinate() is None:
+            return record          # a rank outside the cell's mesh
     if not with_timing:
         return record
     inp, ker = make_arrays(sc.run_spec, sc.dtype, device=device)
     stride = (sc.run_spec.s_h, sc.run_spec.s_w)
 
-    def call():
-        with torch.no_grad():
-            return conv2d(inp, ker, stride=stride, **kwargs)
+    if mesh is None:
+        def call():
+            with torch.no_grad():
+                return conv2d(inp, ker, stride=stride, **kwargs)
 
-    timing = time_compiled(call, iters=iters, warmup=warmup)
+        timing = time_compiled(call, iters=iters, warmup=warmup)
+    else:
+        from repro_torch.launch.mesh import axis_names
+        from repro_torch.parallel.conv import sharded_conv2d
+        composite = isinstance(sc.n_dev, tuple)
+
+        def call():
+            with torch.no_grad():
+                return sharded_conv2d(
+                    inp, ker, stride=stride, partition=sc.partition,
+                    mesh=mesh, axis=axis_names(mesh) if composite else None,
+                    **kwargs)
+
+        timing = time_host(call, iters=iters, warmup=warmup)
     record["timing"] = timing
     record["us_per_call"] = timing["us_median"]
     return record
+
+
+def _dist_fields(record: Dict, sc: Scenario, dtype_bytes: int,
+                 execute: bool):
+    """Add the partitioned cell's analytics to ``record``; return the host
+    mesh to execute it on, or None when it stays analytic (not
+    ``execute``, a world smaller than the cell, or a geometry that does
+    not split)."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.parallel.conv import (COMPOSITE_PARTITIONS,
+                                           normalize_partition,
+                                           partition_name, partition_viable)
+    parts = normalize_partition(sc.partition)
+    composite = len(parts) > 1
+    sizes = tuple(sc.n_dev) if composite else (int(sc.n_dev),)
+    n_total = math.prod(sizes)
+    entry = conv_partition_costs(sc.spec, sizes if composite else sizes[0],
+                                 dtype_bytes)[parts if composite
+                                              else parts[0]]
+    record["partition"] = partition_name(parts)
+    record["n_dev"] = int(n_total)
+    record["n_dev_axes"] = [int(n) for n in sizes]
+    record["halo_bytes_per_device"] = entry["halo_bytes_per_device"]
+    record["per_device_overhead_elems"] = entry["per_device_overhead_elems"]
+    record["comm_bytes_per_device"] = (entry["comm_bytes_fwd_per_device"]
+                                       + entry["comm_bytes_bwd_per_device"])
+    candidates = {p: n_total for p in ("batch", "channel", "spatial")}
+    if composite:
+        candidates.update({c: sizes for c in COMPOSITE_PARTITIONS})
+    auto = pick_conv_partition(sc.spec, candidates, dtype_bytes)
+    record["auto_partition"] = None if auto is None else partition_name(auto)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not execute or n_total > world or \
+            not partition_viable(sc.run_spec, parts, sc.n_dev):
+        return None
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(shape=sizes)
 
 
 def crosscheck_scenario(records: Sequence[Dict]) -> Dict:
@@ -247,9 +339,11 @@ def crosscheck_scenario(records: Sequence[Dict]) -> Dict:
 
 def run_suite(suite: str, iters: int = 3, warmup: int = 1,
               with_timing: bool = True, crosscheck: bool = False,
-              progress=None, device: str = "cuda") -> Dict:
+              progress=None, device: str = "cuda",
+              time_only: Optional[str] = None) -> Dict:
     """Run a registered suite on ``device`` and return the report
-    document."""
+    document.  ``time_only``: a glob over scenario names; the cells it
+    does not match are not run (their analytic fields stay)."""
     from repro_torch.bench.report import make_report
     require_device(device)
     results: List[Dict] = []
@@ -257,19 +351,26 @@ def run_suite(suite: str, iters: int = 3, warmup: int = 1,
     for sc in resolve_suite(suite):
         recs = []
         plan_dict = _resolved_plan_dict(sc, device)   # algorithm-free
+        run = with_timing and (time_only is None
+                               or fnmatch.fnmatchcase(sc.name, time_only))
         for alg in sc.algorithms:
             if progress:
                 progress(f"[bench] {suite}/{sc.name}/{alg}")
             recs.append(measure(sc, alg, iters=iters, warmup=warmup,
-                                with_timing=with_timing,
+                                with_timing=run,
                                 plan_dict=plan_dict, device=device))
         results.extend(recs)
         if crosscheck:
             checks.append(crosscheck_scenario(recs))
     harness = {"iters": iters, "warmup": warmup, "with_timing": with_timing,
-               "device": device,
+               "time_only": time_only, "device": device,
                "timer": ("device time, host hidden (slept_event_ms)"
                          if device == "cuda" else "host clock")}
+    if suite == "dist":
+        import torch.distributed as dist
+        harness["world_size"] = dist.get_world_size() \
+            if dist.is_initialized() else 1
+        harness["timer"] = "host clock, card synchronised (time_host)"
     return make_report(suite, results, harness,
                        crosscheck=checks if crosscheck else None,
                        backend=device)

@@ -27,8 +27,9 @@ Suites (resolve with :func:`resolve_suite`):
                  kernel cell
 ``dist``         distributed cells (2/8/256-way spatial partitions of
                  cv1-cv12, composite 2-D partitions and 2- and 4-device
-                 smoke cells): data only here, since measuring a
-                 partitioned cell waits for ROADMAP Queue 1 item 11
+                 smoke cells): the per-device analytics of every cell;
+                 a cell also runs over ranks when the world holds its
+                 devices and its geometry splits
 ===============  ===========================================================
 """
 from __future__ import annotations

@@ -23,10 +23,11 @@ the algorithm back-ends:
 ``conv2d(..., plan=)`` executes exactly the decision a
 :class:`repro_torch.plan.ConvPlan` holds: the plan's algorithm, solution
 and kernel ``w_blk`` win over the kwargs, and the call's geometry, dtype
-and device must reproduce the plan's.  ``partition=`` other than None or
-'none' raises ``NotImplementedError`` naming its ROADMAP item.
-``conv2d`` runs where its inputs live: CUDA tensors go through the
-kernels, CPU tensors through the kernels' plain versions.
+and device must reproduce the plan's.  ``partition=`` routes through the
+distributed layer (``repro_torch.parallel.conv.sharded_conv2d``): every
+rank of the mesh calls it with the same whole tensors and gets the whole
+output.  ``conv2d`` runs where its inputs live: CUDA tensors go through
+the kernels, CPU tensors through the kernels' plain versions.
 
 The MEC algorithms run inside one ``torch.autograd.Function``, the port
 of the JAX package's MEC custom VJP; its backward is the same for every
@@ -199,7 +200,9 @@ def _check_devices(inp: torch.Tensor, kernel: torch.Tensor) -> None:
 
 def conv2d(inp: torch.Tensor, kernel: torch.Tensor, *, stride=1,
            padding: Padding = "VALID", algorithm: str = "auto",
-           solution: str = "auto", partition=None,
+           solution: str = "auto",
+           partition: Union[str, Tuple[str, ...], None] = None,
+           partition_axis: Union[str, Tuple[str, ...], None] = None,
            plan: Optional["ConvPlan"] = None) -> torch.Tensor:
     """2-D convolution, NHWC x HWIO -> NHWC.
 
@@ -207,7 +210,16 @@ def conv2d(inp: torch.Tensor, kernel: torch.Tensor, *, stride=1,
     device.  stride: int or (s_h, s_w).  padding: 'SAME' | 'VALID' | int |
     ((lo, hi), (lo, hi)).  algorithm: one of :data:`ALGORITHMS`.
     solution: MEC Solution 'A' | 'B' | 'auto' (``mec`` only).
-    partition: only None or 'none' (single device) so far.
+
+    partition routes through ``repro_torch.parallel.conv.sharded_conv2d``:
+    'batch' | 'channel' | 'spatial' | a composite 2-tuple from
+    ``parallel.conv.COMPOSITE_PARTITIONS`` | 'auto', split over the
+    installed ``parallel.axes`` mesh (no mesh: single device); 'none'
+    forces one device; None (the default) is rules-aware: sharded 'auto'
+    exactly when rules are installed and the ranks hold the same whole
+    tensors (not under ``local_batch`` rules, where it stays on the rank).
+    partition_axis names the mesh axis (a tuple, paired in order, for
+    composites).
 
     plan: a resolved :class:`repro_torch.plan.ConvPlan`.  Its decision
     fields (algorithm, solution, kernel ``w_blk``) win over the kwargs;
@@ -221,10 +233,15 @@ def conv2d(inp: torch.Tensor, kernel: torch.Tensor, *, stride=1,
     if plan is not None:
         return _execute_plan(inp, kernel, plan, stride=stride,
                              padding=padding)
-    if partition not in (None, "none"):
-        raise NotImplementedError(
-            f"conv2d(partition={partition!r}): distributed execution is "
-            "not ported yet: ROADMAP Queue 1 item 11")
+    if partition != "none":
+        # Lazy import: parallel sits above core.
+        from repro_torch.parallel.axes import global_rules
+        if partition is not None or global_rules() is not None:
+            from repro_torch.parallel.conv import sharded_conv2d
+            return sharded_conv2d(
+                inp, kernel, stride=stride, padding=padding,
+                algorithm=algorithm, solution=solution,
+                partition=partition or "auto", axis=partition_axis)
     _check_devices(inp, kernel)
     algorithm = algorithm.lower()
     if algorithm not in ALGORITHMS:
@@ -260,6 +277,16 @@ def _execute_plan(inp: torch.Tensor, kernel: torch.Tensor, plan: "ConvPlan",
     x = apply_padding(inp, k_h, k_w, s_h, s_w, padding)
     spec = spec_of(x, kernel, (s_h, s_w))
     plan.check_executable(spec, x.dtype, x.device)
+    if plan.partition is not None:
+        # The plan holds the partition (components and mesh axes); the
+        # distributed layer runs it without enumerating candidates again.
+        # w_blk is not forwarded: each rank's body sees a local geometry
+        # the global block was not picked for, so it derives its own.
+        from repro_torch.parallel.conv import sharded_conv2d
+        return sharded_conv2d(
+            x, kernel, stride=(s_h, s_w), padding="VALID",
+            algorithm=plan.algorithm, solution=plan.solution,
+            partition=plan.partition, axis=plan.partition_axes)
     return _dispatch(x, kernel, spec, s_h, s_w, plan.algorithm,
                      plan.solution, plan.w_blk)
 

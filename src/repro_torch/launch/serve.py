@@ -18,8 +18,11 @@ prefill + decode loop.
 
 Runs on the card unless ``--device cpu``.  Every family is served: dense,
 vlm (llava), moe (local dispatch, ``models.moe``), hybrid (zamba2), ssm
-(xLSTM) and audio (whisper); any ``--mesh`` but ``host`` raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 11.  Prefill runs eagerly;
+(xLSTM) and audio (whisper).  ``--mesh host`` serves from one process;
+``production``/``multipod`` build the (16, 16) / (2, 16, 16) mesh, which
+raises "need N devices" on a smaller world, and past that would need the
+LMs' tensor parallelism (``NotImplementedError``, ROADMAP Queue 1 item
+11).  Prefill runs eagerly;
 each decode step is a :class:`~repro_torch.serving.step_graph.
 DecodeProgram`: one CUDA-graph replay on the card (the counterpart of the
 JAX package's jitted step), an eager step on the CPU; sampling stays
@@ -282,8 +285,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh}: distributed "
-                                  "execution, ROADMAP Queue 1 item 11")
+        from repro_torch.launch.mesh import make_production_mesh
+        from repro_torch.training.steps import TP_ITEM
+        make_production_mesh(multi_pod=args.mesh == "multipod")
+        raise NotImplementedError(f"--mesh {args.mesh}: {TP_ITEM}")
     cfg = smoke_config(args.arch) if args.smoke else ARCHS[args.arch]
     classes = None
     if args.shape_classes:

@@ -6,6 +6,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --steps 20 --ckpt-dir ckpt --ckpt-every 10
 
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --arch yi-6b --smoke --mesh host \\
+        --device cpu --backend gloo [--compress-grads]
+
 Runs on the card unless ``--device cpu``.  The step loop runs under a
 watchdog; with ``--ckpt-dir`` it saves an atomic checkpoint (parameters,
 optimizer state, data state) every ``--ckpt-every`` steps and at the end,
@@ -13,24 +17,39 @@ and a restarted run resumes from the newest one with the same data.  The
 parameters are drawn from a generator on the device seeded with 0, the
 data from ``data.pipeline.SyntheticLMData`` (seed 0).  Each step is
 ``training.steps.make_train_step``'s in-place step, the counterpart of the
-JAX launcher's jitted step with donated parameters and state.  ``--mesh
-host`` (the default) is one device; ``production``/``multipod`` and
-``--compress-grads`` raise ``NotImplementedError`` naming ROADMAP Queue 1
-item 11.
+JAX launcher's jitted step with donated parameters and state.
+
+``--mesh host`` (the default) is data parallel over the world that
+``torchrun`` starts (one process: one device, as before): each rank draws
+the same parameters, takes its rows of the global batch
+(``SyntheticLMData(host_id=rank, num_hosts=world)``) and the step reduces
+the gradients over the ranks; ``--compress-grads`` is the int8
+error-feedback step.  ``--backend`` is ``nccl`` (one card a rank; the
+default on the card) or ``gloo`` (the CPU, or ranks that share one
+card); NCCL with more ranks than cards raises.  Rank 0 alone logs and
+writes checkpoints; every rank restores.  ``--mesh production|multipod``
+build the (16, 16) / (2, 16, 16) mesh, which raises "need N devices" on a
+smaller world; on a world that large they would need the LMs' tensor
+parallelism, which raises ``NotImplementedError`` (ROADMAP Queue 1 item
+11).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.archs import ARCHS, smoke_config
 from repro_torch.data.pipeline import DataState, SyntheticLMData
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.layers import f32_accumulation
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallel.axes import default_rules
 from repro_torch.training import steps
 from repro_torch.training.watchdog import StepWatchdog
 
@@ -49,12 +68,33 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--compress-grads", action="store_true",
-                    help="int8 error-feedback DP gradient all-reduce "
-                         "(ROADMAP Queue 1 item 11)")
+                    help="int8 error-feedback DP gradient all-reduce")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: cuda)")
+    ap.add_argument("--conv-impl", choices=("lowered", "fused"),
+                    default=None,
+                    help="the blocks' conv1d dataflow (default: the "
+                         "config's; 'fused' is the kernel K5 on the card)")
+    ap.add_argument("--backend", choices=mesh_mod.BACKENDS, default=None,
+                    help="process-group backend under torchrun (default: "
+                         "nccl on cuda, gloo on the CPU)")
     return ap.parse_args(argv)
+
+
+def _setup(args):
+    """(device, rules, rank, world) for ``--mesh`` under the world the
+    environment describes."""
+    device = mesh_mod.init_world(
+        args.backend or mesh_mod.default_backend(args.device), args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if args.mesh != "host":
+        mesh_mod.make_production_mesh(multi_pod=args.mesh == "multipod")
+        raise NotImplementedError(f"--mesh {args.mesh}: "
+                                  f"{steps.TP_ITEM}")
+    rules = default_rules(mesh_mod.make_host_mesh()) if world > 1 else None
+    return device, rules, rank, world
 
 
 def _sync(device: torch.device) -> None:
@@ -67,25 +107,24 @@ def train(args: argparse.Namespace, cfg=None) -> dict:
     Returns ``losses`` and ``step_s`` (host clock, the device synchronised
     by reading the loss) of the steps this run took, ``start`` (the step it
     resumed from, 0 when fresh), ``median_step_s`` and ``stragglers``."""
-    if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh}: distributed "
-                                  "execution, ROADMAP Queue 1 item 11")
-    if args.compress_grads:
-        raise NotImplementedError("--compress-grads: distributed execution, "
-                                  "ROADMAP Queue 1 item 11")
+    device, rules, rank, world = _setup(args)
     if cfg is None:
         cfg = smoke_config(args.arch) if args.smoke else ARCHS[args.arch]
-    device = torch.device(args.device)
+    if args.conv_impl is not None:
+        cfg = cfg.with_(conv_impl=args.conv_impl)
     model = LM(cfg)
     data = SyntheticLMData(cfg, args.global_batch, args.seq_len,
-                           device=device)
+                           host_id=rank, num_hosts=world, device=device)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(2, args.steps // 20))
     generator = torch.Generator(device=device)
     generator.manual_seed(0)
     params = model.init(generator, device=device)
-    opt_state = steps.init_opt_state(params)
-    step_fn = steps.make_train_step(model, opt_cfg)
+    opt_state = steps.init_opt_state(params, compressed=args.compress_grads)
+    if args.compress_grads:
+        step_fn = steps.make_compressed_train_step(model, opt_cfg, rules)
+    else:
+        step_fn = steps.make_train_step(model, opt_cfg, rules)
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
@@ -95,8 +134,13 @@ def train(args: argparse.Namespace, cfg=None) -> dict:
                                        "data": data.state.to_dict()})
         params, opt_state = restored["params"], restored["opt"]
         data.state = DataState.from_dict(restored["data"])
-        print(f"[train] resumed from step {start}")
+        if rank == 0:
+            print(f"[train] resumed from step {start}")
 
+    from repro_torch.kernels.mec_conv1d import mec_conv1d
+    from repro_torch.parallel import comm
+    staged0 = comm.stage_to_host.bytes + comm.stage_to_device.bytes
+    k5_0 = mec_conv1d.launches
     dog = StepWatchdog(hard_timeout_s=None)
     losses, step_s = [], []
     with f32_accumulation():
@@ -109,23 +153,38 @@ def train(args: argparse.Namespace, cfg=None) -> dict:
             dt = dog.end_step()
             losses.append(loss)
             step_s.append(dt)
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if rank == 0 and (step % args.log_every == 0
+                              or step == args.steps - 1):
                 print(f"[train] step {step} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} "
                       f"gnorm {float(metrics['grad_norm']):.2f} "
                       f"{dt * 1e3:.0f}ms")
-            if mgr is not None and (step + 1) % args.ckpt_every == 0:
+            if mgr is not None and rank == 0 and \
+                    (step + 1) % args.ckpt_every == 0:
                 mgr.save_async(step + 1, {"params": params, "opt": opt_state,
                                           "data": data.state.to_dict()})
-        if mgr is not None:
+        if mgr is not None and rank == 0:
             mgr.wait()
             mgr.save(args.steps, {"params": params, "opt": opt_state,
                                   "data": data.state.to_dict()})
-    print(f"[train] done: {args.steps} steps, median step "
-          f"{dog.median * 1e3:.0f}ms, stragglers {dog.straggler_events}")
-    return {"losses": losses, "step_s": step_s, "start": start,
-            "median_step_s": dog.median, "stragglers": dog.straggler_events,
-            "params": params}
+    n_steps = max(len(losses), 1)
+    summary = {"rank": rank, "world": world,
+               "backend": dist.get_backend() if dist.is_initialized()
+               else None,
+               "losses": losses, "step_s": step_s,
+               "staged_bytes_per_step": (comm.stage_to_host.bytes
+                                         + comm.stage_to_device.bytes
+                                         - staged0) / n_steps,
+               "k5_launches_per_step": (mec_conv1d.launches - k5_0)
+               / n_steps}
+    if rank == 0:
+        print(f"[train] done: {args.steps} steps on {world} rank(s), "
+              f"median step {dog.median * 1e3:.0f}ms, stragglers "
+              f"{dog.straggler_events}")
+    if world > 1:
+        print(f"[train] summary {json.dumps(summary)}", flush=True)
+    return dict(summary, start=start, median_step_s=dog.median,
+                stragglers=dog.straggler_events, params=params)
 
 
 def main(argv=None) -> float:

@@ -15,8 +15,8 @@ and casts once; activations run in f32 and are cast; attention scores and
 the probability-weighted sum accumulate in f32.  ``linear`` runs the GEMM
 in the input dtype, which accumulates in f32 on the CPU and, under
 :func:`f32_accumulation`, in cuBLAS.  The JAX package's sharding
-annotations (``parallel.axes.constrain``) have no counterpart here: they
-wait for distributed execution (ROADMAP Queue 1 item 11).
+annotations are kept (``parallel.axes.constrain``): on a rank's local
+tensor they are checks, not layouts.
 
 Parameters are drawn from an explicit ``torch.Generator`` with the JAX
 package's distributions and scales; the streams differ from
@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.conv_api import conv2d
+from repro_torch.parallel.axes import constrain
 
 _NEG = -1e30
 
@@ -104,13 +105,15 @@ def init_conv2d(generator: torch.Generator, k_h: int, k_w: int, c_in: int,
 
 
 def conv2d_layer(p: dict, x: torch.Tensor, *, stride=1, padding="SAME",
-                 algorithm: str = "auto", plan=None) -> torch.Tensor:
+                 algorithm: str = "auto", partition=None,
+                 plan=None) -> torch.Tensor:
     """One conv block through the front-end (``core.conv_api.conv2d``):
     the weights follow the activations' dtype, then the bias is added.
-    plan (a resolved ``repro_torch.plan.ConvPlan``) wins over algorithm:
-    resolve it once with :func:`plan_conv2d_layer` instead of per step."""
+    partition goes to ``conv2d`` (None: rules-aware).  plan (a resolved
+    ``repro_torch.plan.ConvPlan``) wins over algorithm: resolve it once
+    with :func:`plan_conv2d_layer` instead of per step."""
     y = conv2d(x, p["w"].to(x.dtype), stride=stride, padding=padding,
-               algorithm=algorithm, plan=plan)
+               algorithm=algorithm, partition=partition, plan=plan)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -137,6 +140,7 @@ def swiglu(x: torch.Tensor, p: dict) -> torch.Tensor:
     g = linear(x, p["gate"])
     u = linear(x, p["up"])
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    h = constrain(h, "batch", "seq", "ffn")
     return linear(h, p["down"])
 
 
@@ -388,6 +392,7 @@ def attention_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     q = linear(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
     k = linear(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = linear(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = constrain(q, "batch", "seq", "heads", None)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)

@@ -47,6 +47,7 @@ from repro_torch.models.layers import (attention_block,
                                        init_attention, init_linear,
                                        init_normal, init_swiglu, linear,
                                        rms_norm, swiglu)
+from repro_torch.parallel.axes import constrain
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -128,9 +129,10 @@ def init_dense_block(generator: torch.Generator, cfg, dtype,
 def dense_block(p, cfg, x, positions):
     a, kv = attention_block(p["attn"], cfg,
                             rms_norm(x, p["norm1"], cfg.norm_eps), positions)
-    x = x + a
+    seg = "seq_tp" if cfg.seq_parallel else "seq"
+    x = constrain(x + a, "batch", seg, "embed")
     f = swiglu(rms_norm(x, p["norm2"], cfg.norm_eps), p["mlp"])
-    return x + f, kv
+    return constrain(x + f, "batch", "seq", "embed"), kv
 
 
 def init_moe_block(generator: torch.Generator, cfg, dtype, device="cuda",
@@ -154,9 +156,10 @@ def moe_block(p, cfg, x, positions):
     """-> (x, (k, v), aux)."""
     a, kv = attention_block(p["attn"], cfg,
                             rms_norm(x, p["norm1"], cfg.norm_eps), positions)
-    x = x + a
+    seg = "seq_tp" if cfg.seq_parallel else "seq"
+    x = constrain(x + a, "batch", seg, "embed")
     f, aux = moe.moe_ffn(p["moe"], cfg, rms_norm(x, p["norm2"], cfg.norm_eps))
-    return x + f, kv, aux
+    return constrain(x + f, "batch", "seq", "embed"), kv, aux
 
 
 def _save_dots(ctx, op, *args, **kwargs):  # lint-ignore: accepted-kwarg-not-forwarded (torch.utils.checkpoint's policy signature)
@@ -197,6 +200,7 @@ def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     cast -> down."""
     h = F.gelu(linear(x, p["up"]).to(torch.float32),
                approximate="tanh").to(x.dtype)
+    h = constrain(h, "batch", "seq", "ffn")
     return linear(h, p["down"])
 
 
@@ -287,7 +291,7 @@ class LM:
                                      device=device)}
 
     def embed(self, params, tokens):
-        return params["emb"][tokens]
+        return constrain(params["emb"][tokens], "batch", "seq", "embed")
 
     def head_weights(self, params):
         if self.cfg.tie_embeddings:
@@ -341,9 +345,11 @@ class LM:
         the tail layers."""
         cfg = self.cfg
         n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
+        seg = "seq_tp" if cfg.seq_parallel else "seq"
         mamba_body = _maybe_remat(
-            lambda p, nrm, x: x + mamba2.mamba_forward(
-                p, cfg, rms_norm(x, nrm, cfg.norm_eps)), cfg)
+            lambda p, nrm, x: constrain(x + mamba2.mamba_forward(
+                p, cfg, rms_norm(x, nrm, cfg.norm_eps)), "batch", seg,
+                "embed"), cfg)
         norms = params["mamba_norms"].unbind(0)
         layers = layer_trees(params["mamba"], (n_super, cfg.attn_every))
         if tail:

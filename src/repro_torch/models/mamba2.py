@@ -22,6 +22,7 @@ from repro_torch.core.mec import mec_conv1d_depthwise
 from repro_torch.kernels.ops import mec_conv1d_cuda
 from repro_torch.models.layers import (init_linear, init_normal, linear,
                                        rms_norm)
+from repro_torch.parallel.axes import constrain
 
 _F32 = torch.float32
 
@@ -119,6 +120,7 @@ def mamba_core(p: dict, cfg, x: torch.Tensor, chunk: int = 128):
     d_in, h, p_dim, n = _dims(cfg)
     zxbcdt = linear(x, p["in_proj"])
     z, xbc_raw, dt = _split_proj(zxbcdt, cfg)
+    xbc_raw = constrain(xbc_raw, "batch", "seq", "conv_ch")
     # xbc_raw is a column slice of zxbcdt: K5 reads it through its strides
     xbc = conv1d(cfg, xbc_raw, p["conv_w"].to(xbc_raw.dtype))
     xbc = F.silu(xbc.to(_F32)).to(x.dtype)

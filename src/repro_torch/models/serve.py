@@ -40,6 +40,7 @@ from repro_torch.models.layers import (attention_decode, decode_attention,
                                        kv_planes, linear, rms_norm, swiglu)
 from repro_torch.models.lm import (LM, dense_block, gelu_mlp, moe_block,
                                    torch_dtype, tree_at, tree_map, tree_set)
+from repro_torch.parallel.axes import constrain
 
 
 def _kv_into(max_len: int, k: torch.Tensor, v: torch.Tensor):
@@ -49,6 +50,8 @@ def _kv_into(max_len: int, k: torch.Tensor, v: torch.Tensor):
     vc = torch.zeros((b, max_len, kv, d), dtype=v.dtype, device=v.device)
     kc[:, :s] = k
     vc[:, :s] = v
+    kc = constrain(kc, "batch", "seq_tp", "kv_heads", None)
+    vc = constrain(vc, "batch", "seq_tp", "kv_heads", None)
     return kc, vc
 
 

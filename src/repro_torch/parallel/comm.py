@@ -1,0 +1,183 @@
+"""The collectives of the distributed layer, and the autograd Functions
+built from them.
+
+Every rank holds whole tensors, the JAX caller's view of its global
+arrays.  The Functions give each collective the backward that the JAX
+package's ``shard_map`` transpose gives it:
+
+=================== ======================= ===============================
+Function            forward                 backward
+=================== ======================= ===============================
+:class:`Shard`      this rank's slice       all-gather of the slices'
+                                            cotangents (the full gradient
+                                            on every rank)
+:class:`Replicated` identity                all-reduce (sum) over the axes
+                                            that split the other operand
+:class:`Gathered`   all-gather of the       this rank's slice of the
+                    ranks' slices           cotangent, not a sum: every
+                                            rank takes the same loss of the
+                                            same full output
+:class:`Halo`       first ``halo`` rows to  the received rows' cotangent
+                    the rank before, zeros  back to the rank after, added
+                    to the last             into its first rows
+=================== ======================= ===============================
+
+gloo runs ``send``/``recv`` on CPU tensors only, so under gloo every
+collective on a CUDA tensor goes through host memory
+(:func:`stage_to_host`, then :func:`stage_to_device`): ranks that share
+one card cannot use NCCL.  Under NCCL nothing is staged.  Which applies
+is decided from the group's backend, never by catching an error.  Each
+of the two counts the bytes it copied in ``<function>.bytes``, as the
+kernels' wrappers count their launches.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def stage_to_host(t: torch.Tensor) -> torch.Tensor:
+    """The host copy a gloo collective runs on (one device-to-host copy of
+    ``t.nbytes``)."""
+    stage_to_host.bytes += t.nbytes
+    return t.detach().to("cpu").contiguous()
+
+
+stage_to_host.bytes = 0
+
+
+def stage_to_device(h: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A gloo collective's host result copied back to ``device``."""
+    stage_to_device.bytes += h.nbytes
+    return h.to(device)
+
+
+stage_to_device.bytes = 0
+
+
+def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return stage_to_device(h, like.device) if like.is_cuda and \
+        not h.is_cuda else h
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """A new tensor: ``t`` summed over ``group``."""
+    if _staged(t, group):
+        h = stage_to_host(t)
+        dist.all_reduce(h, group=group)
+        return stage_to_device(h, t.device)
+    out = t.detach().contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The ranks' ``t`` (one shape) concatenated along ``dim`` in group
+    rank order."""
+    n = dist.get_world_size(group)
+    src = stage_to_host(t) if _staged(t, group) else t.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return _back(torch.cat(parts, dim=dim), t)
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
+             recvs: Sequence[Tuple[torch.Tensor, int]],
+             group=None) -> List[torch.Tensor]:
+    """Point-to-point in one batch (``batch_isend_irecv``, so no order of
+    posting can deadlock): ``sends`` are (tensor, group rank of the peer),
+    ``recvs`` (buffer shaped like the message, group rank of the peer).
+    Returns the filled receive buffers, on the buffers' device."""
+    ops, bufs = [], []
+    for t, peer in sends:
+        src = stage_to_host(t) if _staged(t, group) else t.contiguous()
+        ops.append(dist.P2POp(dist.isend, src,
+                              dist.get_global_rank(group, peer)
+                              if group is not None else peer, group))
+    for like, peer in recvs:
+        staged = _staged(like, group)
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if staged else like.device)
+        bufs.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf,
+                              dist.get_global_rank(group, peer)
+                              if group is not None else peer, group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [_back(b, like) for b, (like, _) in zip(bufs, recvs)]
+
+
+class Shard(torch.autograd.Function):
+    """This rank's ``index``-th of ``n`` equal slices along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, t, dim: int, index: int, n: int, group):
+        ctx.dim, ctx.group = dim, group
+        return t.chunk(n, dim)[index].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.dim, ctx.group), None, None, None, None
+
+
+class Replicated(torch.autograd.Function):
+    """Identity whose cotangent is summed over ``group``."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class Gathered(torch.autograd.Function):
+    """The ranks' slices concatenated along ``dim``; the backward keeps
+    this rank's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, dim: int, index: int, n: int, group):
+        ctx.dim, ctx.index, ctx.n = dim, index, n
+        return all_gather_cat(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.chunk(ctx.n, ctx.dim)[ctx.index].contiguous(), None, None,
+                None, None)
+
+
+class Halo(torch.autograd.Function):
+    """``t`` (n, h_loc, w, c) with the next rank's first ``halo`` rows
+    appended (zeros on the last rank)."""
+
+    @staticmethod
+    def forward(ctx, t, halo: int, index: int, n: int, group):
+        ctx.halo, ctx.index, ctx.n, ctx.group = halo, index, n, group
+        like = t[:, :halo]
+        sends = [(like, index - 1)] if index > 0 else []
+        recvs = [(like, index + 1)] if index < n - 1 else []
+        got = exchange(sends, recvs, group)
+        nxt = got[0] if got else torch.zeros_like(like)
+        return torch.cat([t, nxt], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        halo, index, n = ctx.halo, ctx.index, ctx.n
+        h_loc = g.shape[1] - halo
+        own = g[:, :h_loc].clone()
+        back = g[:, h_loc:]
+        sends = [(back, index + 1)] if index < n - 1 else []
+        recvs = [(back, index - 1)] if index > 0 else []
+        got = exchange(sends, recvs, ctx.group)
+        if got:
+            own[:, :halo] += got[0]
+        return own, None, None, None, None

@@ -41,8 +41,9 @@ Where the port differs from the JAX package:
   returned plan passes ``analysis.numcheck.assert_plan_numerics``, as in
   the JAX package; the collective contract of partitioned plans
   (``shardcheck``) waits for ROADMAP Queue 1 item 11.
-* ``partition`` other than None / "none" raises ``NotImplementedError``
-  naming ROADMAP Queue 1 item 11.
+* ``partition`` follows the executor's rules-aware convention and
+  resolves against the installed ``parallel.axes`` mesh at plan time, as
+  in the JAX package: the plan records the components and the mesh axes.
 * ``precision`` keeps its three names, but every port path already
   computes f32 at f32 accuracy (three TF32 products on the tensor cores,
   TF32 off for cuDNN and cuBLAS), so all three execute alike.
@@ -76,10 +77,6 @@ PLAN_MODES = ("analytic", "measured", "cached")
 
 BACKENDS = ("cpu", "cuda")
 
-_NOT_PORTED_PARTITION = ("distributed execution is not ported yet: "
-                         "ROADMAP Queue 1 item 11")
-
-
 def _precision_name(precision) -> Optional[str]:
     """None | 'highest' | 'HIGHEST' -> canonical name or None."""
     if precision is None:
@@ -110,12 +107,6 @@ def _backend(backend: Optional[str]) -> str:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
     return backend
-
-
-def _check_partition(partition) -> None:
-    if partition not in (None, "none"):
-        raise NotImplementedError(f"partition={partition!r}: "
-                                  f"{_NOT_PORTED_PARTITION}")
 
 
 def spec_key(spec: ConvSpec) -> str:
@@ -159,7 +150,16 @@ class ConvPlan:
         if (self.partition is None) != (self.partition_axes is None):
             raise ValueError("partition and partition_axes must be set "
                              "together")
-        _check_partition(self.partition)
+        if self.partition is not None:
+            from repro_torch.parallel.conv import normalize_partition
+            parts = normalize_partition(self.partition)
+            object.__setattr__(self, "partition", parts)
+            axes = tuple(self.partition_axes)
+            if len(axes) != len(parts):
+                raise ValueError(
+                    f"partition {parts!r} needs {len(parts)} axis(es), "
+                    f"got {axes!r}")
+            object.__setattr__(self, "partition_axes", axes)
 
     def cache_key(self) -> str:
         """spec + dtype + backend: what the plan cache indexes on."""
@@ -259,8 +259,44 @@ class ConvPlan:
             lines.append("  (CUDA kernel: the lowering stays in shared "
                          "memory; device-memory overhead is the direct "
                          "conv's)")
-        lines.append("  partition: none (single device)")
+        if self.partition is None:
+            lines.append("  partition: none (single device)")
+            return "\n".join(lines)
+        from repro_torch.launch.costmodel import conv_partition_costs
+        from repro_torch.parallel.conv import partition_name
+        lines.append(f"  partition: {partition_name(self.partition)} "
+                     f"over mesh axes {self.partition_axes}")
+        n_dev = self._partition_sizes()
+        if n_dev is None:
+            lines.append("    (no live mesh: per-device comm bytes need "
+                         "the axis sizes)")
+            return "\n".join(lines)
+        entry = conv_partition_costs(
+            s, n_dev, getattr(torch, self.dtype).itemsize)[
+                self.partition if len(self.partition) > 1
+                else self.partition[0]]
+        lines.append(
+            f"    predicted comm bytes/device: "
+            f"fwd={entry['comm_bytes_fwd_per_device']:.3e} "
+            f"bwd={entry['comm_bytes_bwd_per_device']:.3e} "
+            f"(halo {entry['halo_bytes_per_device']:.3e}); "
+            f"per-device L overhead "
+            f"{entry['per_device_overhead_elems']:.3e} elems")
         return "\n".join(lines)
+
+    def _partition_sizes(self):
+        """Axis sizes of the plan's partition on the installed mesh, or
+        None when no mesh with those axes is installed."""
+        from repro_torch.launch.mesh import axis_sizes
+        from repro_torch.parallel.axes import global_rules
+        rules = global_rules()
+        if rules is None:
+            return None
+        sizes = axis_sizes(rules.mesh)
+        if any(a not in sizes for a in self.partition_axes):
+            return None
+        got = tuple(sizes[a] for a in self.partition_axes)
+        return got[0] if len(got) == 1 else got
 
 
 # ---------------------------------------------------------------------------
@@ -313,12 +349,74 @@ def _assert_numerics(plan: ConvPlan) -> None:
     assert_plan_numerics(plan)
 
 
-def _hit_satisfies(hit: ConvPlan, precision_name: Optional[str]) -> bool:
+def _resolve_partition(spec: ConvSpec, partition, partition_axis,
+                       dtype_bytes: int):
+    """(components, axes) or (None, None), the executor's rules-aware
+    routing resolved once, at plan time, through the candidate set the
+    distributed layer enumerates."""
+    from repro_torch.parallel.axes import global_rules
+    rules = global_rules()
+    if partition == "none":
+        return None, None
+    if rules is None:
+        if partition not in (None, "auto"):
+            raise ValueError(f"partition {partition!r} needs an installed "
+                             "mesh whose ranks hold the same whole tensors "
+                             "(parallel.axes.use_rules, not local_batch)")
+        return None, None
+    from repro_torch.launch.costmodel import pick_conv_partition
+    from repro_torch.parallel.conv import (enumerate_partition_candidates,
+                                           normalize_partition,
+                                           partition_viable)
+    candidates = enumerate_partition_candidates(rules.mesh, rules,
+                                                partition_axis)
+    if partition is None or partition == "auto":
+        picked = pick_conv_partition(
+            spec, {p: n for p, (_, n) in candidates.items()}, dtype_bytes)
+        if picked is None:
+            return None, None
+        return normalize_partition(picked), candidates[picked][0]
+    parts = normalize_partition(partition)
+    key = parts if len(parts) > 1 else parts[0]
+    if key not in candidates:
+        from repro_torch.launch.mesh import axis_names
+        raise ValueError(f"partition {partition!r} resolves no mesh axis "
+                         f"on {axis_names(rules.mesh)}; pass "
+                         "partition_axis=")
+    axes, n_dev = candidates[key]
+    if not partition_viable(spec, parts, n_dev):
+        raise ValueError(f"partition {partition!r} cannot split "
+                         f"{spec} over {n_dev} device(s)")
+    return parts, axes
+
+
+def _hit_satisfies(hit: ConvPlan, precision_name: Optional[str],
+                   partition, partition_axis) -> bool:
     """Would serving this cached plan honour the caller's request?  The
-    key is spec|dtype|backend only, so the precision and the block pick
-    (which the pickers may have changed since) are checked on the hit."""
-    return (hit.precision == precision_name and hit.partition is None
-            and hit.w_blk == _kernel_w_blk(hit.spec, hit.algorithm))
+    key is spec|dtype|backend only, so the precision, the block pick
+    (which the pickers may have changed since) and the partition intent
+    (components and explicit axes, against the installed mesh) are
+    checked on the hit."""
+    if hit.precision != precision_name or \
+            hit.w_blk != _kernel_w_blk(hit.spec, hit.algorithm):
+        return False
+    if partition_axis is not None and hit.partition_axes is not None:
+        axes = (partition_axis,) if isinstance(partition_axis, str) \
+            else tuple(partition_axis)
+        if hit.partition_axes != axes:
+            return False
+    if partition == "none":
+        return hit.partition is None
+    if partition not in (None, "auto"):
+        from repro_torch.parallel.conv import normalize_partition
+        return hit.partition == normalize_partition(partition)
+    from repro_torch.launch.mesh import axis_names
+    from repro_torch.parallel.axes import global_rules
+    rules = global_rules()
+    if rules is None:
+        return hit.partition is None
+    return hit.partition is not None and all(
+        a in axis_names(rules.mesh) for a in hit.partition_axes)
 
 
 # A measured flip needs to clear this margin over the analytic pick:
@@ -577,7 +675,7 @@ def tune_measured(spec: ConvSpec, dtype="float32",
 
 def plan_conv2d(spec: ConvSpec, *, dtype="float32", mode: str = "analytic",
                 backend: Optional[str] = None, precision=None,
-                partition=None,
+                partition=None, partition_axis=None,
                 candidates: Optional[Sequence[str]] = None,
                 iters: int = 3, warmup: int = 1,
                 cache=None, calibration="ambient") -> ConvPlan:
@@ -594,12 +692,17 @@ def plan_conv2d(spec: ConvSpec, *, dtype="float32", mode: str = "analytic",
     default: $REPRO_TORCH_CALIBRATION or the fingerprinted store beside
     the plan cache, absent when unfitted), None (the paper's constants) or
     an explicit ``Calibration``.  On CUDA the pick is the fused kernel
-    whatever the calibration says.  partition: None or "none" only.
+    whatever the calibration says.
+
+    partition follows the executor's rules-aware convention: None consults
+    the installed ``parallel.axes`` rules (no mesh: no partition),
+    "auto" and explicit modes resolve against the mesh at plan time, and
+    the plan records the components and the mesh axes, so executing it
+    never enumerates again.  "none" plans one device.
     """
     if mode not in PLAN_MODES:
         raise ValueError(f"unknown plan mode {mode!r}; expected one of "
                          f"{PLAN_MODES}")
-    _check_partition(partition)
     spec.validate()
     dtype = dtype_name(dtype)
     backend = _backend(backend)
@@ -610,22 +713,29 @@ def plan_conv2d(spec: ConvSpec, *, dtype="float32", mode: str = "analytic",
         cache = cache if cache is not None else global_plan_cache()
         key = plan_cache_key(spec, dtype, backend)
         hit = cache.get(key)
-        if hit is not None and _hit_satisfies(hit, precision_name):
+        if hit is not None and _hit_satisfies(hit, precision_name,
+                                              partition, partition_axis):
             return hit
         # A miss, or a hit that does not satisfy this request (the key is
         # spec|dtype|backend only): recompute and overwrite.
         plan = plan_conv2d(spec, dtype=dtype, mode="analytic",
                            backend=backend, precision=precision_name,
+                           partition=partition,
+                           partition_axis=partition_axis,
                            calibration=calibration)
         if plan != hit:               # an agreeing recompute skips the
             cache.put(key, plan)      # disk rewrite
         return plan
 
+    parts, axes = _resolve_partition(spec, partition, partition_axis,
+                                     getattr(torch, dtype).itemsize)
     if mode == "measured":
-        plan, _detail = tune_measured(
+        base, _detail = tune_measured(
             spec, dtype, backend=backend, precision=precision_name,
             candidates=candidates, iters=iters, warmup=warmup,
             calibration=calibration)
+        plan = dataclasses.replace(base, partition=parts,
+                                   partition_axes=axes)
         _assert_numerics(plan)
         return plan
 
@@ -635,7 +745,8 @@ def plan_conv2d(spec: ConvSpec, *, dtype="float32", mode: str = "analytic",
                     solution=(pick_solution(spec) if algorithm == "mec"
                               else "auto"),
                     w_blk=_kernel_w_blk(spec, algorithm),
-                    precision=precision_name, backend=backend, mode=mode)
+                    precision=precision_name, partition=parts,
+                    partition_axes=axes, backend=backend, mode=mode)
     assert_plan(plan)
     _assert_numerics(plan)
     return plan

@@ -89,16 +89,25 @@ class _ChunkedXent(torch.autograd.Function):
         return d_h, d_w, None, None
 
 
+Z_LOSS = 1e-4
+
+
+def chunked_xent_sums(h: torch.Tensor, w_head: torch.Tensor,
+                      labels: torch.Tensor, chunk: int = 512):
+    """(nll sum, lse^2 sum, valid tokens), each 0-d f32: the token-weighted
+    sums a data-parallel step reduces over ranks before it divides."""
+    return _ChunkedXent.apply(h, w_head, labels, min(chunk, h.shape[1]))
+
+
 def chunked_softmax_xent(h: torch.Tensor, w_head: torch.Tensor,
                          labels: torch.Tensor, chunk: int = 512,
-                         z_loss: float = 1e-4
+                         z_loss: float = Z_LOSS
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """h (B, S, d); w_head (d, V); labels (B, S) integer (-1 = ignore).
 
     Returns (mean_nll + z_loss * mean(lse^2), metrics dict with ``nll`` and
     ``tokens``), the logits and the log-sum-exp in f32."""
-    chunk = min(chunk, h.shape[1])
-    nll, z, n = _ChunkedXent.apply(h, w_head, labels, chunk)
+    nll, z, n = chunked_xent_sums(h, w_head, labels, chunk)
     n = torch.clamp(n, min=1.0)
     loss = nll / n + z_loss * z / n
     return loss, {"nll": (nll / n).detach(), "tokens": n}

@@ -161,10 +161,19 @@ def test_crosscheck_equals_the_jax_package(smoke_doc):
 
 
 def test_unported_cells_and_a_missing_card_raise(monkeypatch):
+    """A dist cell (once unported) now measures its per-device analytics
+    as the JAX package's harness does; a missing card still raises."""
     (sc,) = [s for s in scenarios.resolve_suite("dist")
              if s.name == "smoke2_batch"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        harness.measure(sc, "mecB", with_timing=False, device="cpu")
+    (jsc,) = [s for s in jscen.resolve_suite("dist")
+              if s.name == "smoke2_batch"]
+    mine = harness.measure(sc, "mecB", with_timing=False, device="cpu")
+    ref = jharness.measure(jsc, "mecB", with_hlo=False, with_timing=False)
+    for f in ("partition", "n_dev", "n_dev_axes", "halo_bytes_per_device",
+              "per_device_overhead_elems", "comm_bytes_per_device",
+              "auto_partition", "overhead_elems", "flops"):
+        assert mine[f] == ref[f], f
+    assert mine["us_per_call"] is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     table2 = scenarios.resolve_suite("table2")[0]
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1596,3 +1596,53 @@ def test_zz_a_failed_capture_raises(cuda):
     with pytest.raises(RuntimeError, match="capturing the decode step failed"):
         DecodeProgram(step, cache, torch.zeros((1, 1), dtype=torch.long,
                                                device=cuda))
+
+
+# ------------------------------------------------------ ranks on one card
+
+def test_two_gloo_ranks_share_the_card_through_the_kernels(cuda):
+    """Two processes on cuda:0 under gloo (NCCL refuses two ranks on one
+    device): ``spatial`` through K1 and ``batch`` through K4, output and
+    gradients against the single-device conv on the card, every rank's
+    body launching its kernel."""
+    sys.path.insert(0, str(pathlib.Path(__file__).parent))
+    import test_torch_dist_workers as W
+    from repro_torch.launch.mesh import spawn
+    rng = np.random.RandomState(3)
+    cases = []
+    for part, alg, kernel in (("spatial", "mec_fused", "mec_conv_fused"),
+                              ("batch", "mec_fused2", "mec_conv_fused2")):
+        x = rng.randn(2, 32, 30, 16).astype(np.float32)
+        k = rng.randn(3, 3, 16, 32).astype(np.float32)
+        g = rng.randn(2, 30, 28, 32).astype(np.float32)
+        cases.append((dict(x=x, k=k, g=g, stride=1, algorithm=alg,
+                           partition=part, mesh_shape=(2,),
+                           mesh_axes=("data",)), kernel))
+    ranks = spawn(W.conv_cases, 2, args=([c for c, _ in cases], "cuda"),
+                  device="cuda", timeout_s=120, join_timeout_s=600)
+    for i, (case, kernel) in enumerate(cases):
+        x = torch.tensor(case["x"], device=cuda, requires_grad=True)
+        k = torch.tensor(case["k"], device=cuda, requires_grad=True)
+        y = conv2d(x, k, algorithm=case["algorithm"], partition="none")
+        (y * torch.tensor(case["g"], device=cuda)).sum().backward()
+        ref = {"y": y.detach().cpu().numpy(), "dx": x.grad.cpu().numpy(),
+               "dk": k.grad.cpu().numpy()}
+        for r in ranks:
+            got = r[i]
+            assert got["launches"][kernel] >= 1, got["launches"]
+            for f, tol in (("y", 2 * fwd_tolerance("mec", "float32", 144)),
+                           ("dx", grad_tolerance("mec", "float32", 288)),
+                           ("dk", grad_tolerance("mec", "float32", 1680))):
+                err = np.abs(got[f] - ref[f]).max() / np.abs(ref[f]).max()
+                assert err < tol, (case["partition"], f, err)
+
+
+def test_nccl_with_more_ranks_than_cards_raises(cuda, monkeypatch):
+    from repro_torch.launch.mesh import init_world, spawn
+    with pytest.raises(ValueError, match="--backend gloo"):
+        spawn(print, torch.cuda.device_count() + 1, backend="nccl",
+              device="cuda")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", str(torch.cuda.device_count() + 1))
+    with pytest.raises(ValueError, match="--backend gloo"):
+        init_world("nccl", "cuda")

@@ -349,10 +349,18 @@ def test_plan_rejects_what_the_port_does_not_run():
         ConvPlan(spec=spec, dtype="float32", algorithm="mec", solution="C")
     with pytest.raises(ValueError, match="precision"):
         ConvPlan(spec=spec, dtype="float32", algorithm="mec", precision="LOW")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    # A partitioned plan is a value (normalised, serialised as the JAX
+    # package's); planning a partition with no installed mesh raises.
+    part = ConvPlan(spec=spec, dtype="float32", algorithm="mec",
+                    partition="batch+spatial",
+                    partition_axes=["data", "model"])
+    assert (part.partition, part.partition_axes) == \
+        (("batch", "spatial"), ("data", "model"))
+    assert ConvPlan.from_json(part.to_json()) == part
+    with pytest.raises(ValueError, match="axis"):
         ConvPlan(spec=spec, dtype="float32", algorithm="mec",
-                 partition=("batch",), partition_axes=("data",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+                 partition=("batch",), partition_axes=("data", "model"))
+    with pytest.raises(ValueError, match="installed mesh"):
         plan_conv2d(spec, backend="cpu", partition="batch")
     with pytest.raises(ValueError, match="plan mode"):
         plan_conv2d(spec, mode="fastest")

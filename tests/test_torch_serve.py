@@ -429,10 +429,12 @@ def test_example_serve_lm_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "production"], "item 11"), (["--mesh", "multipod"], "item 11")])
+    (["--mesh", "production"], "need 256 devices"),
+    (["--mesh", "multipod"], "need 512 devices")])
 def test_unported_flags_raise(flags, item):
-    """Distributed execution."""
-    with pytest.raises(NotImplementedError, match=item):
+    """The production meshes raise the JAX package's "need N devices" on a
+    world of one process."""
+    with pytest.raises(ValueError, match=item):
         tlaunch.main(SMOKE_ARGS + flags)
 
 

@@ -402,17 +402,35 @@ def test_layers_split_each_stacked_leaf_once(arch):
 
 
 def test_distributed_steps_raise():
-    model = tlm.LM(tarchs.smoke_config("yi-6b"))
-    for call in (lambda: tsteps.make_compressed_train_step(model, None),
-                 lambda: tsteps.make_train_step(model, None, rules=object()),
-                 lambda: tsteps.init_opt_state({}, compressed=True),
-                 lambda: tlaunch.main(["--arch", "yi-6b", "--smoke",
-                                       "--device", "cpu", "--mesh",
-                                       "production"]),
-                 lambda: tlaunch.main(["--arch", "yi-6b", "--smoke",
-                                       "--device", "cpu", "--compress-grads"])):
+    """What distributed training still lacks raises: rules over a mesh
+    with a tensor-parallel axis (the LMs' tensor parallelism, item 11's
+    remainder) and the production mesh on a world of one process (the
+    JAX package's "need N devices").  What it has runs: the compressed
+    step on one process carries ``ef`` and trains."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.axes import default_rules
+    cfg = tarchs.smoke_config("yi-6b")
+    model = tlm.LM(cfg)
+    tp = default_rules(AbstractMesh((2, 2), ("data", "model")))
+    for call in (lambda: tsteps.make_compressed_train_step(model, None, tp),
+                 lambda: tsteps.make_train_step(model, None, rules=tp),
+                 lambda: tsteps.make_prefill_step(model, 8, rules=tp)):
         with pytest.raises(NotImplementedError, match="item 11"):
             call()
+    with pytest.raises(ValueError, match="need 256 devices"):
+        tlaunch.main(["--arch", "yi-6b", "--smoke", "--device", "cpu",
+                      "--mesh", "production"])
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    state = tsteps.init_opt_state(params, compressed=True)
+    assert sorted(state) == ["ef", "m", "step", "v"]
+    step = tsteps.make_compressed_train_step(
+        model, AdamWConfig(lr=1e-3, total_steps=2, warmup_steps=1), None)
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
+             "labels": torch.ones((2, 8), dtype=torch.int32)}
+    _, state, metrics = step(params, state, batch)
+    assert torch.isfinite(metrics["loss"]) and int(state["step"]) == 1
+    assert any(bool(e.any()) for e in adamw.tree_leaves(state["ef"]))
 
 
 def test_metrics_shape_is_the_jax_package_own():
