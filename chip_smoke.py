@@ -376,7 +376,9 @@ GRAPH_STEPS = 4
 # int8 gates (tests/test_kv_quant.py) and its bytes bound
 DENSE_ARCH = "qwen3-4b"
 DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 8, 128, 32
-DENSE_SLOTS, DENSE_MAX_LEN, DENSE_REQUESTS = 8, 1024, 24
+# 16 requests and 4 checked alone since PR 24 (24 and 8 before), for the
+# time limit the tp phase shares
+DENSE_SLOTS, DENSE_MAX_LEN, DENSE_REQUESTS = 8, 1024, 16
 DENSE_REQ_PROMPT, DENSE_REQ_NEW = (32, 512), (16, 64)
 INT8_ATTN_GATE, INT8_DECODE_GATE, INT8_BYTES_RATIO = 0.03, 0.05, 0.6
 # the JAX package's decode gate is set for its smoke configs (4 layers of
@@ -386,7 +388,7 @@ INT8_ATTN_GATE, INT8_DECODE_GATE, INT8_BYTES_RATIO = 0.03, 0.05, 0.6
 INT8_DEPTHS = (1, 4, 12, 36)
 INT8_FULL_GATE = 0.1
 # the first requests that are also served alone (bf16 reported, f32 gated)
-DENSE_CHECKED = 8
+DENSE_CHECKED = 4
 # the f32 smoke batcher on the card: tokens equal to each request alone
 SMOKE_BATCHER_ARCH = "yi-6b"
 # the vlm family served (phase 6e): llava-next-34b at full width and depth,
@@ -3028,7 +3030,8 @@ DIST_JOIN_S = 900             # a spawn's whole run
 DIST_ALGOS = ("mec_fused", "mec_lowered")
 DIST_COMPOSITE_BATCH = 8
 DIST_LM_ARCH = "xlstm-125m"
-DIST_LM_STEPS = 10
+DIST_LM_STEPS = 6             # 10 before the tp phase (its xlstm-125m on
+                              # (2, 2) runs 10 of each); cut for the time limit
 DIST_LM_ARGS = ["--global-batch", "8", "--seq-len", "128", "--lr", "5e-4",
                 "--conv-impl", "fused", "--log-every", "5"]
 DIST_LM_GAP = 0.35            # tests/test_distribution.py:119
@@ -3703,6 +3706,655 @@ def dist_phase(seed: int) -> dict:
 
 
 
+# ---------------------------------------------------------------- tp phase
+# Tensor and expert parallelism of the LMs (parallel.tensor): ranks share
+# cuda:0 under gloo, as in the dist phase.  The (1, 2) "data" x "model"
+# mesh serves and trains at full width; f32 gates at a reduced depth hold
+# the ranks to one rank.
+TP_MESH = (1, 2)
+TP_DENSE = "qwen3-4b"
+TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_DECODE = 4, 512, 8
+TP_GATE_LAYERS = 4           # f32 gates at full width
+TP_GATE_BATCH, TP_GATE_PROMPT = 2, 64
+TP_GATE_TOL = 1e-5
+TP_ZAMBA_GATE_LAYERS = 7     # one attention segment and a tail layer
+TP_ZAMBA_TRAIN_LAYERS = 12   # two attention segments
+TP_TRAIN_STEPS = 3
+TP_TRAIN_BATCH = (2, 512)
+TP_MOE = "qwen3-moe-30b-a3b"
+TP_KIMI = "kimi-k2-1t-a32b"
+TP_KIMI_LAYERS = 1          # two ranks of 2 layers hold 73.0 GB
+TP_MOE_BATCH, TP_MOE_PROMPT = 4, 128
+TP_MOE_GATE_TOKENS = (2, 64)
+TP_DP_MOE_LAYERS = 2         # 4 layers' f32 gradient and its flat f32
+                             # reduction buffer overrun the card on 2 ranks
+TP_DP_MOE_BATCH = (4, 64)    # global: 2 rows a rank
+TP_XLSTM_STEPS = 10
+TP_XLSTM_BATCH = (8, 64)     # global
+TP_XLSTM_GAP = 0.3           # tests/test_distribution.py:169's bar
+TP_XLSTM_GRAD_LAYERS = 4
+TP_YI = "yi-6b"
+TP_YI_LAYERS = 4
+TP_YI_STEPS = 3
+TP_SP_RTOL = 2e-4            # tests/test_perf_features.py:35
+TP_RESTORE_TOL = 1e-6
+TP_RESTORE_LAYERS = 4        # one super-block at full width (12: 32 s)
+TP_TIMEOUT_S = 600           # a collective's wait while rank 0 runs alone
+# the shapes a rank gives K5 at tp 2: zamba2-7b's xBC (3584 x channels +
+# B + C) of its local in_proj output (7352 wide); xlstm-125m's mLSTM x_in
+# (768 channels) of its local up output (1536 wide)
+ZAMBA2_TP_CONV = (SERVE_BATCH, SERVE_PROMPT, 7352, 3584, 7296)
+SSM_TP_CONV = (SSM_BATCH, SSM_PROMPT, 1536, 0, 768)
+
+
+def _tp_rules(shape):
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.axes import default_rules
+    return default_rules(make_host_mesh(shape, ("data", "model")))
+
+
+def _leaf_bytes(tree) -> int:
+    return sum(t.nbytes for t in tree_leaves(tree).values())
+
+
+def _seeded_gen(seed: int):
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    return gen
+
+
+def tp_gate(cfg, seed: int, rules) -> dict:
+    """f32 at reduced depth: the rank-local init against the slice of the
+    one-rank init (bits), the rank's bytes against ``local_param_bytes``,
+    and the prefill's logits (gathered) against one rank's (rank 0)."""
+    import torch.distributed as dist
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import tensor
+    from repro_torch.parallel.axes import use_rules
+    from repro_torch.training import steps
+    model = LM(cfg)
+    whole = model.init(_seeded_gen(seed), device=DEVICE)
+    local = model.init(_seeded_gen(seed), device=DEVICE, mesh=rules.mesh)
+    rank = tensor.model_rank(rules.mesh)
+    sliced = tensor.shard_params(whole, rules.mesh, cfg, rank)
+    a, b = tree_leaves(local), tree_leaves(sliced)
+    init_bits = all(torch.equal(a[k], b[k]) for k in a)
+    del sliced
+    gen = _seeded_gen(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (TP_GATE_BATCH, TP_GATE_PROMPT),
+                           generator=gen, device=DEVICE)
+    batch = {"tokens": tokens}
+    max_len = TP_GATE_PROMPT + 1
+    with f32_acc():
+        logits, _ = steps.make_prefill_step(model, max_len, rules)(local,
+                                                                    batch)
+        with use_rules(rules):
+            logits = tensor.gather_vocab(logits, model.vocab_tp())
+        err = None
+        if dist.get_rank() == 0:
+            one, _ = steps.make_prefill_step(model, max_len)(whole, batch)
+            err = scaled_err(logits, one)
+    out = {"init_equals_slice": init_bits, "rank_bytes": _leaf_bytes(local),
+           "counted_bytes": tensor.local_param_bytes(whole, rules.mesh, cfg),
+           "spec_bytes": tensor.spec_local_bytes(whole, rules.mesh, cfg),
+           "logits_err": err, "layers": cfg.n_layers}
+    del whole, local
+    free_card()
+    return out
+
+
+def fake_params(cfg) -> dict:
+    """The model's whole parameter tree as fake tensors (shapes and dtypes,
+    no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models.lm import LM
+    with FakeTensorMode():
+        return LM(cfg).init(torch.Generator(), device="cpu")
+
+
+def f32_acc():
+    from repro_torch.models.layers import f32_accumulation
+    return f32_accumulation()
+
+
+def tp_serve_full(cfg, seed: int, rules, batch: int, prompt: int,
+                  gen: int) -> dict:
+    """``launch.serve.serve`` on the rank's mesh (bf16, eager decode), its
+    K5 launches; then rank 0 serves the same on one rank: the greedy
+    tokens of each."""
+    import torch.distributed as dist
+    from repro_torch.kernels import mec_conv1d as C
+    from repro_torch.launch import serve as launch_serve
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    C.mec_conv1d.launches = 0
+    t0 = time.perf_counter()
+    run = launch_serve.serve(cfg, batch=batch, prompt_len=prompt, gen=gen,
+                             device=DEVICE, seed=seed, rules=rules)
+    out = {"seconds": time.perf_counter() - t0,
+           "k5_launches": C.mec_conv1d.launches,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+           "decode_graph": run["decode_graph"], "drops": run["drops"],
+           "finite": bool(torch.isfinite(run["logits"]).all())}
+    tokens = run["tokens"].cpu()
+    del run
+    free_card()
+    dist.barrier()
+    if dist.get_rank() == 0:
+        one = launch_serve.serve(cfg, batch=batch, prompt_len=prompt,
+                                 gen=gen, device=DEVICE, seed=seed)
+        out["tokens_equal_one_rank"] = bool(torch.equal(one["tokens"].cpu(),
+                                                        tokens))
+        out["tokens_agree"] = float((one["tokens"].cpu() == tokens)
+                                    .float().mean())
+        del one
+        free_card()
+    dist.barrier()
+    return out
+
+
+def tp_train(cfg, seed: int, rules, n_steps: int, batch_shape,
+             compressed: bool = False, lr: float = 1e-4) -> dict:
+    """``n_steps`` train steps on the rank's mesh from the rank-local
+    init: losses, grad norms, K5 launches a step, peak bytes."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import mec_conv1d as C
+    from repro_torch.models.lm import LM
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import steps
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg)
+    params = model.init(_seeded_gen(seed), device=DEVICE, mesh=rules.mesh)
+    opt = steps.init_opt_state(params, compressed=compressed)
+    fn = (steps.make_compressed_train_step if compressed
+          else steps.make_train_step)(model, AdamWConfig(
+              lr=lr, total_steps=n_steps, warmup_steps=2), rules)
+    n_data = axis_sizes(rules.mesh)["data"]
+    data = SyntheticLMData(cfg, *batch_shape,
+                           host_id=rules.mesh.get_local_rank("data"),
+                           num_hosts=n_data, device=DEVICE)
+    losses, norms, secs = [], [], []
+    C.mec_conv1d.launches = 0
+    with f32_acc():
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            params, opt, m = fn(params, opt, data.next_batch())
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t0)
+    out = {"losses": losses, "grad_norms": norms, "step_s": secs,
+           "k5_launches_per_step": C.mec_conv1d.launches / n_steps,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "rank_param_bytes": _leaf_bytes(params), "layers": cfg.n_layers}
+    del params, opt
+    free_card()
+    return out
+
+
+def tp_moe_serve(cfg, seed: int, rules) -> dict:
+    """qwen3-moe / kimi-k2 expert parallel on the rank's mesh through the
+    prefill and decode steps, with the float and the int8 dispatch on the
+    same parameters: the greedy tokens, the all-to-all bytes each sends,
+    the peak."""
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import comm, tensor
+    from repro_torch.parallel.axes import use_rules
+    from repro_torch.training import steps
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM(cfg).init(_seeded_gen(seed), device=DEVICE, mesh=rules.mesh)
+    init_s = time.perf_counter() - t0
+    batch, prompt = TP_MOE_BATCH, TP_MOE_PROMPT
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt),
+                           generator=_seeded_gen(seed + 1), device=DEVICE)
+    out = {"init_s": init_s, "rank_param_bytes": _leaf_bytes(params),
+           "layers": cfg.n_layers}
+    for int8 in (False, True):
+        model = LM(cfg.with_(moe_dispatch_int8=int8))
+        prefill = steps.make_prefill_step(model, prompt + TP_DECODE + 1,
+                                          rules)
+        decode = steps.make_decode_step(model, rules)
+        sent = comm.all_to_all.bytes
+        t0 = time.perf_counter()
+        with f32_acc():
+            logits, cache = prefill(params, {"tokens": tokens})
+            with use_rules(rules):
+                tp = model.vocab_tp()
+                tok = tensor.argmax_vocab(logits, tp)[:, None]
+            seq = [tok]
+            for _ in range(TP_DECODE):
+                logits, cache = decode(params, cache, tok)
+                with use_rules(rules):
+                    tok = tensor.argmax_vocab(logits, tp)[:, None]
+                seq.append(tok)
+        torch.cuda.synchronize()
+        out["int8" if int8 else "float"] = {
+            "seconds": time.perf_counter() - t0,
+            "a2a_bytes_sent": comm.all_to_all.bytes - sent,
+            "tokens": torch.cat(seq, 1).cpu().tolist(),
+            "finite": bool(torch.isfinite(logits).all())}
+        del cache, logits
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    free_card()
+    return out
+
+
+def tp_moe_gate(seed: int, rules) -> dict:
+    """One qwen3-moe layer at full width in f32: expert parallel (the
+    rank's 64 experts, its sequence half routed) against rank 0's local
+    dispatch on each half with all 128 experts (the same per-shard
+    routing), gathered output within TP_GATE_TOL."""
+    import torch.distributed as dist
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.models import moe
+    from repro_torch.parallel import tensor
+    from repro_torch.parallel.axes import use_rules
+    cfg = ARCHS[TP_MOE].with_(dtype="float32")
+    p = moe.init_moe(_seeded_gen(seed), cfg, torch.float32, device=DEVICE)
+    rank = tensor.model_rank(rules.mesh)
+    e = cfg.n_experts // 2
+    local = dict(p, **{k: p[k][rank * e:(rank + 1) * e].contiguous()
+                       for k in ("wg", "wu", "wd")})
+    b, s = TP_MOE_GATE_TOKENS
+    x = torch.randn((b, s, cfg.d_model), generator=_seeded_gen(seed + 1),
+                    device=DEVICE)
+    with f32_acc(), use_rules(rules):
+        y, _ = moe.moe_ffn(local, cfg, x)
+    err = None
+    if dist.get_rank() == 0:
+        with f32_acc():
+            ref = torch.cat([moe._moe_local(p, cfg, x[:, :s // 2])[0],
+                             moe._moe_local(p, cfg, x[:, s // 2:])[0]], 1)
+        err = scaled_err(y, ref)
+    del p, local
+    free_card()
+    return {"err": err}
+
+
+def tp_moe_dp(seed: int) -> dict:
+    """The moe family's data-parallel gradient on the world's 1-D data
+    mesh (qwen3-moe full width, TP_DP_MOE_LAYERS layers, f32, local
+    dispatch routing the global batch) against rank 0's one-rank gradient
+    of the global batch; the dropped assignments of both."""
+    import torch.distributed as dist
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.axes import default_rules
+    from repro_torch.training import steps
+    free_card()
+    cfg = ARCHS[TP_MOE].with_(n_layers=TP_DP_MOE_LAYERS, dtype="float32",
+                             moe_impl="local", capacity_factor=1.0)
+    model = LM(cfg)
+    params = model.init(_seeded_gen(seed), device=DEVICE)
+    rules = default_rules(make_host_mesh())
+    rank, world = dist.get_rank(), dist.get_world_size()
+    whole = SyntheticLMData(cfg, *TP_DP_MOE_BATCH,
+                            device=DEVICE).next_batch()
+    rows = TP_DP_MOE_BATCH[0] // world
+    local = {k: v[rank * rows:(rank + 1) * rows] for k, v in whole.items()}
+    with f32_acc(), moe.count_drops(DEVICE) as drops:
+        loss2, _, grads2 = steps.make_grad_fn(model, rules)(params, local)
+    total = int(comm.all_reduce_sum(drops.reshape(1))[0])
+    out = {"drops_ranks": total}
+    if rank == 0:
+        g2 = tree_leaves(grads2)
+        with f32_acc(), moe.count_drops(DEVICE) as drops1:
+            loss1, _, grads1 = steps.make_grad_fn(model)(params, whole)
+        g1 = tree_leaves(grads1)
+        out.update(drops_one=int(drops1), loss_dp=float(loss2),
+                   loss_one=float(loss1),
+                   max_leaf_err=max(scaled_err(g2[k], g1[k]) for k in g1))
+    del params
+    free_card()
+    return out
+
+
+def tp_rank_two(seed: int) -> dict:
+    """The 2-rank body of the tp phase."""
+    import torch.distributed as dist
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels import mec_conv as K
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.parallel import comm
+    entered = time.time()
+    rules = _tp_rules(TP_MESH)
+    staged0 = comm.stage_to_host.bytes + comm.stage_to_device.bytes
+    out = {"rank": dist.get_rank(), "entered": entered,
+           "backend": dist.get_backend(), "world": dist.get_world_size(),
+           "device": str(torch.cuda.current_device()), "seconds": {},
+           "staged": {}}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        staged = comm.stage_to_host.bytes + comm.stage_to_device.bytes
+        out[name] = fn(*a, **kw)
+        out["seconds"][name] = time.perf_counter() - t0
+        out["staged"][name] = (comm.stage_to_host.bytes
+                               + comm.stage_to_device.bytes - staged)
+        emit({"phase": "tp", "rank": out["rank"], "done": name,
+              "seconds": out["seconds"][name],
+              "staged_bytes": out["staged"][name],
+              "peak_bytes": torch.cuda.max_memory_allocated()}, sys.stderr)
+
+    dense = ARCHS[TP_DENSE]
+    timed("dense_gate", tp_gate, dense.with_(n_layers=TP_GATE_LAYERS,
+                                            dtype="float32"), seed, rules)
+    timed("dense_serve", tp_serve_full, dense, seed, rules, TP_SERVE_BATCH,
+          TP_SERVE_PROMPT, TP_DECODE + 1)
+    zamba = ARCHS[SERVE_ARCH].with_(conv_impl="fused")
+    timed("hybrid_gate", tp_gate, zamba.with_(
+        n_layers=TP_ZAMBA_GATE_LAYERS, dtype="float32"), seed, rules)
+    timed("hybrid_serve", tp_serve_full, zamba, seed, rules, TP_SERVE_BATCH,
+          TP_SERVE_PROMPT, TP_DECODE + 1)
+    timed("hybrid_train", tp_train, zamba.with_(
+        n_layers=TP_ZAMBA_TRAIN_LAYERS), seed, rules, TP_TRAIN_STEPS,
+          TP_TRAIN_BATCH)
+    # the audio family's conv frontend: K1 on each rank (every rank holds
+    # the whole batch), the model tensor parallel
+    K.reset_launch_counts()
+    free_card()
+    t0 = time.perf_counter()
+    whisper = launch_serve.serve(ARCHS[WHISPER_ARCH], batch=4, prompt_len=16,
+                                 gen=5, device=DEVICE, seed=seed,
+                                 warm_plans=True, rules=rules)
+    out["whisper"] = {"k1_launches": K.launch_counts()["mec_conv_fused"],
+                      "finite": bool(torch.isfinite(whisper["logits"]).all()),
+                      "frontend_replays": whisper["frontend_replays"]}
+    out["seconds"]["whisper"] = time.perf_counter() - t0
+    del whisper
+    timed("moe_gate", tp_moe_gate, seed, rules)
+    timed("moe_serve", tp_moe_serve, ARCHS[TP_MOE], seed, rules)
+    timed("kimi_serve", tp_moe_serve, ARCHS[TP_KIMI].with_(
+        n_layers=TP_KIMI_LAYERS), seed, rules)
+    timed("moe_dp", tp_moe_dp, seed)
+    out["staged_bytes"] = (comm.stage_to_host.bytes
+                           + comm.stage_to_device.bytes - staged0)
+    return out
+
+
+def tp_restore(seed: int, ckpt_dir: str) -> dict:
+    """xlstm-125m at full width (f32, TP_RESTORE_LAYERS layers): two steps
+    on (1, 2), saved with the shardings;
+    restored onto (1, 2), onto (2, 1) and onto one rank: every leaf equal
+    to the saved whole arrays, and the next step's loss of each."""
+    import torch.distributed as dist
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import tensor
+    from repro_torch.training import steps
+    cfg = ARCHS[SSM_ARCH].with_(n_layers=TP_RESTORE_LAYERS, dtype="float32",
+                                conv_impl="fused")
+    model = LM(cfg)
+    opt_cfg = AdamWConfig(lr=5e-4, total_steps=8, warmup_steps=1)
+    data = SyntheticLMData(cfg, 4, 64, device=DEVICE)
+    batches = [data.next_batch() for _ in range(3)]
+    mgr = CheckpointManager(ckpt_dir)
+    meshes = {"1x2": _tp_rules((1, 2)), "2x1": _tp_rules((2, 1))}
+    rank = dist.get_rank()
+    inside = rank < 2
+
+    def run(rules, restore: bool):
+        mesh = rules.mesh
+        params = model.init(_seeded_gen(seed), device=DEVICE, mesh=mesh)
+        opt = steps.init_opt_state(params)
+        sh = tensor.shardings(params, mesh, cfg)
+        shard = {"params": sh, "opt": {"m": sh, "v": sh}}
+        fn = steps.make_train_step(model, opt_cfg, rules)
+        d, nd = mesh.get_local_rank("data"), mesh.shape[0]
+
+        def rows(b):
+            r = b["tokens"].shape[0] // nd
+            return {k: v[d * r:(d + 1) * r] for k, v in b.items()}
+        if restore:
+            got = mgr.restore(2, {"params": params, "opt": opt},
+                              shardings=shard)
+            params, opt = got["params"], got["opt"]
+        else:
+            for b in batches[:2]:
+                params, opt, _ = fn(params, opt, rows(b))
+            mgr.save(2, {"params": params, "opt": opt}, shardings=shard)
+        whole = {k: v.detach().to("cpu", copy=True) for k, v in tree_leaves(
+            tensor.gather_params(params, mesh, cfg)).items()}
+        with f32_acc():
+            _, _, m = fn(params, opt, rows(batches[2]))
+        return whole, float(m["loss"])
+
+    out = {}
+    with f32_acc():
+        if inside:
+            saved, _ = run(meshes["1x2"], False)
+        dist.barrier()
+        for name in ("1x2", "2x1"):
+            if inside:
+                whole, loss = run(meshes[name], True)
+                out[name] = {"bits": all(torch.equal(whole[k], saved[k])
+                                         for k in saved), "loss": loss}
+        dist.barrier()
+        if rank == 0:
+            params = model.init(_seeded_gen(seed), device=DEVICE)
+            opt = steps.init_opt_state(params)
+            got = mgr.restore(2, {"params": params, "opt": opt})
+            leaves = tree_leaves(got["params"])
+            bits = all(torch.equal(leaves[k].cpu(), saved[k]) for k in saved)
+            fn = steps.make_train_step(model, opt_cfg)
+            _, _, m = fn(got["params"], got["opt"], batches[2])
+            out["world1"] = {"bits": bits, "loss": float(m["loss"])}
+    free_card()
+    return out
+
+
+def tp_xlstm_grad(seed: int) -> dict:
+    """xlstm-125m at full width, TP_XLSTM_GRAD_LAYERS layers, f32, K5: the
+    gradient on (2, 2) (each data rank its contiguous rows), gathered
+    whole, against rank 0's one-rank gradient of the global batch."""
+    import torch.distributed as dist
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import tensor
+    from repro_torch.training import steps
+    cfg = ARCHS[SSM_ARCH].with_(n_layers=TP_XLSTM_GRAD_LAYERS,
+                                dtype="float32", conv_impl="fused")
+    model = LM(cfg)
+    rules = _tp_rules((2, 2))
+    whole = model.init(_seeded_gen(seed), device=DEVICE)
+    local = model.init(_seeded_gen(seed), device=DEVICE, mesh=rules.mesh)
+    batch = SyntheticLMData(cfg, 4, 64, device=DEVICE).next_batch()
+    d = rules.mesh.get_local_rank("data")
+    mine = {k: v[2 * d:2 * d + 2] for k, v in batch.items()}
+    with f32_acc():
+        loss2, _, grads = steps.make_grad_fn(model, rules)(local, mine)
+    g2 = tree_leaves(tensor.gather_params(grads, rules.mesh, cfg))
+    out = {"loss_tp": float(loss2)}
+    if dist.get_rank() == 0:
+        with f32_acc():
+            loss1, _, g1 = steps.make_grad_fn(model)(whole, batch)
+        g1 = tree_leaves(g1)
+        out.update(loss_one=float(loss1),
+                   max_leaf_err=max(scaled_err(g2[k], g1[k]) for k in g1))
+    del whole, local, grads, g2
+    free_card()
+    return out
+
+
+def tp_rank_four(seed: int, ckpt_dir: str) -> dict:
+    """The 4-rank body of the tp phase: xlstm-125m on (2, 2), yi-6b's SP
+    and dots against base on (1, 2), the elastic restore."""
+    import torch.distributed as dist
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.parallel import comm
+    entered = time.time()
+    out = {"rank": dist.get_rank(), "entered": entered, "seconds": {},
+           "staged": {}}
+    staged0 = comm.stage_to_host.bytes + comm.stage_to_device.bytes
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        staged = comm.stage_to_host.bytes + comm.stage_to_device.bytes
+        out[name] = fn(*a, **kw)
+        out["seconds"][name] = time.perf_counter() - t0
+        out["staged"][name] = (comm.stage_to_host.bytes
+                               + comm.stage_to_device.bytes - staged)
+        emit({"phase": "tp", "rank": out["rank"], "done": name,
+              "seconds": out["seconds"][name],
+              "staged_bytes": out["staged"][name],
+              "peak_bytes": torch.cuda.max_memory_allocated()}, sys.stderr)
+
+    rules = _tp_rules((2, 2))
+    xlstm = ARCHS[SSM_ARCH].with_(conv_impl="fused")
+    for compressed in (False, True):
+        timed("xlstm_" + ("compressed" if compressed else "plain"), tp_train,
+              xlstm, seed, rules, TP_XLSTM_STEPS, TP_XLSTM_BATCH,
+              compressed=compressed, lr=5e-4)
+    timed("xlstm_grad", tp_xlstm_grad, seed)
+    yi_rules = _tp_rules((1, 2))
+    yi = ARCHS[TP_YI].with_(n_layers=TP_YI_LAYERS, dtype="float32",
+                            remat=True)
+    for name, over in (("base", {}), ("dots", {"remat_policy": "dots"}),
+                       ("sp", {"seq_parallel": True})):
+        if dist.get_rank() < 2:
+            timed("yi_" + name, tp_train, yi.with_(**over), seed, yi_rules,
+                  TP_YI_STEPS, (2, 256))
+        dist.barrier()
+    timed("restore", tp_restore, seed, ckpt_dir)
+    out["staged_bytes"] = (comm.stage_to_host.bytes
+                           + comm.stage_to_device.bytes - staged0)
+    return out
+
+
+def tp_phase(seed: int, tmp_dir: Path, C, ref, grad_tolerance) -> dict:
+    """Phase 6j: tensor and expert parallelism on ranks that share the
+    card; returns each kernel's launches on the ranks' main paths and
+    K5's checks at the shapes a rank gives it."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch.mesh import AbstractMesh, spawn
+    from repro_torch.parallel.tensor import excess_bytes
+    free_card()
+    t_phase = time.perf_counter()
+    # K5 on the rank's channel slices, forward and backward, against its
+    # plain version (strided views of the rank's projections)
+    k5_cases = k5_gradient_case(C, ref, torch.Generator(device=DEVICE)
+                                .manual_seed(seed), grad_tolerance,
+                                cases={"zamba2-7b tp2": ZAMBA2_TP_CONV,
+                                       "xlstm-125m tp2": SSM_TP_CONV})
+    emit({"phase": "tp", "step": "k5_slices", "cases": k5_cases})
+    t_spawn = time.time()
+    two = spawn(tp_rank_two, 2, args=(seed,), backend=DIST_BACKEND,
+                device="cuda", timeout_s=TP_TIMEOUT_S,
+                join_timeout_s=DIST_JOIN_S)
+    spawn_s = max(r["entered"] for r in two) - t_spawn
+    check(all(r["backend"] == DIST_BACKEND and r["world"] == 2
+              and r["device"] == "0" for r in two),
+          f"tp ranks: {[(r['backend'], r['world'], r['device']) for r in two]}")
+    lead = two[0]
+    for fam in ("dense", "hybrid"):
+        g = lead[f"{fam}_gate"]
+        check(g["logits_err"] <= TP_GATE_TOL,
+              f"tp {fam} f32 prefill logits against one rank: "
+              f"{g['logits_err']} > {TP_GATE_TOL}")
+        for r in two:
+            rg = r[f"{fam}_gate"]
+            check(rg["init_equals_slice"],
+                  f"tp {fam} rank {r['rank']}: rank-local init is not the "
+                  f"slice of the one-rank init")
+            check(rg["rank_bytes"] == rg["counted_bytes"],
+                  f"tp {fam} rank {r['rank']}: {rg['rank_bytes']} B held, "
+                  f"{rg['counted_bytes']} B counted")
+        serve = [r[f"{fam}_serve"] for r in two]
+        check(all(s["finite"] and not s["decode_graph"] for s in serve),
+              f"tp {fam} serve: {[(s['finite'], s['decode_graph']) for s in serve]}")
+    n_mamba = ARCHS[SERVE_ARCH].n_layers
+    check(all(r["hybrid_serve"]["k5_launches"] == n_mamba for r in two),
+          f"tp zamba2-7b serve: K5 {[r['hybrid_serve']['k5_launches'] for r in two]}"
+          f" launches a rank, not {n_mamba}")
+    for r in two:
+        tr = r["hybrid_train"]
+        check(all(math.isfinite(v) for v in tr["losses"] + tr["grad_norms"])
+              and tr["k5_launches_per_step"] >= TP_ZAMBA_TRAIN_LAYERS,
+              f"tp zamba2-7b train rank {r['rank']}: {tr}")
+        check(r["whisper"]["finite"] and r["whisper"]["k1_launches"] > 0,
+              f"tp whisper-tiny rank {r['rank']}: {r['whisper']}")
+    check(lead["moe_gate"]["err"] <= TP_GATE_TOL,
+          f"tp expert-parallel layer against local dispatch: "
+          f"{lead['moe_gate']['err']}")
+    for name in ("moe_serve", "kimi_serve"):
+        for r in two:
+            m = r[name]
+            check(m["float"]["finite"] and m["int8"]["finite"],
+                  f"tp {name} rank {r['rank']}: not finite")
+            check(0 < m["int8"]["a2a_bytes_sent"]
+                  < m["float"]["a2a_bytes_sent"],
+                  f"tp {name} rank {r['rank']}: all-to-all bytes "
+                  f"{m['int8']['a2a_bytes_sent']} (int8) against "
+                  f"{m['float']['a2a_bytes_sent']} (float)")
+    dp = lead["moe_dp"]
+    check(dp["max_leaf_err"] <= DIST_GRAD_TOL,
+          f"tp moe data-parallel gradient: {dp['max_leaf_err']}")
+    check(dp["drops_ranks"] == dp["drops_one"] and dp["drops_one"] > 0,
+          f"tp moe data-parallel drops {dp['drops_ranks']} against one "
+          f"rank's {dp['drops_one']}")
+    tp2 = AbstractMesh(TP_MESH, ("data", "model"))
+    emit({"phase": "tp", "step": "two_ranks", "spawn_s": spawn_s,
+          "ranks": [{k: v for k, v in r.items() if k != "entered"}
+                    for r in two],
+          "replicated_excess_bytes_tp2": {
+              a: excess_bytes(fake_params(ARCHS[a]), tp2, ARCHS[a])
+              for a in (TP_DENSE, SERVE_ARCH, TP_MOE, SSM_ARCH)}})
+    free_card()
+    four = spawn(tp_rank_four, 4, args=(seed, str(tmp_dir / "tp_ckpt")),
+                 backend=DIST_BACKEND, device="cuda", timeout_s=TP_TIMEOUT_S,
+                 join_timeout_s=DIST_JOIN_S)
+    lead4 = four[0]
+    plain, comp = lead4["xlstm_plain"], lead4["xlstm_compressed"]
+    gap = abs(plain["losses"][-1] - comp["losses"][-1])
+    check(all(math.isfinite(v) for v in plain["losses"] + comp["losses"])
+          and gap < TP_XLSTM_GAP,
+          f"tp xlstm-125m on (2, 2): compressed against plain {gap}")
+    check(lead4["xlstm_grad"]["max_leaf_err"] <= DIST_GRAD_TOL,
+          f"tp xlstm-125m gradient on (2, 2): "
+          f"{lead4['xlstm_grad']['max_leaf_err']}")
+    base = lead4["yi_base"]["losses"]
+    for name in ("dots", "sp"):
+        other = lead4[f"yi_{name}"]["losses"]
+        check(all(abs(a - b) <= TP_SP_RTOL * abs(b)
+                  for a, b in zip(other, base)),
+              f"tp yi-6b {name} against base: {other} {base}")
+    rs = lead4["restore"]
+    losses = [rs[k]["loss"] for k in ("1x2", "2x1", "world1")]
+    check(all(rs[k]["bits"] for k in ("1x2", "2x1", "world1")),
+          f"tp restore: leaves not equal to the bit {rs}")
+    check(max(losses) - min(losses) <= TP_RESTORE_TOL * abs(losses[0]),
+          f"tp restore: next-step losses {losses}")
+    emit({"phase": "tp", "step": "four_ranks",
+          "ranks": [{k: v for k, v in r.items() if k != "entered"}
+                    for r in four], "xlstm_last_loss_gap": gap})
+    emit({"phase": "tp", "step": "timings",
+          "phase_s": time.perf_counter() - t_phase})
+    launches = {n: 0 for n in KERNEL_ROWS}
+    launches["mec_conv_fused"] = sum(r["whisper"]["k1_launches"] for r in two)
+    launches["mec_conv1d"] = sum(
+        r["hybrid_serve"]["k5_launches"]
+        + r["hybrid_train"]["k5_launches_per_step"] * TP_TRAIN_STEPS
+        for r in two) + sum(
+        (r["xlstm_plain"]["k5_launches_per_step"]
+         + r["xlstm_compressed"]["k5_launches_per_step"]) * TP_XLSTM_STEPS
+        for r in four)
+    return {"launches": launches, "k5_slices": k5_cases,
+            "hybrid_serve_k5_per_rank": lead["hybrid_serve"]["k5_launches"]}
+
+
 def profile_decode(model, params, cache, tok, steps: int = 4) -> dict:
     """Device time and idle share of ``steps`` decode steps from ``cache``
     (batch ``tok``), eagerly and through the captured program, each after
@@ -4305,6 +4957,9 @@ def main(argv=None) -> int:
     # 6i. dist: ranks that share the card, every kernel in their bodies ----
     dist_launches = dist_phase(args.seed)
 
+    # 6j. tp: the LMs' tensor and expert parallelism on ranks sharing it ---
+    tp = tp_phase(args.seed, Path(plan_dir), C, ref, grad_tolerance)
+
     # 7. timing ------------------------------------------------------------
     def bound(flops, nbytes, peak=None):
         t_ops, t_bytes = flops / (peak or peak_flops), nbytes / peak_bw
@@ -4496,6 +5151,14 @@ def main(argv=None) -> int:
     k5_any = conv1d_timing(C, gen, ANY_KW_TIMED, peak_flops, peak_bw)
     emit({"phase": "timing", "kernel": "mec_conv1d", "path": "runtime k_w",
           **k5_any})
+    # and at the channel slices a rank gives it at tp 2 (the tp phase)
+    k5_tp = {name: conv1d_timing(C, gen, cfg.conv_width, peak_flops,
+                                 peak_bw, shape=shape)
+             for name, shape in (("zamba2-7b", ZAMBA2_TP_CONV),
+                                 ("xlstm-125m", SSM_TP_CONV))}
+    for name, rec in k5_tp.items():
+        emit({"phase": "timing", "kernel": "mec_conv1d",
+              "caller": f"{name} tp 2", **rec})
 
     # 8. profile ------------------------------------------------------------
     emit({"phase": "profile", **profile_serving(cfg, args.seed)})
@@ -4560,7 +5223,18 @@ def main(argv=None) -> int:
                     "traced_step": {
                         f: train_lm["runs"][TRAIN_TRACED]["traced_step"][f]
                         for f in ("k5_launches", "k5_kernels", "k5_device_ms",
-                                  "device_busy_s", "wall_s")}}})
+                                  "device_busy_s", "wall_s")}},
+                # the tensor-parallel caller (tp phase): launches summed
+                # over its ranks, and K5 at the slices a rank gives it
+                "tensor_parallel": {
+                    "launches": tp["launches"]["mec_conv1d"],
+                    "zamba2_7b_prefill_launches_per_rank":
+                        tp["hybrid_serve_k5_per_rank"],
+                    "slice_gradient_checks": len(tp["k5_slices"]),
+                    **{name: {f: rec[f] for f in (
+                        "shape", "input_row_stride", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")}
+                       for name, rec in k5_tp.items()}}})
             continue
         recs = [(w, shapes[kname][(n, SLICE_BATCH)]) for n, w in weights[kname].items()]
 
@@ -4609,6 +5283,7 @@ def main(argv=None) -> int:
                                           else 0)}
     for row in rows:
         row["dist_launches"] = dist_launches[row["name"]]
+        row["tp_launches"] = tp["launches"][row["name"]]
     rows[list(KERNEL_ROWS).index("mec_conv_fused")]["whisper_frontend"] = \
         serve_conv["whisper_k1"]
     rows[list(KERNEL_ROWS).index("mec_lower")]["vs_library_rounds"] = k2_rounds

@@ -16,10 +16,15 @@ One ``.npy`` a leaf, named by its path in the tree (``a/b`` ->
 ``a__b.npy``; dict keys sorted, list items by index, ``None`` leaves
 skipped, as ``jax.tree_util`` flattens).  numpy has no bfloat16 or float8:
 those leaves are stored as a same-width unsigned integer view, made and
-read back through torch, with the dtype's name in the manifest.  Restoring
-onto a mesh (the JAX package's elastic path) is distributed execution:
-``restore(..., shardings=...)`` raises ``NotImplementedError`` naming
-ROADMAP Queue 1 item 11.
+read back through torch, with the dtype's name in the manifest.
+
+Under tensor parallelism (``shardings``: per tree, a tree of
+``parallel.tensor.Sharding``, from ``tensor.shardings``) a save gathers
+each split leaf over its "model" group, so the files hold the whole
+arrays, the JAX package's layout, and only the world's rank 0 writes;
+a restore loads the whole arrays and keeps the rank's pieces.  So a
+checkpoint saved on one layout restores onto any other (the JAX
+package's elastic ``restore(..., shardings=)``), world 1 included.
 """
 from __future__ import annotations
 
@@ -59,15 +64,18 @@ def _to_host(leaf):
     return arr, arr.dtype.name
 
 
-def _from_saved(arr: np.ndarray, dtype_name: str, like):
-    """The stored array as the like leaf's kind: a tensor on its device, or
-    a numpy array."""
+def _saved_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """The stored array as a CPU tensor of its saved dtype."""
     arr = np.array(arr, order="C")       # writable and contiguous, any ndim
     if dtype_name in _EXOTIC:
         dt, _, signed, _ = _EXOTIC[dtype_name]
-        t = torch.from_numpy(arr.view(signed)).view(dt)
-    else:
-        t = torch.from_numpy(arr)
+        return torch.from_numpy(arr.view(signed)).view(dt)
+    return torch.from_numpy(arr)
+
+
+def _as_like(t: torch.Tensor, dtype_name: str, like):
+    """The stored tensor as the like leaf's kind: a tensor of its dtype and
+    shape on its device, or a numpy array."""
     if isinstance(like, torch.Tensor):
         if t.dtype != like.dtype or tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"checkpoint leaf {dtype_name}{tuple(t.shape)} "
@@ -111,6 +119,25 @@ def _host_copy(trees: Dict[str, Any]) -> Dict[str, Dict[str, tuple]]:
             for name, tree in trees.items()}
 
 
+def _whole(trees: Dict[str, Any], shardings) -> Dict[str, Any]:
+    """``trees`` with every leaf that has a Sharding gathered whole."""
+    if not shardings:
+        return trees
+    out = {}
+    for name, tree in trees.items():
+        sh = _flatten(shardings.get(name))
+        flat = {key: sh[key].gather(leaf) if key in sh else leaf
+                for key, leaf in _flatten(tree).items()}
+        out[name] = _unflatten(tree, flat)
+    return out
+
+
+def _writes() -> bool:
+    """Whether this process writes: the world's rank 0 (or no world)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = pathlib.Path(directory)
@@ -119,12 +146,21 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------- save --
-    def save(self, step: int, trees: Dict[str, Any]) -> None:
-        """Synchronous atomic save. trees: name -> tree."""
-        self._write(step, _host_copy(trees))
+    def save(self, step: int, trees: Dict[str, Any],
+             shardings: Optional[Dict[str, Any]] = None) -> None:
+        """Synchronous atomic save. trees: name -> tree.  With
+        ``shardings`` every rank calls it (the split leaves are gathered)
+        and rank 0 writes."""
+        trees = _whole(trees, shardings)
+        if shardings is None or _writes():
+            self._write(step, _host_copy(trees))
 
-    def save_async(self, step: int, trees: Dict[str, Any]) -> None:
+    def save_async(self, step: int, trees: Dict[str, Any],
+                   shardings: Optional[Dict[str, Any]] = None) -> None:
         self.wait()
+        trees = _whole(trees, shardings)
+        if shardings is not None and not _writes():
+            return
         # copy to host memory before returning control to the step loop
         host = _host_copy(trees)
         self._thread = threading.Thread(target=self._write,
@@ -184,18 +220,23 @@ class CheckpointManager:
                 shardings: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Trees with the structure of ``like``: each tensor leaf back as a
         tensor of its like leaf's dtype and shape on its device, each numpy
-        leaf as numpy.  ``shardings`` (a mesh's) raises item 11."""
-        if shardings is not None:
-            raise NotImplementedError("restoring onto a mesh: distributed "
-                                      "execution, ROADMAP Queue 1 item 11")
+        leaf as numpy.  ``shardings`` (per tree, a tree of
+        ``parallel.tensor.Sharding`` over the current mesh; trees or leaves
+        without one are whole): each such leaf is the rank's pieces of the
+        stored whole array."""
         cdir = self.dir / f"step_{step:08d}"
         manifest = json.loads((cdir / "manifest.json").read_text())
         out = {}
         for name, tree in like.items():
             entries = manifest["trees"][name]
+            sh = _flatten(shardings.get(name)) if shardings else {}
             loaded = {}
             for key, leaf in _flatten(tree).items():
-                arr = np.load(cdir / name / entries[key]["file"])
-                loaded[key] = _from_saved(arr, entries[key]["dtype"], leaf)
+                dtype_name = entries[key]["dtype"]
+                t = _saved_tensor(np.load(cdir / name / entries[key]["file"]),
+                                  dtype_name)
+                if key in sh:
+                    t = sh[key].take(t)
+                loaded[key] = _as_like(t, dtype_name, leaf)
             out[name] = _unflatten(tree, loaded)
         return out

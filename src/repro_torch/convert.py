@@ -8,7 +8,9 @@ tensors.  Layer-stacked leaves stay stacked, 0-d arrays (a cache's int32
 ``len``) become 0-d tensors of their dtype, and ``None`` leaves (a cache's
 ``tail`` when the layers divide evenly) stay ``None``.  Layouts are the
 same in both packages (HWIO kernels, (in, out) linear weights), so
-nothing is transposed.  Only numpy is needed here, not jax.
+nothing is transposed.  With a mesh whose "model" axis is larger than 1
+(and the model's config) each rank gets its slices of the parameters
+(``parallel.tensor.shard_params``).  Only numpy is needed here, not jax.
 """
 from __future__ import annotations
 
@@ -29,9 +31,16 @@ def _leaf(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(tree, device="cuda"):
+def params_from_jax(tree, device="cuda", mesh=None, cfg=None):
     """The same tree with every numpy leaf as a torch tensor on
-    ``device``."""
+    ``device``; with ``mesh`` and ``cfg`` (an LM's parameters), this
+    rank's slices of them."""
+    if mesh is not None:
+        from repro_torch.parallel import tensor
+        whole = params_from_jax(tree, "cpu")
+        local = tensor.shard_params(whole, mesh, cfg,
+                                    tensor.model_rank(mesh))
+        return _to(local, device)
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -39,3 +48,10 @@ def params_from_jax(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return _leaf(tree, device)
+
+
+def _to(tree, device):
+    """A tree of tensors moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)

@@ -17,12 +17,17 @@ prefill + decode loop.
         --arch qwen3-moe-30b-a3b [--smoke --device cpu]
 
 Runs on the card unless ``--device cpu``.  Every family is served: dense,
-vlm (llava), moe (local dispatch, ``models.moe``), hybrid (zamba2), ssm
-(xLSTM) and audio (whisper).  ``--mesh host`` serves from one process;
+vlm (llava), moe (``models.moe``), hybrid (zamba2), ssm (xLSTM) and audio
+(whisper).  ``--mesh host`` serves from one process;
 ``production``/``multipod`` build the (16, 16) / (2, 16, 16) mesh, which
-raises "need N devices" on a smaller world, and past that would need the
-LMs' tensor parallelism (``NotImplementedError``, ROADMAP Queue 1 item
-11).  Prefill runs eagerly;
+raises "need N devices" on a smaller world, and on a world that large
+serves tensor parallel over "model" through :func:`serve`'s ``rules``
+(the path ranks on a smaller ``("data", "model")`` host mesh take):
+each rank draws its slices of the parameters, the layers all-reduce over
+"model", greedy sampling is an argmax over the vocab shards
+(``parallel.tensor.argmax_vocab``), and decode runs eagerly (a gloo
+collective staged through the host cannot be captured).  Prefill runs
+eagerly;
 each decode step is a :class:`~repro_torch.serving.step_graph.
 DecodeProgram`: one CUDA-graph replay on the card (the counterpart of the
 JAX package's jitted step), an eager step on the CPU; sampling stays
@@ -56,6 +61,8 @@ from repro_torch.models import moe
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.layers import f32_accumulation
 from repro_torch.models.lm import LM
+from repro_torch.parallel import tensor
+from repro_torch.parallel.axes import use_rules
 from repro_torch.serving.step_graph import DecodeProgram
 
 #: the whisper frontend's mel bins
@@ -69,12 +76,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def init_params(cfg, seed: int, device) -> dict:
+def init_params(cfg, seed: int, device, mesh=None) -> dict:
     """The model's parameters, drawn from a generator on ``device`` seeded
-    with ``seed``."""
+    with ``seed`` (the rank's slices over ``mesh``'s "model" axis)."""
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    return LM(cfg).init(generator, device=device)
+    return LM(cfg).init(generator, device=device, mesh=mesh)
 
 
 def make_prompt(cfg, batch: int, prompt_len: int, seed: int,
@@ -88,11 +95,14 @@ def make_prompt(cfg, batch: int, prompt_len: int, seed: int,
 
 
 def sample(logits: torch.Tensor, temperature: float,
-           generator: torch.Generator) -> torch.Tensor:
+           generator: torch.Generator, tp=None) -> torch.Tensor:
     """(B, V) logits -> (B, 1) tokens: argmax at temperature <= 0, else a
-    draw from softmax(logits / temperature)."""
+    draw from softmax(logits / temperature).  Under ``tp`` the logits are
+    the rank's vocab shard: the argmax runs over the shards, a draw over
+    the gathered logits."""
     if temperature <= 0:
-        return torch.argmax(logits, dim=-1)[:, None]
+        return tensor.argmax_vocab(logits, tp)[:, None]
+    logits = tensor.gather_vocab(logits, tp)
     probs = torch.softmax(logits / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)
 
@@ -162,10 +172,26 @@ def _frontend_inputs(cfg, frontend, services, batch: int, seed: int,
     return {}
 
 
-@torch.inference_mode()
 def serve(cfg, *, batch: int, prompt_len: int, gen: int,
           temperature: float = 0.0, device="cuda", seed: int = 0,
-          warm_plans: bool = False, shape_classes=None) -> dict:
+          warm_plans: bool = False, shape_classes=None, rules=None) -> dict:
+    """:func:`_serve` under ``rules`` (``parallel.axes.ShardingRules`` over
+    a DeviceMesh of this rank's world; every rank calls it): tensor
+    parallel over "model" where the mesh has that axis.  Without rules,
+    one process."""
+    kw = dict(batch=batch, prompt_len=prompt_len, gen=gen,
+              temperature=temperature, device=device, seed=seed,
+              warm_plans=warm_plans, shape_classes=shape_classes)
+    if rules is None:
+        return _serve(cfg, mesh=None, **kw)
+    with use_rules(rules):
+        return _serve(cfg, mesh=rules.mesh, **kw)
+
+
+@torch.inference_mode()
+def _serve(cfg, *, batch: int, prompt_len: int, gen: int,
+           temperature: float, device, seed: int, warm_plans: bool,
+           shape_classes, mesh) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens with seeded
     random weights: one batched prefill, then ``gen - 1`` decode steps, one
     token each (the prefill's logits give the first), through a
@@ -190,9 +216,12 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
     warmup) and ``frontend_replays`` (the services' class-executor
     replays), else ``warmup`` empty, both None and no replays.  ``drops``
     counts the moe family's dropped (token, expert) assignments
-    (``models.moe.count_drops``): ``prefill`` (an int) and ``decode`` (a
-    list, one int a step); zeros for the other families.  Products
-    accumulate in f32 (:func:`f32_accumulation`).
+    (``models.moe.count_drops``; the rank's own under expert parallelism):
+    ``prefill`` (an int) and ``decode`` (a list, one int a step); zeros
+    for the other families.  Products accumulate in f32
+    (:func:`f32_accumulation`).  Under tensor parallelism (``mesh`` with
+    a "model" axis) the logits returned are whole (gathered) and decode
+    is eager.
     """
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
@@ -208,7 +237,9 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
             frontend, services = warm_frontend(cfg, classes, seed, device)
             _sync(device)
             warm_s = time.perf_counter() - t0
-        params = init_params(cfg, seed, device)
+        params = init_params(cfg, seed, device, mesh)
+        vocab_tp = model.vocab_tp()
+        eager = tensor.context() is not None
         tokens = make_prompt(cfg, batch, prompt_len, seed, device)
         _sync(device)
         t0 = time.perf_counter()
@@ -226,13 +257,14 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
             _sync(device)
             prefill_s = time.perf_counter() - t0
             prefill_drops = dropped.clone()
-            prefill_logits = logits
-            tok = sample(logits, temperature, generator)
+            prefill_logits = tensor.gather_vocab(logits, vocab_tp)
+            tok = sample(logits, temperature, generator, vocab_tp)
             out = [tok]
             t0 = time.perf_counter()
+            # a gloo collective staged through the host cannot be captured
             step = DecodeProgram(
                 lambda c, t: serve_lib.decode_step(model, params, c, t), cache,
-                torch.zeros_like(tok))
+                torch.zeros_like(tok), **({"graph": False} if eager else {}))
             _sync(device)
             capture_s = time.perf_counter() - t0
             # the program's build ran a step: count from here (device
@@ -243,7 +275,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
                 step.tokens.copy_(tok)
                 logits = step()
                 totals.append(dropped.clone())
-                tok = sample(logits, temperature, generator)
+                tok = sample(logits, temperature, generator, vocab_tp)
                 out.append(tok)
             _sync(device)
             decode_s = time.perf_counter() - t0
@@ -251,7 +283,8 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int,
         drops = {"prefill": int(prefill_drops),
                  "decode": [b - a for a, b in zip([0] + totals, totals)]}
     return {"tokens": torch.cat(out, dim=1), "prefill_logits": prefill_logits,
-            "logits": logits.clone(), "prefill_s": prefill_s,
+            "logits": tensor.gather_vocab(logits, vocab_tp).clone(),
+            "prefill_s": prefill_s,
             "decode_s": decode_s,
             "decode_tokens_per_s": (batch * (gen - 1) / decode_s
                                     if gen > 1 else 0.0),
@@ -284,11 +317,12 @@ def main(argv=None):
                     help="torch device to serve on (default: cuda)")
     args = ap.parse_args(argv)
 
+    rules = None
     if args.mesh != "host":
         from repro_torch.launch.mesh import make_production_mesh
-        from repro_torch.training.steps import TP_ITEM
-        make_production_mesh(multi_pod=args.mesh == "multipod")
-        raise NotImplementedError(f"--mesh {args.mesh}: {TP_ITEM}")
+        from repro_torch.parallel.axes import default_rules
+        rules = default_rules(make_production_mesh(
+            multi_pod=args.mesh == "multipod"))
     cfg = smoke_config(args.arch) if args.smoke else ARCHS[args.arch]
     classes = None
     if args.shape_classes:
@@ -297,7 +331,7 @@ def main(argv=None):
     res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                 gen=args.gen, temperature=args.temperature,
                 device=args.device, warm_plans=args.warm_plans,
-                shape_classes=classes)
+                shape_classes=classes, rules=rules)
     if args.warm_plans:
         for report in res["warmup"]:
             print(report.render())

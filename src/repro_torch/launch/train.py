@@ -29,9 +29,10 @@ default on the card) or ``gloo`` (the CPU, or ranks that share one
 card); NCCL with more ranks than cards raises.  Rank 0 alone logs and
 writes checkpoints; every rank restores.  ``--mesh production|multipod``
 build the (16, 16) / (2, 16, 16) mesh, which raises "need N devices" on a
-smaller world; on a world that large they would need the LMs' tensor
-parallelism, which raises ``NotImplementedError`` (ROADMAP Queue 1 item
-11).
+smaller world; on a world that large the same loop runs tensor parallel
+over "model" (``parallel.tensor``): each rank draws its slices of the
+parameters, its data coordinate's rows of the batch, and checkpoints
+hold the whole arrays.
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.layers import f32_accumulation
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallel import tensor
 from repro_torch.parallel.axes import default_rules
 from repro_torch.training import steps
 from repro_torch.training.watchdog import StepWatchdog
@@ -90,11 +92,26 @@ def _setup(args):
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if args.mesh != "host":
-        mesh_mod.make_production_mesh(multi_pod=args.mesh == "multipod")
-        raise NotImplementedError(f"--mesh {args.mesh}: "
-                                  f"{steps.TP_ITEM}")
-    rules = default_rules(mesh_mod.make_host_mesh()) if world > 1 else None
-    return device, rules, rank, world
+        mesh = mesh_mod.make_production_mesh(multi_pod=args.mesh == "multipod")
+    elif world > 1:
+        mesh = mesh_mod.make_host_mesh()
+    else:
+        return device, None, rank, world
+    return device, default_rules(mesh), rank, world
+
+
+def _data_coords(rules, rank: int, world: int):
+    """(this rank's index among the data-parallel ranks, their count): the
+    batch rows it takes."""
+    if rules is None:
+        return rank, world
+    sizes = mesh_mod.axis_sizes(rules.mesh)
+    names = [a for a in rules.dp_axes]
+    idx, count = 0, 1
+    for a in names:
+        idx = idx * sizes[a] + rules.mesh.get_local_rank(a)
+        count *= sizes[a]
+    return idx, count
 
 
 def _sync(device: torch.device) -> None:
@@ -113,14 +130,24 @@ def train(args: argparse.Namespace, cfg=None) -> dict:
     if args.conv_impl is not None:
         cfg = cfg.with_(conv_impl=args.conv_impl)
     model = LM(cfg)
+    host_id, num_hosts = _data_coords(rules, rank, world)
     data = SyntheticLMData(cfg, args.global_batch, args.seq_len,
-                           host_id=rank, num_hosts=world, device=device)
+                           host_id=host_id, num_hosts=num_hosts,
+                           device=device)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(2, args.steps // 20))
     generator = torch.Generator(device=device)
     generator.manual_seed(0)
-    params = model.init(generator, device=device)
+    params = model.init(generator, device=device,
+                        mesh=None if rules is None else rules.mesh)
     opt_state = steps.init_opt_state(params, compressed=args.compress_grads)
+    shardings = None
+    if rules is not None and tensor.tp_size(rules.mesh) > 1:
+        sh = tensor.shardings(params, rules.mesh, cfg)
+        opt_sh = {"m": sh, "v": sh}
+        if args.compress_grads:
+            opt_sh["ef"] = sh
+        shardings = {"params": sh, "opt": opt_sh}
     if args.compress_grads:
         step_fn = steps.make_compressed_train_step(model, opt_cfg, rules)
     else:
@@ -131,7 +158,8 @@ def train(args: argparse.Namespace, cfg=None) -> dict:
     if mgr is not None and mgr.latest_step() is not None:
         start = mgr.latest_step()
         restored = mgr.restore(start, {"params": params, "opt": opt_state,
-                                       "data": data.state.to_dict()})
+                                       "data": data.state.to_dict()},
+                               shardings=shardings)
         params, opt_state = restored["params"], restored["opt"]
         data.state = DataState.from_dict(restored["data"])
         if rank == 0:
@@ -159,14 +187,18 @@ def train(args: argparse.Namespace, cfg=None) -> dict:
                       f"lr {float(metrics['lr']):.2e} "
                       f"gnorm {float(metrics['grad_norm']):.2f} "
                       f"{dt * 1e3:.0f}ms")
-            if mgr is not None and rank == 0 and \
-                    (step + 1) % args.ckpt_every == 0:
+            # with shardings every rank gathers; the manager's rank 0
+            # writes
+            saves = mgr is not None and (rank == 0 or shardings is not None)
+            if saves and (step + 1) % args.ckpt_every == 0:
                 mgr.save_async(step + 1, {"params": params, "opt": opt_state,
-                                          "data": data.state.to_dict()})
-        if mgr is not None and rank == 0:
+                                          "data": data.state.to_dict()},
+                               shardings=shardings)
+        if mgr is not None and (rank == 0 or shardings is not None):
             mgr.wait()
             mgr.save(args.steps, {"params": params, "opt": opt_state,
-                                  "data": data.state.to_dict()})
+                                  "data": data.state.to_dict()},
+                     shardings=shardings)
     n_steps = max(len(losses), 1)
     summary = {"rank": rank, "world": world,
                "backend": dist.get_backend() if dist.is_initialized()

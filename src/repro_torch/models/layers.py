@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.conv_api import conv2d
+from repro_torch.parallel import tensor
 from repro_torch.parallel.axes import constrain
 
 _NEG = -1e30
@@ -136,12 +137,18 @@ def plan_conv2d_layer(p: dict, x_shape: Tuple[int, ...], *, stride=1,
                        backend=backend or p["w"].device.type)
 
 
-def swiglu(x: torch.Tensor, p: dict) -> torch.Tensor:
+def swiglu(x: torch.Tensor, p: dict, tp=None, sp: bool = False
+           ) -> torch.Tensor:
+    """The SwiGLU MLP; under ``tp`` (a ``parallel.tensor.TP`` whose axis
+    splits the hidden width) column-parallel gate/up and a row-parallel
+    down, all-reduced, or with ``sp`` all-gathered in over the sequence
+    and reduce-scattered out."""
+    x = tensor.enter(x, tp, sp)
     g = linear(x, p["gate"])
     u = linear(x, p["up"])
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     h = constrain(h, "batch", "seq", "ffn")
-    return linear(h, p["down"])
+    return tensor.leave(linear(h, p["down"]), tp, sp)
 
 
 def init_swiglu(generator: torch.Generator, d: int, f: int, dtype,
@@ -383,15 +390,66 @@ def init_attention(generator: torch.Generator, cfg, dtype,
     return p
 
 
+def attention_local(p: dict, cfg, tp) -> dict:
+    """The attention weights this rank computes with under ``tp`` (from
+    ``parallel.tensor.attn_tp``; None: ``p`` itself): its q heads' and
+    out-projection's own slices, the kv heads its q heads read (its own
+    slice where kv heads split, else columns of the replicated leaves,
+    ``tensor.kv_slots``), the replicated biases' and qk-norms' parts
+    (``tensor.rep_part``).  The out-projection's bias is left out: it is
+    added once, after the reduction."""
+    if tp is None:
+        return p
+    hd = cfg.head_dim
+    out = dict(p, wo={"w": p["wo"]["w"]})
+    if "b" in p["wq"]:
+        out["wq"] = {"w": p["wq"]["w"], "b": tensor.rep_slice(p["wq"]["b"],
+                                                              tp)}
+    if tensor.kv_splits(cfg, tp.size):
+        for name in ("wk", "wv"):
+            if "b" in p[name]:
+                out[name] = {"w": p[name]["w"],
+                             "b": tensor.rep_slice(p[name]["b"], tp)}
+    else:
+        slots = tensor.kv_slots(cfg, tp.size, tp.rank)
+        if slots == list(range(slots[0], slots[0] + len(slots))):
+            def take(t):
+                return t.narrow(-1, slots[0] * hd, len(slots) * hd)
+        else:
+            cols = torch.tensor([s * hd + j for s in slots
+                                 for j in range(hd)],
+                                device=p["wk"]["w"].device)
+
+            def take(t):
+                return t.index_select(-1, cols)
+        for name in ("wk", "wv"):
+            out[name] = {k: take(tensor.rep_part(v, tp))
+                         for k, v in p[name].items()}
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            out[name] = tensor.rep_part(p[name], tp)
+    return out
+
+
+def _out_bias(y: torch.Tensor, p: dict, tp, sp: bool) -> torch.Tensor:
+    """The out-projection's bias, added once after the reduction (on the
+    rank's rows under SP, so its gradient is summed)."""
+    if tp is None or "b" not in p["wo"]:
+        return y
+    b = tensor.rep_part(p["wo"]["b"], tp) if sp else p["wo"]["b"]
+    return y + b.to(y.dtype)
+
+
 def attention_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                   use_rope: bool = True):
     """Project + (qk-norm) + RoPE.  x (B, S, D_model) -> q (B,S,H,Dh),
-    k/v (B,S,KV,Dh)."""
+    k/v (B,S,KV,Dh); the head counts are the weights' (a rank's under
+    tensor parallelism)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = linear(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = linear(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = linear(x, p["wq"]).reshape(b, s, -1, hd)
+    k = linear(x, p["wk"]).reshape(b, s, -1, hd)
+    v = linear(x, p["wv"]).reshape(b, s, -1, hd)
     q = constrain(q, "batch", "seq", "heads", None)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -405,8 +463,16 @@ def attention_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 
 def attention_block(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                     causal: bool = True, use_rope: bool = True,
-                    kv_override: Optional[Tuple] = None):
-    """Full attention (prefill path).  Returns (out, (k, v))."""
+                    kv_override: Optional[Tuple] = None, sp: bool = False):
+    """Full attention (prefill path).  Returns (out, (k, v)).  Under
+    tensor parallelism (heads that divide the "model" axis) the rank runs
+    its q heads and the kv heads they read, ``x`` copied in and the
+    out-projection all-reduced, or with ``sp`` reduce-scattered over the
+    sequence; k/v are the rank's."""
+    tp = tensor.attn_tp(cfg)
+    bias_p = p
+    p = attention_local(p, cfg, tp)
+    x = tensor.copy_to(x, tp)
     q, k, v = attention_qkv(p, cfg, x, positions, use_rope)
     if kv_override is not None:            # cross-attention
         k, v = kv_override
@@ -417,8 +483,8 @@ def attention_block(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         out = chunked_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
                                 kv_chunk=cfg.kv_chunk)
     b, s = x.shape[:2]
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return linear(out, p["wo"]), (k, v)
+    out = linear(out.reshape(b, s, -1), p["wo"])
+    return _out_bias(tensor.leave(out, tp, sp), bias_p, tp, sp), (k, v)
 
 
 def attention_decode(p: dict, cfg, x: torch.Tensor, cache: dict,
@@ -431,6 +497,9 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache: dict,
     holds the same buffers and ``len + 1``."""
     ln = cache["len"]
     pos = ln.reshape(1)                    # the position of the new token
+    tp = tensor.attn_tp(cfg)
+    bias_p = p
+    p = attention_local(p, cfg, tp)
     q, k, v = attention_qkv(p, cfg, x, pos, use_rope)
     idx = pos.to(torch.long)
     new = dict(cache, len=ln + 1)
@@ -438,15 +507,30 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache: dict,
         cache[name].index_copy_(1, idx, val)
     out = decode_attention(q, cache["k"], cache["v"], ln + 1,
                            k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
+    out = linear(out.reshape(x.shape[0], 1, -1), p["wo"])
+    return _out_bias(tensor.reduce_from(out, tp), bias_p, tp, False), new
+
+
+def cross_attention_decode(p: dict, cfg, x: torch.Tensor,
+                           ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """One query token (B, 1, D) against static cross k/v (B, T, KV, Dh)
+    (the rank's kv heads under tensor parallelism)."""
+    tp = tensor.attn_tp(cfg)
+    bias_p = p
+    p = attention_local(p, cfg, tp)
     b = x.shape[0]
-    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return linear(out, p["wo"]), new
+    q = linear(x, p["wq"]).reshape(b, 1, -1, cfg.head_dim)
+    out = decode_attention(q, ck, cv, ck.shape[1])
+    out = linear(out.reshape(b, 1, -1), p["wo"])
+    return _out_bias(tensor.reduce_from(out, tp), bias_p, tp, False)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype,
                   device="cuda") -> dict:
     """Zero k/v (B, max_len, KV, Dh) in ``dtype``, or int8 with bf16 scale
-    planes k_s/v_s (B, max_len, KV, 1) when ``cfg.kv_cache_int8``."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    planes k_s/v_s (B, max_len, KV, 1) when ``cfg.kv_cache_int8``; KV is
+    the rank's under tensor parallelism."""
+    shape = (batch, max_len, tensor.local_kv_heads(cfg, tensor.context()),
+             cfg.head_dim)
     return {**kv_planes(shape, dtype, cfg.kv_cache_int8, device),
             "len": torch.zeros((), dtype=torch.int32, device=device)}

@@ -6,7 +6,7 @@ All six families are ported, for serving (``models.serve``) and training
   vlm     llava: the dense backbone, with a ``vision_proj`` linear that
           maps vision tokens into the prompt's prefix;
   moe     the GQA transformer with a mixture-of-experts FFN
-          (``models.moe``, local dispatch on one device);
+          (``models.moe``: local dispatch, expert parallel under rules);
   hybrid  zamba2: Mamba2 layers and ONE shared attention+SwiGLU block
           applied after every ``attn_every`` layers (weight sharing);
   ssm     xLSTM: super-blocks of ``slstm_every - 1`` mLSTM blocks and one
@@ -29,13 +29,18 @@ stacked once.  ``cfg.remat`` wraps each block in
 the matmul outputs and recomputes the rest, the JAX package's
 ``checkpoint_dots``.  The audio family's encoder and decoder blocks are
 stacked (layers, ...).
+
+Under rules over a "model" axis (``parallel.tensor``) every family runs
+tensor parallel: ``LM.init(mesh=)`` gives each rank its slices, and the
+blocks read the axis from the installed rules (Megatron-style layers,
+``cfg.seq_parallel`` as Megatron-SP in the dense and moe blocks).
 """
 from __future__ import annotations
 
 import functools
 import itertools
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,11 +48,12 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attention_block,
+from repro_torch.models.layers import (attention_block, attention_local,
                                        init_attention, init_linear,
                                        init_normal, init_swiglu, linear,
                                        rms_norm, swiglu)
-from repro_torch.parallel.axes import constrain
+from repro_torch.parallel import tensor
+from repro_torch.parallel.axes import constrain, current_rules, use_rules
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -96,13 +102,17 @@ def tree_set(tree, idx: Tuple[int, ...], value) -> None:
         tree[idx].copy_(value)
 
 
-def stack_init(init_fn: Callable[[], Any], prefix: Tuple[int, ...]):
+def stack_init(init_fn: Callable[[], Any], prefix: Tuple[int, ...],
+               local: Optional[Callable] = None):
     """Stacked leaves of ``prod(prefix)`` layers, each drawn by ``init_fn``
     in index order and written into its slot, so at most one layer's
-    draws are alive beside the stack."""
+    draws are alive beside the stack; ``local`` (a rank's slicer of a
+    layer's tree) is applied to each layer first."""
     out = None
     for idx in itertools.product(*map(range, prefix)):
         layer = init_fn()
+        if local is not None:
+            layer = local(layer)
         if out is None:
             out = tree_map(lambda t: torch.empty(prefix + tuple(t.shape),
                                                  dtype=t.dtype,
@@ -126,36 +136,71 @@ def init_dense_block(generator: torch.Generator, cfg, dtype,
     }
 
 
+def _sp(cfg, x, ffn_tp):
+    """(tp, whether Megatron-SP runs) for a block over ``x`` whose FFN
+    runs over ``ffn_tp`` (None: whole on every rank, and then no SP)."""
+    tp = tensor.context()
+    return tp, ffn_tp is not None and tensor.sp_active(cfg, tp, x.shape[1])
+
+
 def dense_block(p, cfg, x, positions):
+    """Attention and the SwiGLU, each a residual.  Under tensor
+    parallelism each is column-parallel in and row-parallel out; with
+    ``cfg.seq_parallel`` (Megatron-SP) the attention's output is
+    reduce-scattered over the sequence, the residual and ``norm2`` run on
+    the rank's rows, the MLP's input is all-gathered and its output
+    reduce-scattered, and the block's output is all-gathered: the JAX
+    package's sequence-sharded ``seq_tp`` segment written out."""
+    mlp_tp = tensor.if_divides(tensor.context(), cfg.d_ff)
+    tp, sp = _sp(cfg, x, mlp_tp)
     a, kv = attention_block(p["attn"], cfg,
-                            rms_norm(x, p["norm1"], cfg.norm_eps), positions)
+                            rms_norm(x, p["norm1"], cfg.norm_eps), positions,
+                            sp=sp)
+    if sp:
+        x = tensor.shard_seq(x, tp) + a
+        f = swiglu(rms_norm(x, tensor.rep_part(p["norm2"], tp),
+                            cfg.norm_eps), p["mlp"], mlp_tp, sp=True)
+        return tensor.gather_rep(x + f, tp), kv
     seg = "seq_tp" if cfg.seq_parallel else "seq"
     x = constrain(x + a, "batch", seg, "embed")
-    f = swiglu(rms_norm(x, p["norm2"], cfg.norm_eps), p["mlp"])
+    f = swiglu(rms_norm(x, p["norm2"], cfg.norm_eps), p["mlp"], mlp_tp)
     return constrain(x + f, "batch", "seq", "embed"), kv
 
 
 def init_moe_block(generator: torch.Generator, cfg, dtype, device="cuda",
-                   prefix: Tuple[int, ...] = ()) -> dict:
+                   prefix: Tuple[int, ...] = (), tp=(1, 0)) -> dict:
     """A moe block's tree, every leaf stacked over ``prefix`` (the layers):
     the attention of each layer drawn and written into its slot, the expert
     weights drawn in chunks (``models.moe.init_moe``), so no layer's f32
-    draws sit beside the whole stack."""
+    draws sit beside the whole stack.  ``tp`` (axis size, rank): the
+    rank's slices, as ``LM.init`` with a mesh."""
+    n, rank = tp
     ones = torch.ones(prefix + (cfg.d_model,), dtype=dtype, device=device)
+    cut = None if n == 1 else (lambda tree: tensor.shard_params(
+        tree, n, cfg, rank, ("blocks", "attn")))
     return {
         "norm1": ones,
         "attn": stack_init(lambda: init_attention(generator, cfg, dtype,
-                                                  device=device), prefix),
+                                                  device=device), prefix,
+                           cut),
         "norm2": ones.clone(),
         "moe": moe.init_moe(generator, cfg, dtype, device=device,
-                            prefix=prefix),
+                            prefix=prefix, tp=tp),
     }
 
 
 def moe_block(p, cfg, x, positions):
-    """-> (x, (k, v), aux)."""
+    """-> (x, (k, v), aux); Megatron-SP as :func:`dense_block`, the MoE
+    FFN then on the rank's rows (where it runs expert-parallel)."""
+    tp, sp = _sp(cfg, x, moe.ep_context(cfg))
     a, kv = attention_block(p["attn"], cfg,
-                            rms_norm(x, p["norm1"], cfg.norm_eps), positions)
+                            rms_norm(x, p["norm1"], cfg.norm_eps), positions,
+                            sp=sp)
+    if sp:
+        x = tensor.shard_seq(x, tp) + a
+        f, aux = moe.moe_ffn(p["moe"], cfg, rms_norm(
+            x, tensor.rep_part(p["norm2"], tp), cfg.norm_eps), sp=True)
+        return tensor.gather_rep(x + f, tp), kv, aux
     seg = "seq_tp" if cfg.seq_parallel else "seq"
     x = constrain(x + a, "batch", seg, "embed")
     f, aux = moe.moe_ffn(p["moe"], cfg, rms_norm(x, p["norm2"], cfg.norm_eps))
@@ -183,7 +228,15 @@ def _maybe_remat(fn: Callable, cfg) -> Callable:
         # without autograd (serving) there is nothing to recompute
         if not torch.is_grad_enabled():
             return fn(*args)
-        return torch_checkpoint.checkpoint(fn, *args, **kw)
+        # the recompute runs in the backward, on the autograd engine's
+        # device thread on CUDA, which does not see this thread's rules:
+        # it runs under the rules of the forward
+        rules = current_rules()
+
+        def under_rules(*a):
+            with use_rules(rules):
+                return fn(*a)
+        return torch_checkpoint.checkpoint(under_rules, *args, **kw)
     return remat
 
 
@@ -195,13 +248,22 @@ def init_gelu_mlp(generator: torch.Generator, d: int, f: int, dtype,
                                 device=device)}
 
 
-def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+def gelu_mlp(x: torch.Tensor, p: dict, tp=None) -> torch.Tensor:
     """up -> GELU in f32 (the tanh form, ``jax.nn.gelu``'s default) ->
-    cast -> down."""
-    h = F.gelu(linear(x, p["up"]).to(torch.float32),
+    cast -> down.  Under ``tp`` (an axis that splits the hidden width)
+    up is column-parallel (the rank's part of its replicated bias) and
+    down row-parallel, all-reduced, then its bias added once."""
+    if tp is None:
+        up, down = p["up"], p["down"]
+    else:
+        up = {"w": p["up"]["w"], "b": tensor.rep_slice(p["up"]["b"], tp)}
+        down = {"w": p["down"]["w"]}
+    x = tensor.copy_to(x, tp)
+    h = F.gelu(linear(x, up).to(torch.float32),
                approximate="tanh").to(x.dtype)
     h = constrain(h, "batch", "seq", "ffn")
-    return linear(h, p["down"])
+    y = tensor.reduce_from(linear(h, down), tp)
+    return y if tp is None else y + p["down"]["b"].to(y.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -214,39 +276,59 @@ class LM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
 
-    def init(self, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+    def init(self, generator: torch.Generator, device="cuda",
+             mesh=None) -> Dict[str, Any]:
         """Parameters drawn from ``generator`` on its device, layer by
-        layer, then moved to ``device``."""
+        layer, then moved to ``device``.  With ``mesh`` (a DeviceMesh with a
+        "model" axis) each rank keeps its slice of every leaf
+        (``parallel.tensor.local_placement``) as each layer is drawn, from
+        the same stream as one rank draws, so no rank holds the whole
+        tree: the rank's leaves equal ``tensor.shard_params`` of the
+        one-rank init."""
         cfg = self.cfg
         dt = torch_dtype(cfg)
+        n = 1 if mesh is None else tensor.tp_size(mesh)
+        rank = 0 if mesh is None else tensor.model_rank(mesh)
+
+        def local(*path):
+            def cut(tree):
+                return tensor.shard_params(tree, n, cfg, rank, path)
+            return cut if n > 1 else None
+
+        def whole(tree, *path):
+            cut = local(*path)
+            return tree if cut is None else cut(tree)
+
         params: Dict[str, Any] = {
-            "emb": init_normal(generator, (cfg.vocab, cfg.d_model), 0.02, dt,
-                               device),
+            "emb": whole(init_normal(generator, (cfg.vocab, cfg.d_model),
+                                     0.02, dt, device), "emb"),
             "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = init_linear(generator, cfg.d_model, cfg.vocab,
-                                            dt, device=device)
+            params["lm_head"] = whole(init_linear(
+                generator, cfg.d_model, cfg.vocab, dt, device=device),
+                "lm_head")
         if cfg.family in ("dense", "vlm"):
             params["blocks"] = stack_init(
                 lambda: init_dense_block(generator, cfg, dt, device=device),
-                (cfg.n_layers,))
+                (cfg.n_layers,), local("blocks"))
             if cfg.family == "vlm":
-                params["vision_proj"] = init_linear(generator, cfg.d_model,
-                                                    cfg.d_model, dt,
-                                                    device=device)
+                params["vision_proj"] = whole(init_linear(
+                    generator, cfg.d_model, cfg.d_model, dt, device=device),
+                    "vision_proj")
             return params
         if cfg.family == "moe":
             params["blocks"] = init_moe_block(generator, cfg, dt, device,
-                                              prefix=(cfg.n_layers,))
+                                              prefix=(cfg.n_layers,),
+                                              tp=(n, rank))
             return params
         if cfg.family == "audio":
             params["enc_blocks"] = stack_init(
                 lambda: self._init_enc_block(generator, dt, device),
-                (cfg.encoder_layers,))
+                (cfg.encoder_layers,), local("enc_blocks"))
             params["dec_blocks"] = stack_init(
                 lambda: self._init_dec_block(generator, dt, device),
-                (cfg.n_layers,))
+                (cfg.n_layers,), local("dec_blocks"))
             params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dt,
                                             device=device)
             return params
@@ -254,20 +336,23 @@ class LM:
             n_super, k_m = cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
             params["mlstm"] = stack_init(
                 lambda: xlstm.init_mlstm(generator, cfg, dt, device=device),
-                (n_super, k_m))
+                (n_super, k_m), local("mlstm"))
             params["slstm"] = stack_init(
                 lambda: xlstm.init_slstm(generator, cfg, dt, device=device),
-                (n_super,))
+                (n_super,), local("slstm"))
             return params
         n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
 
         def layer():
             return mamba2.init_mamba(generator, cfg, dt, device=device)
 
-        params["mamba"] = stack_init(layer, (n_super, cfg.attn_every))
+        params["mamba"] = stack_init(layer, (n_super, cfg.attn_every),
+                                     local("mamba"))
         if tail:
-            params["mamba_tail"] = stack_init(layer, (tail,))
-        params["shared"] = init_dense_block(generator, cfg, dt, device=device)
+            params["mamba_tail"] = stack_init(layer, (tail,),
+                                              local("mamba_tail"))
+        params["shared"] = whole(init_dense_block(generator, cfg, dt,
+                                                  device=device), "shared")
         params["mamba_norms"] = torch.ones((cfg.n_layers, cfg.d_model),
                                            dtype=dt, device=device)
         return params
@@ -290,8 +375,23 @@ class LM:
                 "mlp": init_gelu_mlp(generator, cfg.d_model, cfg.d_ff, dt,
                                      device=device)}
 
+    def vocab_tp(self):
+        """The tensor-parallel axis where it splits the vocabulary (the
+        embedding's rows and the head's columns), else None."""
+        return tensor.if_divides(tensor.context(), self.cfg.vocab)
+
     def embed(self, params, tokens):
-        return constrain(params["emb"][tokens], "batch", "seq", "embed")
+        """The lookup, over the vocab shards under tensor parallelism."""
+        return constrain(tensor.embed(params["emb"], tokens, self.vocab_tp()),
+                         "batch", "seq", "embed")
+
+    def vision_tokens(self, params, vision):
+        """``vision`` (B, P, d) through ``vision_proj``: column-parallel and
+        all-gathered over the model axis where it splits."""
+        tp = tensor.if_divides(tensor.context(), self.cfg.d_model)
+        dt = torch_dtype(self.cfg)
+        vis = linear(tensor.copy_to(vision.to(dt), tp), params["vision_proj"])
+        return vis if tp is None else tensor.gather_rep(vis, tp, dim=-1)
 
     def head_weights(self, params):
         if self.cfg.tie_embeddings:
@@ -310,8 +410,8 @@ class LM:
             return self._forward_audio(params, batch)
         h = self.embed(params, batch["tokens"])
         if fam == "vlm":
-            vis = linear(batch["vision"].to(h.dtype), params["vision_proj"])
-            h = torch.cat([vis, h], dim=1)
+            h = torch.cat([self.vision_tokens(params, batch["vision"]), h],
+                          dim=1)
         positions = torch.arange(h.shape[1], device=h.device)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if fam in ("dense", "vlm"):
@@ -405,7 +505,7 @@ class LM:
                                    positions, causal=False)
             x = x + a
             return x + gelu_mlp(rms_norm(x, p["norm2"], cfg.norm_eps),
-                                p["mlp"])
+                                p["mlp"], self._mlp_tp())
         body = _maybe_remat(enc_body, cfg)
         for p in layer_trees(params["enc_blocks"], (cfg.encoder_layers,)):
             h = body(p, h)
@@ -427,14 +527,21 @@ class LM:
             kv_override=cross_kv if cross_kv is not None
             else self._cross_kv(p, enc))
         x = x + xa
-        x = x + gelu_mlp(rms_norm(x, p["norm2"], cfg.norm_eps), p["mlp"])
+        x = x + gelu_mlp(rms_norm(x, p["norm2"], cfg.norm_eps), p["mlp"],
+                         self._mlp_tp())
         return x, kv
 
+    def _mlp_tp(self):
+        return tensor.if_divides(tensor.context(), self.cfg.d_ff)
+
     def _cross_kv(self, p, enc):
+        """The cross-attention k/v of ``enc`` (the rank's kv heads under
+        tensor parallelism)."""
         cfg = self.cfg
+        tp = tensor.attn_tp(cfg)
+        lp = attention_local(p["xattn"], cfg, tp)
+        enc = tensor.copy_to(enc, tp)
         b, t, _ = enc.shape
-        k = linear(enc, p["xattn"]["wk"]).reshape(b, t, cfg.n_kv_heads,
-                                                  cfg.head_dim)
-        v = linear(enc, p["xattn"]["wv"]).reshape(b, t, cfg.n_kv_heads,
-                                                  cfg.head_dim)
+        k = linear(enc, lp["wk"]).reshape(b, t, -1, cfg.head_dim)
+        v = linear(enc, lp["wv"]).reshape(b, t, -1, cfg.head_dim)
         return k, v

@@ -20,8 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.mec import mec_conv1d_depthwise
 from repro_torch.kernels.ops import mec_conv1d_cuda
-from repro_torch.models.layers import (init_linear, init_normal, linear,
-                                       rms_norm)
+from repro_torch.models.layers import init_linear, init_normal, linear
+from repro_torch.parallel import tensor
 from repro_torch.parallel.axes import constrain
 
 _F32 = torch.float32
@@ -35,10 +35,33 @@ def conv1d(cfg, x, w):
     return mec_conv1d_depthwise(x, w)
 
 
-def _dims(cfg):
-    d_in = cfg.ssm_expand * cfg.d_model
-    n_heads = d_in // cfg.ssm_head_dim
-    return d_in, n_heads, cfg.ssm_head_dim, cfg.ssm_state
+def _tp(cfg):
+    """The tensor-parallel axis where it splits the block's heads."""
+    return tensor.if_divides(tensor.context(), tensor.mamba_heads(cfg))
+
+
+def _dims(cfg, tp=None):
+    """(d_in, heads, head dim, state) of the block, or of the rank's part
+    of it under ``tp``: its heads and their channels (B and C, one group,
+    are whole on every rank)."""
+    n = 1 if tp is None else tp.size
+    d_in = cfg.ssm_expand * cfg.d_model // n
+    return d_in, d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def _local(p: dict, cfg, tp):
+    """The weights the rank computes with: ``in_proj`` and ``conv_w`` with
+    the gradients of their replicated B and C columns summed over the
+    axis, the per-head vectors' rank's chunks."""
+    if tp is None:
+        return (p["in_proj"]["w"], p["conv_w"], p["a_log"], p["d_skip"],
+                p["dt_bias"])
+    d_in, _, _, n = _dims(cfg, tp)
+    return (tensor.rep_part(p["in_proj"]["w"], tp, -1,
+                            [(2 * d_in, 2 * d_in + 2 * n)]),
+            tensor.rep_part(p["conv_w"], tp, -1, [(d_in, d_in + 2 * n)]),
+            tensor.rep_slice(p["a_log"], tp), tensor.rep_slice(p["d_skip"], tp),
+            tensor.rep_slice(p["dt_bias"], tp))
 
 
 def init_mamba(generator: torch.Generator, cfg, dtype, device="cuda") -> dict:
@@ -60,8 +83,8 @@ def init_mamba(generator: torch.Generator, cfg, dtype, device="cuda") -> dict:
     }
 
 
-def _split_proj(zxbcdt, cfg):
-    d_in, _, _, n = _dims(cfg)
+def _split_proj(zxbcdt, cfg, tp=None):
+    d_in, _, _, n = _dims(cfg, tp)
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in:2 * d_in + 2 * n]
     dt = zxbcdt[..., 2 * d_in + 2 * n:]
@@ -116,29 +139,37 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int = 128):
 
 
 def mamba_core(p: dict, cfg, x: torch.Tensor, chunk: int = 128):
-    """Full-sequence Mamba2 block. x (B, S, d) -> (out (B,S,d), cache)."""
-    d_in, h, p_dim, n = _dims(cfg)
-    zxbcdt = linear(x, p["in_proj"])
-    z, xbc_raw, dt = _split_proj(zxbcdt, cfg)
+    """Full-sequence Mamba2 block. x (B, S, d) -> (out (B,S,d), cache).
+    Under tensor parallelism (heads that divide the "model" axis) the rank
+    runs its heads: ``in_proj`` column-parallel per segment (its z, x and
+    dt, the whole B and C), the conv (K5 with ``conv_impl="fused"``) on
+    its x channels and B and C, the gated norm's mean square all-reduced,
+    ``out_proj`` row-parallel; the cache holds the rank's channels."""
+    tp = _tp(cfg)
+    d_in, h, p_dim, n = _dims(cfg, tp)
+    w_in, conv_w, a_log, d_skip, dt_bias = _local(p, cfg, tp)
+    zxbcdt = linear(tensor.copy_to(x, tp), {"w": w_in})
+    z, xbc_raw, dt = _split_proj(zxbcdt, cfg, tp)
     xbc_raw = constrain(xbc_raw, "batch", "seq", "conv_ch")
     # xbc_raw is a column slice of zxbcdt: K5 reads it through its strides
-    xbc = conv1d(cfg, xbc_raw, p["conv_w"].to(xbc_raw.dtype))
+    xbc = conv1d(cfg, xbc_raw, conv_w.to(xbc_raw.dtype))
     xbc = F.silu(xbc.to(_F32)).to(x.dtype)
     xs = xbc[..., :d_in].reshape(*x.shape[:2], h, p_dim)
     b_mat = xbc[..., d_in:d_in + n]
     c_mat = xbc[..., d_in + n:]
-    dt = F.softplus(dt.to(_F32) + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
+    dt = F.softplus(dt.to(_F32) + dt_bias)
+    a = -torch.exp(a_log)
     y, state = ssd_chunked(xs.to(_F32), dt, a, b_mat.to(_F32),
                            c_mat.to(_F32), chunk=chunk)
-    y = y + xs.to(_F32) * p["d_skip"][None, None, :, None]
+    y = y + xs.to(_F32) * d_skip[None, None, :, None]
     y = y.reshape(*x.shape[:2], d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z.to(_F32)).to(x.dtype), p["norm"], cfg.norm_eps)
+    y = tensor.rms_norm(y * F.silu(z.to(_F32)).to(x.dtype), p["norm"],
+                        cfg.norm_eps, tp)
     # a copy, so the cache does not hold zxbcdt alive
     cache = {"state": state,
              "conv": xbc_raw[:, x.shape[1] - (cfg.conv_width - 1):, :].clone(
                  memory_format=torch.contiguous_format)}
-    return linear(y, p["out_proj"]), cache
+    return tensor.reduce_from(linear(y, p["out_proj"]), tp), cache
 
 
 def mamba_forward(p: dict, cfg, x: torch.Tensor,
@@ -147,7 +178,9 @@ def mamba_forward(p: dict, cfg, x: torch.Tensor,
 
 
 def init_mamba_cache(cfg, batch: int, dtype, device="cuda") -> dict:
-    d_in, h, p_dim, n = _dims(cfg)
+    """Zero state and conv history (the rank's heads and channels under
+    tensor parallelism)."""
+    d_in, h, p_dim, n = _dims(cfg, _tp(cfg))
     conv_ch = d_in + 2 * n
     return {
         "state": torch.zeros((batch, h, p_dim, n), dtype=_F32, device=device),
@@ -160,26 +193,28 @@ def mamba_decode(p: dict, cfg, x: torch.Tensor, cache: dict
                  ) -> Tuple[torch.Tensor, dict]:
     """One-token recurrent step. x (B, 1, d).  Returns new cache tensors;
     the given cache is not written."""
-    d_in, h, p_dim, n = _dims(cfg)
-    zxbcdt = linear(x, p["in_proj"])
-    z, xbc, dt = _split_proj(zxbcdt[:, 0], cfg)
+    tp = _tp(cfg)
+    d_in, h, p_dim, n = _dims(cfg, tp)
+    w_in, conv_w, a_log, d_skip, dt_bias = _local(p, cfg, tp)
+    zxbcdt = linear(x, {"w": w_in})
+    z, xbc, dt = _split_proj(zxbcdt[:, 0], cfg, tp)
     # depthwise conv over (k_w-1 history, current)
     hist = torch.cat([cache["conv"], xbc[:, None, :].to(cache["conv"].dtype)],
                      dim=1)
-    conv_out = torch.einsum("bkc,kc->bc", hist.to(_F32), p["conv_w"].to(_F32))
+    conv_out = torch.einsum("bkc,kc->bc", hist.to(_F32), conv_w.to(_F32))
     xbc_c = F.silu(conv_out)
     xs = xbc_c[..., :d_in].reshape(-1, h, p_dim)
     b_vec = xbc_c[..., d_in:d_in + n]
     c_vec = xbc_c[..., d_in + n:]
-    dt = F.softplus(dt.to(_F32) + p["dt_bias"])                  # (B, H)
-    a = -torch.exp(p["a_log"])
+    dt = F.softplus(dt.to(_F32) + dt_bias)                       # (B, H)
+    a = -torch.exp(a_log)
     da = torch.exp(dt * a[None, :])                              # (B, H)
     state = (cache["state"] * da[..., None, None]
              + torch.einsum("bh,bhp,bn->bhpn", dt, xs, b_vec))
     y = torch.einsum("bhpn,bn->bhp", state, c_vec)
-    y = y + xs * p["d_skip"][None, :, None]
+    y = y + xs * d_skip[None, :, None]
     y = y.reshape(-1, 1, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z.to(_F32)).to(x.dtype)[:, None, :], p["norm"],
-                 cfg.norm_eps)
+    y = tensor.rms_norm(y * F.silu(z.to(_F32)).to(x.dtype)[:, None, :],
+                        p["norm"], cfg.norm_eps, tp)
     new_cache = {"state": state, "conv": hist[:, 1:, :]}
-    return linear(y, p["out_proj"]), new_cache
+    return tensor.reduce_from(linear(y, p["out_proj"]), tp), new_cache

@@ -36,11 +36,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import mamba2, moe, xlstm
-from repro_torch.models.layers import (attention_decode, decode_attention,
-                                       kv_planes, linear, rms_norm, swiglu)
+from repro_torch.models.layers import (attention_decode,
+                                       cross_attention_decode, kv_planes,
+                                       rms_norm, swiglu)
 from repro_torch.models.lm import (LM, dense_block, gelu_mlp, moe_block,
                                    torch_dtype, tree_at, tree_map, tree_set)
+from repro_torch.parallel import tensor
 from repro_torch.parallel.axes import constrain
+
+
+def _kv_heads(cfg) -> int:
+    """The kv heads of a cache (the rank's under tensor parallelism)."""
+    return tensor.local_kv_heads(cfg, tensor.context())
+
+
+def _mlp_tp(cfg):
+    return tensor.if_divides(tensor.context(), cfg.d_ff)
 
 
 def _kv_into(max_len: int, k: torch.Tensor, v: torch.Tensor):
@@ -56,7 +67,9 @@ def _kv_into(max_len: int, k: torch.Tensor, v: torch.Tensor):
 
 
 def _logits_last(model: LM, params, h):
-    """Last-position logits (B, V), in f32."""
+    """Last-position logits (B, V), in f32: the rank's vocab shard (B,
+    V / tp) where tensor parallelism splits the vocabulary
+    (``tensor.gather_vocab`` / ``tensor.argmax_vocab`` read them)."""
     w = model.head_weights(params)
     return torch.matmul(h[:, -1, :].to(torch.float32), w.to(torch.float32))
 
@@ -99,11 +112,11 @@ def _attn_families_prefill(model: LM, params, batch, max_len: int):
     cfg = model.cfg
     h = model.embed(params, batch["tokens"])
     if cfg.family == "vlm":
-        vis = linear(batch["vision"].to(h.dtype), params["vision_proj"])
-        h = torch.cat([vis, h], dim=1)
+        h = torch.cat([model.vision_tokens(params, batch["vision"]), h],
+                      dim=1)
     b, s = h.shape[:2]
     positions = torch.arange(s, device=h.device)
-    shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, b, max_len, _kv_heads(cfg), cfg.head_dim)
     kc = torch.zeros(shape, dtype=h.dtype, device=h.device)
     vc = torch.zeros(shape, dtype=h.dtype, device=h.device)
     block = moe_block if cfg.family == "moe" else dense_block
@@ -133,7 +146,7 @@ def _attn_families_decode(model: LM, params, cache, tokens):
         if cfg.family == "moe":
             h = h + moe.moe_ffn(p["moe"], cfg, xn2)[0]
         else:
-            h = h + swiglu(xn2, p["mlp"])
+            h = h + swiglu(xn2, p["mlp"], _mlp_tp(cfg))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits_one(model, params, h), dict(cache, len=ln + 1)
 
@@ -174,7 +187,7 @@ def _hybrid_prefill(model: LM, params, batch, max_len: int):
             h = mamba_step(h, tree_at(params["mamba_tail"], (j,)),
                            tail_norms[j], tail_cache, (j,))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    kv_shape = (0, b, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kv_shape = (0, b, max_len, _kv_heads(cfg), cfg.head_dim)
     empty = torch.zeros(kv_shape, dtype=h.dtype, device=h.device)
     cache = {"mamba": mcaches,
              "attn_k": torch.stack(kcs) if kcs else empty,
@@ -209,7 +222,7 @@ def _hybrid_decode(model: LM, params, cache, tokens):
                                  "v": cache["attn_v"][i], "len": ln})
         h = h + a
         h = h + swiglu(rms_norm(h, shared["norm2"], cfg.norm_eps),
-                       shared["mlp"])
+                       shared["mlp"], _mlp_tp(cfg))
     if tail:
         tail_norms = params["mamba_norms"][n_super * cfg.attn_every:]
         for j in range(tail):
@@ -294,7 +307,6 @@ def _audio_decode(model: LM, params, cache, tokens):
     cfg = model.cfg
     h = model.embed(params, tokens)
     ln = cache["len"]
-    b = h.shape[0]
     for i in range(cfg.n_layers):
         p = tree_at(params["dec_blocks"], (i,))
         xn = rms_norm(h, p["norm1"], cfg.norm_eps)
@@ -304,14 +316,11 @@ def _audio_decode(model: LM, params, cache, tokens):
         h = h + a
         # cross-attention against the static encoder cache
         xn = rms_norm(h, p["norm_x"], cfg.norm_eps)
-        q = linear(xn, p["xattn"]["wq"]).reshape(b, 1, cfg.n_heads,
-                                                 cfg.head_dim)
-        ck, cv = cache["cross_k"][i], cache["cross_v"][i]
-        xa = decode_attention(q, ck, cv, ck.shape[1])
-        xa = linear(xa.reshape(b, 1, cfg.n_heads * cfg.head_dim),
-                    p["xattn"]["wo"])
-        h = h + xa
-        h = h + gelu_mlp(rms_norm(h, p["norm2"], cfg.norm_eps), p["mlp"])
+        h = h + cross_attention_decode(p["xattn"], cfg, xn,
+                                       cache["cross_k"][i],
+                                       cache["cross_v"][i])
+        h = h + gelu_mlp(rms_norm(h, p["norm2"], cfg.norm_eps), p["mlp"],
+                         _mlp_tp(cfg))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits_one(model, params, h), dict(cache, len=ln + 1)
 
@@ -329,7 +338,10 @@ _DECODE = {"dense": _attn_families_decode, "vlm": _attn_families_decode,
 
 
 def prefill(model: LM, params, batch, max_len: int):
-    """-> (last-token logits (B, V) f32, cache)."""
+    """-> (last-token logits (B, V) f32, cache).  Under rules over a
+    "model" axis (tensor parallelism) ``params`` are the rank's slices,
+    the cache holds the rank's kv heads and channels, and the logits are
+    the rank's vocab shard where the vocabulary splits."""
     return _PREFILL[model.cfg.family](model, params, batch, max_len)
 
 
@@ -348,7 +360,7 @@ def init_decode_cache(model: LM, batch: int, max_len: int, device="cuda"):
         return torch.zeros(shape, dtype=dt, device=device)
 
     length = torch.tensor(max_len - 1, dtype=torch.int32, device=device)
-    hd, kv = cfg.head_dim, cfg.n_kv_heads
+    hd, kv = cfg.head_dim, _kv_heads(cfg)
     if cfg.family in ("dense", "vlm", "moe"):
         return {**kv_planes((cfg.n_layers, batch, max_len, kv, hd), dt,
                             cfg.kv_cache_int8, device), "len": length}

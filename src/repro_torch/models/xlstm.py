@@ -27,19 +27,32 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (init_linear, init_normal, linear,
-                                       rms_norm)
+from repro_torch.models.layers import init_linear, init_normal, linear
 from repro_torch.models.mamba2 import conv1d
+from repro_torch.parallel import tensor
 
 _F32 = torch.float32
 _NEG = -1e30
 
 
-def _dims(cfg):
+def _tp(cfg):
+    """The tensor-parallel axis where it splits the blocks' heads."""
+    return tensor.if_divides(tensor.context(), cfg.n_heads)
+
+
+def _dims(cfg, tp=None):
+    """(d_in, heads, head dim), or the rank's channels and heads under
+    ``tp``."""
+    n = 1 if tp is None else tp.size
     d_in = 2 * cfg.d_model
     h = cfg.n_heads
-    p = d_in // h
-    return d_in, h, p
+    return d_in // n, h // n, d_in // h
+
+
+def _gather(t: torch.Tensor, tp) -> torch.Tensor:
+    """The ranks' channels of ``t`` (..., C_loc) all-gathered, the input of
+    a projection by heads (its cotangent reduce-scattered back)."""
+    return t if tp is None else tensor.gather_seq(t, tp, dim=t.dim() - 1)
 
 
 def _history(x_in: torch.Tensor, k_w: int) -> torch.Tensor:
@@ -82,9 +95,21 @@ def init_mlstm(generator: torch.Generator, cfg, dtype, device="cuda") -> dict:
     }
 
 
-def _mlstm_gates(p, xc, cfg):
-    _, h, _ = _dims(cfg)
-    g = linear(xc, p["wif"]).to(_F32)                 # (B, S, 2H)
+def _wif(p, cfg, tp) -> dict:
+    """``wif`` (replicated): the rank's heads' columns of its i and f
+    halves."""
+    if tp is None:
+        return p["wif"]
+    h, hl = cfg.n_heads, cfg.n_heads // tp.size
+    lo = tp.rank * hl
+    return {k: torch.cat([tensor.rep_part(v, tp).narrow(-1, lo, hl),
+                          tensor.rep_part(v, tp).narrow(-1, h + lo, hl)], -1)
+            for k, v in p["wif"].items()}
+
+
+def _mlstm_gates(p, xc, cfg, tp=None):
+    _, h, _ = _dims(cfg, tp)
+    g = linear(xc, _wif(p, cfg, tp)).to(_F32)         # (B, S, 2H)
     log_i = g[..., :h]
     log_f = F.logsigmoid(g[..., h:] + 3.0)            # bias toward remember
     return log_i, log_f
@@ -128,35 +153,41 @@ def mlstm_parallel(q, k, v, log_i, log_f, q_chunk: int = 256):
     return torch.cat(outs, dim=1)[:, :s]
 
 
-def _mlstm_inputs(p, cfg, x):
+def _mlstm_inputs(p, cfg, x, tp=None):
     """The block's projections: x_in (a strided view of ``up``), z, and the
-    conv's q, k, v and gates."""
-    d_in, h, pd = _dims(cfg)
+    conv's q, k, v and gates.  Under ``tp`` the rank's x_in and z channels
+    (``up`` per segment), the conv (K5 with ``conv_impl="fused"``) on its
+    x_in channels, the conv output and x_in all-gathered before the
+    projections by heads, and its heads' q, k, v and gates."""
+    d_in, h, pd = _dims(cfg, tp)
     b, s, _ = x.shape
-    up = linear(x, p["up"])
+    up = linear(tensor.copy_to(x, tp), p["up"])
     x_in, z = up[..., :d_in], up[..., d_in:]
     # x_in's time stride is 2 d_in: K5 reads it through its strides
     xc = conv1d(cfg, x_in, p["conv_w"].to(x_in.dtype))
-    xc = F.silu(xc.to(_F32)).to(x.dtype)
+    xc = _gather(F.silu(xc.to(_F32)).to(x.dtype), tp)
     q = linear(xc, p["wq"]).reshape(b, s, h, pd)
     k = linear(xc, p["wk"]).reshape(b, s, h, pd)
-    v = linear(x_in, p["wv"]).reshape(b, s, h, pd)
-    log_i, log_f = _mlstm_gates(p, xc, cfg)
+    v = linear(_gather(x_in, tp), p["wv"]).reshape(b, s, h, pd)
+    log_i, log_f = _mlstm_gates(p, xc, cfg, tp)
     return x_in, z, q, k, v, log_i, log_f
 
 
-def _mlstm_out(p, cfg, out, z, x):
+def _mlstm_out(p, cfg, out, z, x, tp=None):
+    """The norm (over all channels: the rank's mean square all-reduced),
+    the z gate and the row-parallel ``down``."""
     b, s = x.shape[:2]
     out = out.reshape(b, s, -1).to(x.dtype)
-    out = rms_norm(out, p["norm"], cfg.norm_eps)
+    out = tensor.rms_norm(out, p["norm"], cfg.norm_eps, tp)
     out = out * F.silu(z.to(_F32)).to(x.dtype)
-    return linear(out, p["down"])
+    return tensor.reduce_from(linear(out, p["down"]), tp)
 
 
 def mlstm_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    _, z, q, k, v, log_i, log_f = _mlstm_inputs(p, cfg, x)
+    tp = _tp(cfg)
+    _, z, q, k, v, log_i, log_f = _mlstm_inputs(p, cfg, x, tp)
     out = mlstm_parallel(q, k, v, log_i, log_f, q_chunk=cfg.q_chunk)
-    return _mlstm_out(p, cfg, out, z, x)
+    return _mlstm_out(p, cfg, out, z, x, tp)
 
 
 def mlstm_prefill(p: dict, cfg, x: torch.Tensor):
@@ -166,8 +197,9 @@ def mlstm_prefill(p: dict, cfg, x: torch.Tensor):
       m = max(F_S, max_j (F_S - F_j + I_j))
       C = sum_j exp(F_S - F_j + I_j - m) k_j v_j^T,   n likewise.
     """
+    tp = _tp(cfg)
     _, _, pd = _dims(cfg)
-    x_in, z, q, k, v, log_i, log_f = _mlstm_inputs(p, cfg, x)
+    x_in, z, q, k, v, log_i, log_f = _mlstm_inputs(p, cfg, x, tp)
     out = mlstm_parallel(q, k, v, log_i, log_f, q_chunk=cfg.q_chunk)
     f_cum = torch.cumsum(log_f, dim=1)                      # (B, S, H)
     f_s = f_cum[:, -1, :]                                   # (B, H)
@@ -179,11 +211,13 @@ def mlstm_prefill(p: dict, cfg, x: torch.Tensor):
              "n": torch.einsum("bsh,bshp->bhp", w, kf),
              "m": m,
              "conv": _history(x_in, cfg.conv_width)}
-    return _mlstm_out(p, cfg, out, z, x), cache
+    return _mlstm_out(p, cfg, out, z, x, tp), cache
 
 
 def init_mlstm_cache(cfg, batch: int, device="cuda") -> dict:
-    d_in, h, pd = _dims(cfg)
+    """Zero mLSTM state (the rank's heads and channels under tensor
+    parallelism)."""
+    d_in, h, pd = _dims(cfg, _tp(cfg))
     kw = {"dtype": _F32, "device": device}
     return {
         "c": torch.zeros((batch, h, pd, pd), **kw),         # matrix memory
@@ -197,16 +231,17 @@ def mlstm_decode(p: dict, cfg, x: torch.Tensor, cache: dict
                  ) -> Tuple[torch.Tensor, dict]:
     """One-token step. x (B, 1, d).  Writes the new c, n, m and conv
     history into ``cache``'s buffers and returns (out (B, 1, d), cache)."""
-    d_in, h, pd = _dims(cfg)
+    tp = _tp(cfg)
+    d_in, h, pd = _dims(cfg, tp)
     b = x.shape[0]
     up = linear(x[:, 0], p["up"])
     x_in, z = up[..., :d_in], up[..., d_in:]
     hist = torch.cat([cache["conv"], x_in[:, None, :].to(_F32)], dim=1)
-    xc = F.silu(_conv_step(hist, p["conv_w"])).to(x.dtype)
+    xc = _gather(F.silu(_conv_step(hist, p["conv_w"])).to(x.dtype), tp)
     q = linear(xc, p["wq"]).reshape(b, h, pd).to(_F32)
     k = linear(xc, p["wk"]).reshape(b, h, pd).to(_F32) * pd ** -0.5
-    v = linear(x_in, p["wv"]).reshape(b, h, pd).to(_F32)
-    g = linear(xc, p["wif"]).to(_F32)
+    v = linear(_gather(x_in, tp), p["wv"]).reshape(b, h, pd).to(_F32)
+    g = linear(xc, _wif(p, cfg, tp)).to(_F32)
     log_i = g[..., :h]
     log_f = F.logsigmoid(g[..., h:] + 3.0)
     m_old = cache["m"]
@@ -220,10 +255,10 @@ def mlstm_decode(p: dict, cfg, x: torch.Tensor, cache: dict
     den = torch.maximum(torch.einsum("bhp,bhp->bh", q, n_new).abs(),
                         torch.exp(-m_new))[..., None]
     out = (num / den).reshape(b, 1, d_in).to(x.dtype)
-    out = rms_norm(out, p["norm"], cfg.norm_eps)
+    out = tensor.rms_norm(out, p["norm"], cfg.norm_eps, tp)
     out = out * F.silu(z.to(_F32)).to(x.dtype)[:, None, :]
     _write(cache, {"c": c_new, "n": n_new, "m": m_new, "conv": hist[:, 1:]})
-    return linear(out, p["down"]), cache
+    return tensor.reduce_from(linear(out, p["down"]), tp), cache
 
 
 # ---------------------------------------------------------------------------
@@ -247,11 +282,12 @@ def init_slstm(generator: torch.Generator, cfg, dtype, device="cuda") -> dict:
     }
 
 
-def _slstm_cell(r32, cfg, xg, state):
+def _slstm_cell(r32, xg, state):
     """One sLSTM step. xg: (B, 4*d_in) pre-activations from the input path;
-    r32 the recurrence ``r_gates`` in f32; gates z, i, f, o in that order
-    over the last axis of (B, H, 4P)."""
-    _, h, pd = _dims(cfg)
+    r32 the recurrence ``r_gates`` in f32 (its heads: the rank's under
+    tensor parallelism); gates z, i, f, o in that order over the last axis
+    of (B, H, 4P)."""
+    h, pd = r32.shape[0], r32.shape[-1]
     c, n, m, h_prev = state
     rec = torch.einsum("bhp,hqp->bhq", h_prev, r32)
     g = xg.reshape(-1, h, 4 * pd).to(_F32) + rec
@@ -267,26 +303,39 @@ def _slstm_cell(r32, cfg, xg, state):
     return (c_new, n_new, m_new, h_new), h_new
 
 
+def _w_gates(p, tp) -> dict:
+    """``w_gates`` (its columns split by heads) with the rank's chunk of
+    its replicated bias."""
+    if tp is None:
+        return p["w_gates"]
+    return {"w": p["w_gates"]["w"],
+            "b": tensor.rep_slice(p["w_gates"]["b"], tp)}
+
+
 def slstm_core(p: dict, cfg, x: torch.Tensor):
-    """Full-sequence sLSTM block. x (B, S, d) -> (out (B, S, d), cache)."""
-    d_in, h, pd = _dims(cfg)
+    """Full-sequence sLSTM block. x (B, S, d) -> (out (B, S, d), cache).
+    Under tensor parallelism the rank's ``up`` channels and conv, the conv
+    output all-gathered, its heads' gates and scan, the norm's mean square
+    all-reduced and a row-parallel ``down``."""
+    tp = _tp(cfg)
+    d_in, h, pd = _dims(cfg, tp)
     b, s, _ = x.shape
-    x_in = linear(x, p["up"])
+    x_in = linear(tensor.copy_to(x, tp), p["up"])
     xc = conv1d(cfg, x_in, p["conv_w"].to(x_in.dtype))
-    xc = F.silu(xc.to(_F32)).to(x.dtype)
-    xg = linear(xc, p["w_gates"])                        # (B, S, 4*d_in)
+    xc = _gather(F.silu(xc.to(_F32)).to(x.dtype), tp)
+    xg = linear(xc, _w_gates(p, tp))                     # (B, S, 4*d_in)
     r32 = p["r_gates"].to(_F32)
     state = tuple(torch.zeros((b, h, pd), dtype=_F32, device=x.device)
                   for _ in range(4))
     hs = []
     for t in range(s):
-        state, h_t = _slstm_cell(r32, cfg, xg[:, t], state)
+        state, h_t = _slstm_cell(r32, xg[:, t], state)
         hs.append(h_t)
     out = torch.stack(hs, dim=1).reshape(b, s, d_in).to(x.dtype)
-    out = rms_norm(out, p["norm"], cfg.norm_eps)
+    out = tensor.rms_norm(out, p["norm"], cfg.norm_eps, tp)
     cache = {"c": state[0], "n": state[1], "m": state[2], "h": state[3],
              "conv": _history(x_in, cfg.conv_width)}
-    return linear(out, p["down"]), cache
+    return tensor.reduce_from(linear(out, p["down"]), tp), cache
 
 
 def slstm_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -294,7 +343,9 @@ def slstm_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_slstm_cache(cfg, batch: int, device="cuda") -> dict:
-    d_in, h, pd = _dims(cfg)
+    """Zero sLSTM state (the rank's heads and channels under tensor
+    parallelism)."""
+    d_in, h, pd = _dims(cfg, _tp(cfg))
     kw = {"dtype": _F32, "device": device}
     return {
         "c": torch.zeros((batch, h, pd), **kw),
@@ -309,15 +360,16 @@ def slstm_decode(p: dict, cfg, x: torch.Tensor, cache: dict
                  ) -> Tuple[torch.Tensor, dict]:
     """One-token step. x (B, 1, d).  Writes the new c, n, m, h and conv
     history into ``cache``'s buffers and returns (out (B, 1, d), cache)."""
-    d_in, _, _ = _dims(cfg)
+    tp = _tp(cfg)
+    d_in, _, _ = _dims(cfg, tp)
     b = x.shape[0]
     x_in = linear(x[:, 0], p["up"])
     hist = torch.cat([cache["conv"], x_in[:, None, :].to(_F32)], dim=1)
-    xc = F.silu(_conv_step(hist, p["conv_w"])).to(x.dtype)
-    xg = linear(xc, p["w_gates"])
+    xc = _gather(F.silu(_conv_step(hist, p["conv_w"])).to(x.dtype), tp)
+    xg = linear(xc, _w_gates(p, tp))
     state = (cache["c"], cache["n"], cache["m"], cache["h"])
-    (c, n, m, h_new), _ = _slstm_cell(p["r_gates"].to(_F32), cfg, xg, state)
+    (c, n, m, h_new), _ = _slstm_cell(p["r_gates"].to(_F32), xg, state)
     out = h_new.reshape(b, 1, d_in).to(x.dtype)
-    out = rms_norm(out, p["norm"], cfg.norm_eps)
+    out = tensor.rms_norm(out, p["norm"], cfg.norm_eps, tp)
     _write(cache, {"c": c, "n": n, "m": m, "h": h_new, "conv": hist[:, 1:]})
-    return linear(out, p["down"]), cache
+    return tensor.reduce_from(linear(out, p["down"]), tp), cache

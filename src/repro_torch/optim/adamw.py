@@ -83,7 +83,8 @@ def _slices(x: torch.Tensor):
     return x.reshape(-1).split(SLICE)
 
 
-def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x``'s squares in f32 (0-d), slice by slice."""
     total = None
     for part in _slices(x):
         s = torch.sum(torch.square(part.to(torch.float32)))
@@ -92,13 +93,16 @@ def _sum_squares(x: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(_sum_squares(x) for x in tree_leaves(tree)))
+    return torch.sqrt(sum(sum_squares(x) for x in tree_leaves(tree)))
 
 
-def _scalars(cfg: AdamWConfig, grads, opt_state):
-    """(step, grad norm, clip scale, lr, bias corrections) of one step."""
+def _scalars(cfg: AdamWConfig, grads, opt_state, gnorm=None):
+    """(step, grad norm, clip scale, lr, bias corrections) of one step;
+    ``gnorm`` (the whole model's, from a rank's slices under tensor
+    parallelism) replaces :func:`global_norm` of ``grads``."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     step_f = step.to(torch.float32)
@@ -131,12 +135,13 @@ def update(cfg: AdamWConfig, grads, opt_state, params
 
 
 @torch.no_grad()
-def update_(cfg: AdamWConfig, grads, opt_state, params
+def update_(cfg: AdamWConfig, grads, opt_state, params, gnorm=None
             ) -> Dict[str, torch.Tensor]:
     """:func:`update` in place: ``params``' leaves, ``opt_state``'s moments
     and its step counter are written; returns {"grad_norm", "lr"}.  Every
-    leaf must be contiguous."""
-    step, gnorm, scale, lr, b1c, b2c = _scalars(cfg, grads, opt_state)
+    leaf must be contiguous.  ``gnorm``: the clip's norm, when the caller
+    has it (tensor parallelism)."""
+    step, gnorm, scale, lr, b1c, b2c = _scalars(cfg, grads, opt_state, gnorm)
 
     def upd(g, m, v, p):
         if not all(t.is_contiguous() for t in (m, v, p)):

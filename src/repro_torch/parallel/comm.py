@@ -66,15 +66,21 @@ def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         not h.is_cuda else h
 
 
-def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
-    """A new tensor: ``t`` summed over ``group``."""
+def all_reduce_sum(t: torch.Tensor, group=None,
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A new tensor: ``t`` summed (or reduced by ``op``) over ``group``."""
     if _staged(t, group):
         h = stage_to_host(t)
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=op, group=group)
         return stage_to_device(h, t.device)
     out = t.detach().contiguous().clone()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
+
+
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """A new tensor: the elementwise maximum of ``t`` over ``group``."""
+    return all_reduce_sum(t, group, op=dist.ReduceOp.MAX)
 
 
 def all_gather_cat(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
@@ -112,6 +118,29 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     return [_back(b, like) for b, (like, _) in zip(bufs, recvs)]
+
+
+def all_to_all(t: torch.Tensor, split_dim: int, concat_dim: int,
+               group=None) -> torch.Tensor:
+    """The tiled all-to-all (``lax.all_to_all(..., tiled=True)``): ``t``
+    split into one equal chunk a rank along ``split_dim``, chunk ``j`` sent
+    to group rank ``j``, and the chunks received concatenated along
+    ``concat_dim`` in group rank order.  Point to point through
+    :func:`exchange`; the bytes sent to other ranks are added to
+    ``all_to_all.bytes``."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    chunks = t.chunk(n, split_dim)
+    peers = [j for j in range(n) if j != me]
+    all_to_all.bytes += sum(chunks[j].nbytes for j in peers)
+    got = exchange([(chunks[j], j) for j in peers],
+                   [(chunks[me], j) for j in peers], group)
+    parts = dict(zip(peers, got))
+    parts[me] = chunks[me]
+    return torch.cat([parts[j] for j in range(n)], dim=concat_dim)
+
+
+all_to_all.bytes = 0
 
 
 class Shard(torch.autograd.Function):

@@ -9,25 +9,28 @@ place it is 12 (bf16 parameters and gradients, f32 moments).  The
 arithmetic is the pure ``adamw.update``'s, so both give the same bits.
 
 With ``rules`` (``parallel.axes.ShardingRules`` over a ``DeviceMesh``)
-the step is data parallel over ``rules.dp_axes``: every rank holds the
-whole parameters and its slice of the global batch.  The uncompressed
-step's gradient is the global batch's, what GSPMD computes: the ranks
-sum their token-weighted loss sums (``nll_sum``, ``lse^2`` sum,
-``tokens``) rather than average their means, so masked labels weigh as
-on one device, and the gradients are summed in one f32 all-reduce (f32
-whatever the parameter dtype: gloo's reduction of bf16 is not relied
-on).  That holds for the dense, ssm, hybrid, vlm and audio families:
-the moe family's routing statistics (the load-balance term, expert
-capacity from the token count) are not linear in the batch, and the
-uncompressed data-parallel step raises for it until they are reduced
-over the ranks.  ``make_compressed_train_step`` is the JAX package's
-error-feedback step: each rank's own mean loss (moe routing per rank, as
-in the JAX package's ``shard_map``), the int8
-``compression.compressed_psum`` divided by the rank count.  Both steps
-install the rules as ``local_batch``: each rank holds its own batch, so a
-conv inside stays on the rank.  The LMs' tensor parallelism is not
-ported: rules over a mesh with another axis larger than one raise
-``NotImplementedError`` (ROADMAP Queue 1 item 11).
+the step is data parallel over ``rules.dp_axes`` and tensor parallel
+over ``"model"``: each rank holds its slices of the parameters
+(``parallel.tensor``; the whole leaves on a mesh without a "model" axis
+larger than 1) and its data rank's slice of the global batch, the same
+on every rank of a "model" group.  The uncompressed step's gradient is
+the global batch's, what GSPMD computes: the ranks sum their
+token-weighted loss sums (``nll_sum``, ``lse^2`` sum, ``tokens``) over
+the data axis rather than average their means, so masked labels weigh
+as on one device, and the gradients are summed over the data axis in
+one f32 all-reduce (f32 whatever the parameter dtype: gloo's reduction
+of bf16 is not relied on).  The moe family routes the global batch
+(``models.moe``).  Over "model" the layers' collectives give each rank
+its slices' gradients and the whole gradient of every replicated leaf
+(a leaf a rank uses in part has its parts summed inside the backward),
+and the clip's norm counts each split segment once
+(``tensor.global_norm``).  ``make_compressed_train_step`` is the JAX
+package's error-feedback step: each rank's own mean loss (moe routing per
+data rank, as in the JAX package's ``shard_map``), the int8
+``compression.compressed_psum`` over the data axis divided by its rank
+count, local over "model".  Both steps install the rules as
+``local_batch``: each rank holds its own batch, so a conv inside stays on
+the rank.
 """
 from __future__ import annotations
 
@@ -37,20 +40,15 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import axes_group, axis_names, axis_sizes
+from repro_torch.launch.mesh import (AbstractMesh, axes_group, axis_names,
+                                     axis_sizes)
 from repro_torch.models import serve
 from repro_torch.models.lm import LM
 from repro_torch.optim import adamw
-from repro_torch.parallel import comm, compression
+from repro_torch.parallel import comm, compression, tensor
 from repro_torch.parallel.axes import ShardingRules, use_rules
 from repro_torch.training.loss import (Z_LOSS, chunked_softmax_xent,
                                        chunked_xent_sums)
-
-#: the ROADMAP item of what distributed execution still lacks
-TP_ITEM = ("the LMs' tensor parallelism over the 'model' axis, ROADMAP "
-           "Queue 1 item 11")
-EP_ITEM = ("the moe family's routing statistics reduced over the ranks, "
-           "with expert parallelism, ROADMAP Queue 1 item 11")
 
 
 def _local_batch(rules: Optional[ShardingRules]):
@@ -61,18 +59,35 @@ def _local_batch(rules: Optional[ShardingRules]):
 
 def dp_group(rules: Optional[ShardingRules]):
     """The process group of ``rules``' data-parallel axes (None without
-    rules).  Any other mesh axis must be 1-way: tensor parallelism of the
-    LMs is not ported."""
+    rules)."""
     if rules is None:
         return None
     mesh = rules.mesh
+    if isinstance(mesh, AbstractMesh):
+        raise ValueError(f"a distributed step needs a DeviceMesh over "
+                         f"ranks, not an AbstractMesh {mesh.shape_tuple}")
     dp_axes = tuple(rules.dp_axes) or axis_names(mesh)
-    other = {a: n for a, n in axis_sizes(mesh).items()
-             if a not in dp_axes and n > 1}
-    if other:
-        raise NotImplementedError(f"mesh axes {other} beyond the data-"
-                                  f"parallel {dp_axes}: {TP_ITEM}")
     return axes_group(mesh, dp_axes)
+
+
+def _model_group(rules):
+    """The "model" axis's group where it is larger than 1, else None."""
+    if rules is None or axis_sizes(rules.mesh).get(tensor.TP_AXIS, 1) == 1:
+        return None
+    return rules.mesh.get_group(tensor.TP_AXIS)
+
+
+def _grad_norm(model: LM, rules, grads):
+    """The clip's norm of a rank's gradient tree: None (``adamw``'s own)
+    without a "model" axis larger than 1, else the whole model's
+    (``tensor.global_norm``)."""
+    if rules is None or axis_sizes(rules.mesh).get(tensor.TP_AXIS, 1) == 1:
+        return None
+    with use_rules(rules):
+        tp = tensor.context()
+    placements = tensor.local_placement(grads, rules.mesh, model.cfg,
+                                        local=True)
+    return tensor.global_norm(grads, placements, tp)
 
 
 def _leaves_with_grad(params):
@@ -109,12 +124,13 @@ def _all_reduce_tree(grads, group):
 
 def make_loss_fn(model: LM) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)``: the chunked
-    cross-entropy of the final hidden against the head, plus the aux
-    loss."""
+    cross-entropy of the final hidden against the head (its vocab shards
+    under tensor parallelism), plus the aux loss."""
     def loss_fn(params, batch):
         h, aux = model.forward(params, batch)
         loss, metrics = chunked_softmax_xent(
-            h, model.head_weights(params), batch["labels"])
+            h, model.head_weights(params), batch["labels"],
+            tp=model.vocab_tp())
         return loss + aux, dict(metrics, aux=aux.detach())
     return loss_fn
 
@@ -126,12 +142,6 @@ def make_grad_fn(model: LM, rules: Optional[ShardingRules] = None
     (every rank passes its slice) on every rank of the data-parallel
     group."""
     group = dp_group(rules)
-    if group is not None and model.cfg.n_experts and \
-            dist.get_world_size(group) > 1:
-        raise NotImplementedError(
-            f"data-parallel gradient of {model.cfg.name}: per-rank routing "
-            f"(load-balance term, capacity) is not the global batch's; "
-            f"{EP_ITEM}")
     rules = _local_batch(rules)
     loss_fn = make_loss_fn(model)
 
@@ -148,13 +158,16 @@ def make_grad_fn(model: LM, rules: Optional[ShardingRules] = None
         with torch.enable_grad(), use_rules(rules):
             h, aux = model.forward(params, batch)
             nll, z, n = chunked_xent_sums(h, model.head_weights(params),
-                                          batch["labels"])
+                                          batch["labels"],
+                                          tp=model.vocab_tp())
             sums = comm.all_reduce_sum(
                 torch.stack([nll.detach(), z.detach(), n.detach()]), group)
             tokens = torch.clamp(sums[2], min=1.0)
             part = (nll + Z_LOSS * z) / tokens + aux / n_ranks
             part.backward()
-        grads = _all_reduce_tree(_take_grads(params, leaves), group)
+        grads = _take_grads(params, leaves)
+        if n_ranks > 1:
+            grads = _all_reduce_tree(grads, group)
         aux_mean = comm.all_reduce_sum(aux.detach().reshape(1), group)[0] \
             / n_ranks
         loss = (sums[0] + Z_LOSS * sums[1]) / tokens + aux_mean
@@ -177,7 +190,8 @@ def make_train_step(model: LM, opt_cfg: adamw.AdamWConfig,
     def train_step(params, opt_state, batch):
         loss, metrics, grads = grad_fn(params, batch)
         with torch.no_grad():
-            om = adamw.update_(opt_cfg, grads, opt_state, params)
+            om = adamw.update_(opt_cfg, grads, opt_state, params,
+                               _grad_norm(model, rules, grads))
         del grads
         return params, opt_state, dict(metrics, loss=loss, **om)
 
@@ -192,17 +206,20 @@ def make_compressed_train_step(model: LM, opt_cfg: adamw.AdamWConfig,
     metrics are averaged over the ranks.  ``opt_state`` carries ``ef``
     (:func:`init_opt_state` with ``compressed=True``)."""
     group = dp_group(rules)
-    rules = _local_batch(rules)
+    # the JAX package's shard_map body: no data-parallel routing and no
+    # expert-parallel routing, the "model" axis's layers as ever
+    inner = None if rules is None else dataclasses.replace(
+        rules, local_batch=True, dp_axes=(), ep_axis=None)
     loss_fn = make_loss_fn(model)
 
     def train_step(params, opt_state, batch):
         leaves = _leaves_with_grad(params)
-        with torch.enable_grad(), use_rules(rules):
+        with torch.enable_grad(), use_rules(inner):
             loss, metrics = loss_fn(params, batch)
             loss.backward()
         grads = _take_grads(params, leaves)
-        reduced, new_ef = compression.compressed_psum(grads, opt_state["ef"],
-                                                      group)
+        reduced, new_ef = compression.compressed_psum(
+            grads, opt_state["ef"], group, _model_group(rules))
         del grads
         n = dist.get_world_size(group) if group is not None else 1
         stats = torch.stack([loss.detach(), metrics["nll"],
@@ -210,7 +227,8 @@ def make_compressed_train_step(model: LM, opt_cfg: adamw.AdamWConfig,
         if group is not None:
             stats = comm.all_reduce_sum(stats, group) / n
         with torch.no_grad():
-            om = adamw.update_(opt_cfg, reduced, opt_state, params)
+            om = adamw.update_(opt_cfg, reduced, opt_state, params,
+                               _grad_norm(model, rules, reduced))
             adamw.tree_map(lambda e, new: e.copy_(new), opt_state["ef"],
                            new_ef)
         return params, opt_state, dict(
@@ -233,11 +251,8 @@ def init_opt_state(params, compressed: bool = False) -> Dict:
 
 def make_prefill_step(model: LM, max_len: int,
                       rules: Optional[ShardingRules] = None) -> Callable:
-    """Prefill on one process; ``rules`` are installed around it (the
-    layers' ``constrain`` checks their names), and any axis beyond the
-    data-parallel ones raises as in :func:`dp_group`."""
-    dp_group(rules)
-
+    """Prefill under ``rules`` (the layers' tensor parallelism over
+    "model"; the logits are the rank's vocab shard where it splits)."""
     def prefill_step(params, batch):
         with use_rules(rules):
             return serve.prefill(model, params, batch, max_len)
@@ -246,8 +261,6 @@ def make_prefill_step(model: LM, max_len: int,
 
 def make_decode_step(model: LM, rules: Optional[ShardingRules] = None
                      ) -> Callable:
-    dp_group(rules)
-
     def decode_step(params, cache, tokens):
         with use_rules(rules):
             return serve.decode_step(model, params, cache, tokens)

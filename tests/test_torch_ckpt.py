@@ -149,11 +149,23 @@ def test_crash_resume_is_exact(tmp_path):
 
 
 def test_restore_onto_a_mesh_raises(tmp_path):
+    """``restore(shardings=)`` keeps each rank's pieces of the stored whole
+    array (the elastic path; across real meshes in
+    ``tests/test_torch_tensor_parallel.py``), and a like leaf that is not
+    the rank's slice of the stored array raises."""
+    from repro_torch.parallel.tensor import Placement, Sharding
     mgr = CheckpointManager(tmp_path)
     tree = {"w": torch.arange(16.0).reshape(4, 4)}
     mgr.save(1, {"params": tree})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mgr.restore(1, {"params": tree}, shardings={"params": {"w": None}})
+    cols = Placement(-1, ((4, True),), 2)
+    for rank in range(2):
+        out = mgr.restore(1, {"params": {"w": torch.empty(4, 2)}},
+                          shardings={"params": {"w": Sharding(cols, rank)}})
+        assert torch.equal(out["params"]["w"],
+                           tree["w"][:, 2 * rank:2 * rank + 2])
+    with pytest.raises(ValueError, match="does not match"):
+        mgr.restore(1, {"params": {"w": torch.empty(4, 4)}},
+                    shardings={"params": {"w": Sharding(cols, 0)}})
 
 
 def test_watchdog_flags_straggler():

@@ -1646,3 +1646,53 @@ def test_nccl_with_more_ranks_than_cards_raises(cuda, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", str(torch.cuda.device_count() + 1))
     with pytest.raises(ValueError, match="--backend gloo"):
         init_world("nccl", "cuda")
+
+
+def test_tensor_parallel_serve_on_the_card_equals_one_rank(cuda):
+    """zamba2-7b smoke (f32, the fused conv: K5 on each rank's channel
+    slice) served by two gloo ranks sharing the card under (1, 2) rules
+    against one process on the card: the greedy tokens equal, the logits
+    within 1e-4 scaled; each rank's prefill launches K5 once a Mamba2
+    layer.  The CPU counterpart is ``tests/test_torch_tensor_parallel.py``
+    ``test_serving_on_2_ranks_equals_one_rank``."""
+    sys.path.insert(0, str(pathlib.Path(__file__).parent))
+    import test_torch_dist_workers as W
+    from repro_torch.launch.mesh import spawn
+    over = {"conv_impl": "fused"}
+    ranks = spawn(W.tp_serve, 2, args=("zamba2-7b", over, "cuda"),
+                  device="cuda", timeout_s=120, join_timeout_s=600)
+    cfg = smoke_config("zamba2-7b").with_(**over)
+    with f32_accumulation():
+        one = launch_serve.serve(cfg, batch=2, prompt_len=16, gen=5,
+                                 device=cuda)
+    want = one["prefill_logits"].cpu().numpy()
+    for r in ranks:
+        assert r["k5_launches"] == cfg.n_layers
+        assert np.array_equal(r["tokens"], one["tokens"].cpu().numpy())
+        err = np.abs(r["prefill_logits"] - want).max() / np.abs(want).max()
+        assert err < 1e-4, err
+
+
+@pytest.mark.parametrize("row,lo,hi", [(7352, 3584, 7296), (1536, 0, 768)])
+def test_conv1d_on_a_rank_slice_equals_its_plain_version(cuda, row, lo, hi):
+    """K5 on the channel slice a rank gives it at tp 2 (zamba2-7b's xBC of
+    its local in_proj output; xlstm-125m's mLSTM x_in of its local up
+    output), a strided view, at a short sequence: forward and gradients
+    equal to the plain version's, bf16 and f32.  The CPU counterpart is
+    the fused families of ``tests/test_torch_tensor_parallel.py``."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        base = torch.randn((2, 64, row), generator=gen, device=cuda).to(dtype)
+        k = torch.randn((4, hi - lo), generator=gen, device=cuda).to(dtype)
+        g = torch.randn((2, 64, hi - lo), generator=gen, device=cuda).to(dtype)
+        got = {}
+        for name, fn in (("kernel", C.mec_conv1d), ("plain", C.mec_conv1d_plain)):
+            x = base.clone().requires_grad_(True)
+            kk = k.clone().requires_grad_(True)
+            y = fn(x[..., lo:hi], kk)
+            y.backward(g)
+            got[name] = (y.detach(), x.grad, kk.grad)
+        assert torch.equal(got["kernel"][0], got["plain"][0])
+        for a, b in zip(got["kernel"][1:], got["plain"][1:]):
+            err = ref.scaled_error(a, b)
+            assert err <= grad_tolerance("mec_fused", "float32", 128), err

@@ -222,9 +222,9 @@ def compressed_cases(grads_np, ef_np, arch, n_steps, global_batch, seq_len,
                           "warmup_steps": 1}
     real, seen = compression.compressed_psum, []
 
-    def recorded(grads, ef, group=None):
+    def recorded(grads, ef, group=None, model_group=None):
         seen.append(_numpy_flat(grads))
-        return real(grads, ef, group)
+        return real(grads, ef, group, model_group)
 
     compression.compressed_psum = recorded
     try:
@@ -252,15 +252,16 @@ class ConvModel:
     def head_weights(self, params):
         return params["head"]
 
+    def vocab_tp(self):
+        """The head is whole on every rank (no "model" axis)."""
+        return None
+
 
 def dp_conv_grads(params_np, batch_np):
     """``make_grad_fn(ConvModel(), rules)`` over the world, each rank on
     its rows of ``batch_np``, with ``parallel.conv.sharded_conv2d``
-    counted; and whether the moe family's data-parallel gradient raises.
-    Returns (loss, grads, sharded calls, the moe error) on rank 0."""
-    from repro_torch.configs.archs import smoke_config
+    counted.  Returns (loss, grads, sharded calls) on rank 0."""
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.lm import LM
     from repro_torch.parallel import conv as pconv
     from repro_torch.parallel.axes import default_rules
     from repro_torch.training.steps import make_grad_fn
@@ -281,14 +282,9 @@ def dp_conv_grads(params_np, batch_np):
         loss, _, grads = make_grad_fn(ConvModel(), rules)(params, batch)
     finally:
         pconv.sharded_conv2d = real
-    try:
-        make_grad_fn(LM(smoke_config("qwen3-moe-30b-a3b")), rules)
-        moe_error = None
-    except NotImplementedError as e:
-        moe_error = str(e)
     if rank:
         return None
-    return float(loss), _numpy_flat(grads), len(calls), moe_error
+    return float(loss), _numpy_flat(grads), len(calls)
 
 
 def train_losses(arch, steps, global_batch, seq_len, lr, compressed):
@@ -353,3 +349,316 @@ def dist_suite(device="cpu"):
     doc = harness.run_suite("dist", iters=1, device=device,
                             time_only="smoke*")
     return doc if dist.get_rank() == 0 else None
+
+
+# ------------------------------------------------ tensor and expert parallel
+
+def _tp_rules(shape):
+    from repro_torch.parallel.axes import default_rules
+    return default_rules(_mesh(shape, ("data", "model")))
+
+
+def tp_family_grads(arch, params_np, batch_np, over):
+    """The smoke ``arch`` (with ``over``) on a (1, world) mesh from the JAX
+    package's numpy parameters: rank 0 returns the loss, the final hidden,
+    every leaf's gradient gathered whole, and the clip's global norm."""
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import tensor
+    from repro_torch.parallel.axes import use_rules
+    from repro_torch.training import steps
+    cfg = smoke_config(arch).with_(**over)
+    rules = _tp_rules((1, dist.get_world_size()))
+    model = LM(cfg)
+    params = params_from_jax(params_np, "cpu", mesh=rules.mesh, cfg=cfg)
+    batch = {k: torch.tensor(v) for k, v in batch_np.items()}
+    with use_rules(rules):
+        h, _ = model.forward(params, batch)
+    loss, _, grads = steps.make_grad_fn(model, rules)(params, batch)
+    gnorm = steps._grad_norm(model, rules, grads)
+    whole = tensor.gather_params(grads, rules.mesh, cfg)
+    if dist.get_rank():
+        return None
+    return (float(loss), h.detach().numpy(), _numpy_flat(whole),
+            float(gnorm))
+
+
+def tp_round_trip(arch, over):
+    """The smoke ``arch``'s one-rank init, each rank's ``shard_params`` of
+    it, ``LM.init(mesh=)`` (drawn rank-local) and ``gather_params`` back:
+    whether the rank-local init equals the slice and the gathered tree
+    the whole one, to the bit; rank 0 also returns its local shapes."""
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import tensor
+    cfg = smoke_config(arch).with_(**over)
+    mesh = _tp_rules((1, dist.get_world_size())).mesh
+    model = LM(cfg)
+    whole = model.init(torch.Generator().manual_seed(0), device="cpu")
+    local = model.init(torch.Generator().manual_seed(0), device="cpu",
+                       mesh=mesh)
+    sliced = tensor.shard_params(whole, mesh, cfg, tensor.model_rank(mesh))
+    back = tensor.gather_params(local, mesh, cfg)
+    a, b, c = _numpy_flat(local), _numpy_flat(sliced), _numpy_flat(whole)
+    d = _numpy_flat(back)
+    return {"init_is_slice": all(np.array_equal(a[k], b[k]) for k in a),
+            "gather_is_whole": all(np.array_equal(c[k], d[k]) for k in c),
+            "local_shapes": {k: v.shape for k, v in a.items()}}
+
+
+def tp_train_losses(arch, over, shape, n_steps, compressed, batches_np,
+                    lr, params_np=None):
+    """``n_steps`` train steps of the smoke ``arch`` (with ``over``) on a
+    ``shape`` ("data", "model") mesh, each data rank on its contiguous
+    block of rows of the given global batches, from ``params_np`` (the
+    JAX package's, numpy) or the port's seed-0 init: the losses and grad
+    norms (every rank)."""
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import steps
+    cfg = smoke_config(arch).with_(**over)
+    rules = _tp_rules(shape)
+    model = LM(cfg)
+    if params_np is None:
+        params = model.init(torch.Generator().manual_seed(0), device="cpu",
+                            mesh=rules.mesh)
+    else:
+        params = params_from_jax(params_np, "cpu", mesh=rules.mesh, cfg=cfg)
+    opt_cfg = AdamWConfig(lr=lr, total_steps=n_steps, warmup_steps=2)
+    fn = (steps.make_compressed_train_step if compressed
+          else steps.make_train_step)(model, opt_cfg, rules)
+    opt = steps.init_opt_state(params, compressed=compressed)
+    d, n_data = rules.mesh.get_local_rank("data"), shape[0]
+    out = []
+    for b in batches_np[:n_steps]:
+        rows = len(b["tokens"]) // n_data
+        batch = {k: torch.tensor(v[d * rows:(d + 1) * rows])
+                 for k, v in b.items()}
+        params, opt, m = fn(params, opt, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def tp_params_from(arch, params_np, over):
+    """The rank's slices of the JAX package's numpy parameters
+    (``params_from_jax(mesh=)``) and the rank's ``shard_params`` of the
+    whole tree: whether they are equal."""
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.parallel import tensor
+    cfg = smoke_config(arch).with_(**over)
+    mesh = _tp_rules((1, dist.get_world_size())).mesh
+    local = params_from_jax(params_np, "cpu", mesh=mesh, cfg=cfg)
+    whole = params_from_jax(params_np, "cpu")
+    sliced = tensor.shard_params(whole, mesh, cfg, tensor.model_rank(mesh))
+    a, b = _numpy_flat(local), _numpy_flat(sliced)
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def ep_forward(p_np, x_np, g_np, cfg_over, shape):
+    """``models.moe.moe_ffn`` under ("data", "model") ``shape`` rules with
+    ``moe_impl="ep"``: each data rank takes its contiguous block of the
+    batch (the JAX package's batch sharding), the model ranks the same
+    rows.  Returns, every rank: its y rows, aux, the gradient of
+    sum(y * g) + aux with respect to x's rows and the router (whole) and
+    its experts, and the all-to-all bytes it sent."""
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.models import moe
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.axes import use_rules
+    from repro_torch.training.steps import _local_batch
+    cfg = smoke_config("qwen3-moe-30b-a3b").with_(moe_impl="ep",
+                                                   **cfg_over)
+    rules = _local_batch(_tp_rules(shape))
+    mesh = rules.mesh
+    d, n_data = mesh.get_local_rank("data"), shape[0]
+    m, n_model = mesh.get_local_rank("model"), shape[1]
+    rows = x_np.shape[0] // n_data
+    e_loc = cfg.n_experts // n_model
+    p = {"router": torch.tensor(p_np["router"])}
+    for k in ("wg", "wu", "wd"):
+        p[k] = torch.tensor(p_np[k][m * e_loc:(m + 1) * e_loc])
+    for t in p.values():
+        t.requires_grad_(True)
+    x = torch.tensor(x_np[d * rows:(d + 1) * rows]).requires_grad_(True)
+    g = torch.tensor(g_np[d * rows:(d + 1) * rows])
+    sent = comm.all_to_all.bytes
+    with use_rules(rules), torch.enable_grad():
+        y, aux = moe.moe_ffn(p, cfg, x)
+        # the data ranks' mean of aux is the JAX package's
+        ((y * g).sum() + aux / n_data).backward()
+    return {"y": y.detach().numpy(), "aux": float(aux),
+            "dx": x.grad.numpy(), "drouter": p["router"].grad.numpy(),
+            "dexperts": {k: p[k].grad.numpy() for k in ("wg", "wu", "wd")},
+            "a2a_bytes": comm.all_to_all.bytes - sent}
+
+
+def int8_a2a(x_np, g_np):
+    """``int8_all_to_all`` over the world's "model" axis on each rank's row
+    of the seeded ``x_np`` (world, ...), split 0 / concat 1, and its VJP at
+    the rank's row of ``g_np``."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import tensor
+    from repro_torch.parallel.axes import use_rules
+    rules = _tp_rules((1, dist.get_world_size()))
+    r = dist.get_rank()
+    with use_rules(rules):
+        tp = tensor.context()
+        x = torch.tensor(x_np[r]).requires_grad_(True)
+        y = moe.int8_all_to_all(x, tp, 0, 1)
+        (y * torch.tensor(g_np[r])).sum().backward()
+    return y.detach().numpy(), x.grad.numpy()
+
+
+def moe_dp_grads(batch_np, over):
+    """The moe smoke config's data-parallel gradient on the world's 1-D
+    "data" mesh, each rank on its contiguous block of rows: rank 0 returns
+    the loss, the gradient and the world's summed drop count."""
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.axes import default_rules
+    from repro_torch.training.steps import make_grad_fn
+    cfg = smoke_config("qwen3-moe-30b-a3b").with_(**over)
+    model = LM(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    rules = default_rules(make_host_mesh())
+    r, n = dist.get_rank(), dist.get_world_size()
+    rows = len(batch_np["tokens"]) // n
+    batch = {k: torch.tensor(v[r * rows:(r + 1) * rows])
+             for k, v in batch_np.items()}
+    with moe.count_drops("cpu") as drops:
+        loss, _, grads = make_grad_fn(model, rules)(params, batch)
+    total = comm.all_reduce_sum(drops.reshape(1))[0]
+    if r:
+        return None
+    return float(loss), _numpy_flat(grads), int(total)
+
+
+def tp_save_restore(arch, ckpt_dir, shape, mode, batch_np):
+    """``mode`` "save": two steps of the smoke ``arch`` on ``shape``, then
+    a checkpoint with the shardings.  "restore": restore it onto
+    ``shape``, gather the leaves whole and take one more step.  Rank 0
+    returns the whole parameters and the step's loss."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import tensor
+    from repro_torch.training import steps
+    cfg = smoke_config(arch)
+    rules = _tp_rules(shape)
+    mesh = rules.mesh
+    model = LM(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu",
+                        mesh=mesh)
+    opt = steps.init_opt_state(params)
+    fn = steps.make_train_step(model, AdamWConfig(lr=1e-3, total_steps=8,
+                                                  warmup_steps=1), rules)
+    sh = tensor.shardings(params, mesh, cfg)
+    shard = {"params": sh, "opt": {"m": sh, "v": sh}}
+    mgr = CheckpointManager(ckpt_dir)
+    d, n_data = mesh.get_local_rank("data"), shape[0]
+
+    def step(b):
+        rows = len(b["tokens"]) // n_data
+        return fn(params, opt, {k: torch.tensor(v[d * rows:(d + 1) * rows])
+                                for k, v in b.items()})
+    if mode == "save":
+        for b in batch_np[:2]:
+            params, opt, _ = step(b)
+        mgr.save(2, {"params": params, "opt": opt}, shardings=shard)
+        loss = None
+    else:
+        got = mgr.restore(2, {"params": params, "opt": opt}, shardings=shard)
+        params, opt = got["params"], got["opt"]
+    whole = _numpy_flat(tensor.gather_params(params, mesh, cfg))
+    if mode != "save":
+        params, opt, m = step(batch_np[2])
+        loss = float(m["loss"])
+    return (whole, loss) if dist.get_rank() == 0 else None
+
+
+def tp_serve(arch, over, device="cpu", warm_plans=False):
+    """``launch.serve.serve`` of the smoke ``arch`` (with ``over``) on a
+    (1, world) mesh: the tokens, the prefill's and the last step's logits
+    (whole) and the K5 launches of the rank."""
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.kernels import mec_conv1d as C
+    from repro_torch.launch.serve import serve
+    cfg = smoke_config(arch).with_(**over)
+    rules = _tp_rules((1, dist.get_world_size()))
+    C.mec_conv1d.launches = 0
+    r = serve(cfg, batch=2, prompt_len=16, gen=5, device=device,
+              warm_plans=warm_plans, rules=rules)
+    return {"tokens": r["tokens"].cpu().numpy(),
+            "prefill_logits": r["prefill_logits"].cpu().numpy(),
+            "logits": r["logits"].cpu().numpy(),
+            "decode_graph": r["decode_graph"],
+            "k5_launches": C.mec_conv1d.launches}
+
+
+def tp_backward_in_another_thread(arch):
+    """The smoke ``arch`` with remat on (1, world): the loss under the
+    rules, its backward run from another thread (as the autograd engine
+    runs a CUDA backward on its device thread, which does not see this
+    thread's rules); the gradient's global norm, rank 0."""
+    import threading
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import tensor
+    from repro_torch.parallel.axes import use_rules
+    from repro_torch.training import steps
+    cfg = smoke_config(arch).with_(remat=True)
+    rules = _tp_rules((1, dist.get_world_size()))
+    model = LM(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu",
+                        mesh=rules.mesh)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    batch = SyntheticLMData(cfg, 2, 32, device="cpu").next_batch()
+    with use_rules(rules), torch.enable_grad():
+        loss, _ = steps.make_loss_fn(model)(params, batch)
+    errors = []
+
+    def backward():
+        try:
+            loss.backward()
+        except Exception as e:  # reported to the test
+            errors.append(repr(e))
+
+    worker = threading.Thread(target=backward)
+    worker.start()
+    worker.join(timeout=120)
+    grads = _nest({k: v.grad for k, v in _flat_tensors(params).items()})
+    placements = tensor.local_placement(grads, rules.mesh, cfg, local=True)
+    with use_rules(rules):
+        norm = float(tensor.global_norm(grads, placements, tensor.context()))
+    return {"errors": errors, "loss": float(loss), "norm": norm}
+
+
+def _flat_tensors(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_tensors(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {} if tree is None else {prefix: tree}
+
+
+def _nest(flat):
+    out = {}
+    for key, v in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out

@@ -309,14 +309,21 @@ def test_drop_counter_adds_on_the_device_and_nests(cfg):
 
 
 def test_distributed_executors_raise(cfg):
-    p = {"router": torch.zeros((cfg.d_model, cfg.n_experts))}
+    """The expert-parallel executor and its all-to-all need ranks: under
+    rules whose "model" axis is an AbstractMesh's, ``moe_ffn`` raises, and
+    ``int8_all_to_all`` outside a process group raises (they run over
+    gloo ranks in ``tests/test_torch_expert_parallel.py``)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.parallel.axes import default_rules, use_rules
+    ep = cfg.with_(moe_impl="ep")
+    p = tmoe.init_moe(torch.Generator().manual_seed(0), ep, torch.float32,
+                      device="cpu")
     x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmoe.moe_ffn(p, cfg, x, mesh=object())
-    for fn, args in ((tmoe._moe_ep, (p, cfg, x, None)), (tmoe._q8, (x,)),
-                     (tmoe.int8_all_to_all, (x, "model", 0, 1))):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn(*args)
+    with use_rules(default_rules(AbstractMesh((1, 2), ("data", "model")))):
+        with pytest.raises(ValueError, match="needs a DeviceMesh"):
+            tmoe.moe_ffn(p, ep, x)
+    with pytest.raises((ValueError, RuntimeError)):
+        tmoe.int8_all_to_all(x, None, 0, 1)
 
 
 def test_chunked_normal_draws_in_chunks(monkeypatch):

@@ -402,11 +402,13 @@ def test_layers_split_each_stacked_leaf_once(arch):
 
 
 def test_distributed_steps_raise():
-    """What distributed training still lacks raises: rules over a mesh
-    with a tensor-parallel axis (the LMs' tensor parallelism, item 11's
-    remainder) and the production mesh on a world of one process (the
-    JAX package's "need N devices").  What it has runs: the compressed
-    step on one process carries ``ef`` and trains."""
+    """What distributed training cannot run raises: rules over a mesh whose
+    "model" axis has no ranks behind it (an AbstractMesh; the steps run
+    tensor parallel over a DeviceMesh, ``tests/test_torch_tensor_parallel.py``)
+    and the production mesh on a world of one process (the JAX package's
+    "need N devices"), from either launcher.  What one process has runs:
+    the compressed step carries ``ef`` and trains."""
+    from repro_torch.launch import serve as tserve_launch
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.axes import default_rules
@@ -414,14 +416,17 @@ def test_distributed_steps_raise():
     model = tlm.LM(cfg)
     tp = default_rules(AbstractMesh((2, 2), ("data", "model")))
     for call in (lambda: tsteps.make_compressed_train_step(model, None, tp),
-                 lambda: tsteps.make_train_step(model, None, rules=tp),
-                 lambda: tsteps.make_prefill_step(model, 8, rules=tp)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+                 lambda: tsteps.make_train_step(model, None, rules=tp)):
+        with pytest.raises(ValueError, match="DeviceMesh"):
             call()
-    with pytest.raises(ValueError, match="need 256 devices"):
-        tlaunch.main(["--arch", "yi-6b", "--smoke", "--device", "cpu",
-                      "--mesh", "production"])
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    prompt = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        tsteps.make_prefill_step(model, 8, rules=tp)(params, prompt)
+    for main in (tlaunch.main, tserve_launch.main):
+        with pytest.raises(ValueError, match="need 256 devices"):
+            main(["--arch", "yi-6b", "--smoke", "--device", "cpu",
+                  "--mesh", "production"])
     state = tsteps.init_opt_state(params, compressed=True)
     assert sorted(state) == ["ef", "m", "step", "v"]
     step = tsteps.make_compressed_train_step(
