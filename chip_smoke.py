@@ -214,18 +214,26 @@ the script exits non-zero without its last line:
              at batch 1 under ``spatial`` over 2 and 4 ranks where viable
              and ``channel`` over 2 and 4, and at batch 8 under the three
              composites over 2 x 2, through ``mec_fused`` (K1) and
-             ``mec_lowered`` (K2+K3) in f32, forward and both gradients
-             against the single-device conv on the card within the f32
-             budgets; the bytes each rank hands the halo exchange and the
-             cotangent sums, counted by wrapping ``torch.distributed``,
-             equal to ``conv_partition_costs`` to the byte; each rank's
+             ``mec_lowered`` (K2+K3) in f32, and ``mec_fused2`` (K4) on
+             the 2-rank splits, each through ``analysis.shardcheck.
+             check_sharding``: forward and both gradients of its
+             ``sum(out^2)`` probe against the single-device conv on the
+             card within the f32 budgets; the bytes by kind the busiest
+             rank hands ``torch.distributed`` (``launch.hlo_analysis.
+             collective_bytes``) equal to the contract exactly (the halo
+             and the cotangent sums of ``conv_partition_costs``, the
+             output's and split gradients' all-gathers); the precision
+             flow under a declared ``HIGHEST`` in f32 and bf16; each rank's
              body's requested bytes (memaudit's measurement) within the
              Eq. 3 rule on its local geometry, the halo concat's copy
              beside; the ResNet-101 stack at batch 16 under
              ``partition="auto"`` on 2 x 2 in f32 and bf16 (picks, plans,
              errors); the bench ``dist`` suite (65 records' exact fields
              against ``benchmarks/baselines/dist.json``, the smoke cells
-             timed); GPipe over 4 stages.  Two ranks: a data-parallel
+             timed, their shardcheck fields passing); GPipe over 4
+             stages.  Eight ranks: ``--suite shardcheck`` over the dist
+             baseline, its verdicts equal to the committed
+             ``BENCH_shardcheck.json`` cell by cell.  Two ranks: a data-parallel
              gradient of xlstm-125m (full width, 4 layers, f32, K5)
              within 1e-5 of the whole batch's, the compressed step's loss
              falling on one repeated batch.  Then ``torch.distributed.run
@@ -260,6 +268,17 @@ the script exits non-zero without its last line:
              captured) traced with ``torch.profiler``: device time by
              kernel, launches, and the device's busy share of the
              host-clock window.
+roofline   - beside each one-card step timed above (qwen3-4b's captured
+             decode step and prefill, xlstm-125m's and zamba2-7b's decode
+             steps, each family's train step): ``launch.costmodel.
+             cell_cost`` at ``MeshShape(1, 1, 1)``, the bound max(compute,
+             memory) at ``launch.hlo_analysis``'s constants, and the
+             measured seconds over it.
+dryrun     - in a background process from the start, without the card:
+             ``launch.dryrun`` on a fake process group of 256 ranks,
+             whisper-tiny ``train_4k`` (ZeRO-1) and the three conv cells;
+             the parameter and moment bytes a device exact, the conv
+             contracts held.  Counts on fake tensors, not measurements.
 
 The last lines are the nvidia-smi line, the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
@@ -278,6 +297,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -523,6 +543,29 @@ def peaks_for(name: str):
         if tag in name:
             return flops, bw, tf32, bf16, label
     raise RuntimeError(f"no data-sheet peak for card {name!r}; add it to PEAKS")
+
+
+def roofline_reading(label: str, cfg, kind: str, batch: int, seq: int,
+                     measured_s: float, clock: str) -> dict:
+    """A one-card step beside its roofline: ``launch.costmodel.cell_cost``
+    at ``MeshShape(1, 1, 1)``, the bound max(t_compute, t_memory) at the
+    card's data-sheet constants (``launch.hlo_analysis``), and the step's
+    measured seconds over it.  Emitted and returned."""
+    from repro_torch.launch.costmodel import MeshShape, cell_cost
+    from repro_torch.launch.hlo_analysis import HBM_BW, PEAK_FLOPS
+    c = cell_cost(cfg, kind, batch, seq, MeshShape(1, 1, 1))
+    t_c, t_m = c["flops"] / PEAK_FLOPS, c["hbm_bytes_chip"] / HBM_BW
+    bound = max(t_c, t_m)
+    rec = {"phase": "roofline", "step": label, "arch": cfg.name,
+           "layers": cfg.n_layers, "kind": kind, "batch": batch, "seq": seq,
+           "flops": c["flops"], "hbm_bytes": c["hbm_bytes_chip"],
+           "t_compute_s": t_c, "t_memory_s": t_m, "bound_s": bound,
+           "bound_by": "operations" if t_c >= t_m else "bytes",
+           "measured_s": measured_s, "clock": clock,
+           "measured_over_bound": measured_s / bound,
+           "share_of_bound": bound / measured_s}
+    emit(rec)
+    return rec
 
 
 def stride_pair(s):
@@ -2063,6 +2106,15 @@ def serve_dense_phase(seed: int) -> dict:
                                      DENSE_PROMPT + 6)
         out["decode_profile"] = profile_decode(model, params, cache,
                                                prompt[:, -1:], GRAPH_STEPS)
+        out["roofline"] = [
+            roofline_reading("serve_dense decode (graph)", cfg, "decode",
+                             DENSE_BATCH, DENSE_PROMPT + 6,
+                             out["decode_profile"]["graph"]["device_busy_s"]
+                             / GRAPH_STEPS, "device"),
+            roofline_reading("serve_dense prefill", cfg, "prefill",
+                             DENSE_BATCH, DENSE_PROMPT,
+                             out["serve"]["graph"]["prefill_seconds"],
+                             "host")]
         del cache, prompt
         first, _ = serve_lib.prefill(model, params,
                                      {"tokens": reqs[0].prompt[None]},
@@ -2423,6 +2475,11 @@ def serve_ssm_phase(seed: int) -> dict:
               f"{out['serve_vs_prefill_err']}")
         out["decode_profile"] = profile_decode(model, params, cache,
                                                extra[:, -1:], GRAPH_STEPS)
+        out["roofline"] = roofline_reading(
+            "serve_ssm decode (graph)", cfg, "decode", SSM_BATCH,
+            SSM_PROMPT + SSM_GEN,
+            out["decode_profile"]["graph"]["device_busy_s"] / GRAPH_STEPS,
+            "device")
         del cache, logits
         out["prefill_profile"] = traced_prefill(model, params, head,
                                                 SSM_PROMPT)
@@ -2860,6 +2917,9 @@ def train_lm_phase(seed: int, tmp_dir: Path) -> dict:
                                   "mec_gemm": 0, "mec_conv_fused2": 0,
                                   "mec_conv1d": want},
               f"{arch} train step launched {rec['launches']}, not {want} K5")
+        rec["roofline"] = roofline_reading(
+            "train_lm step", cfg, "train", TRAIN_BATCH, TRAIN_SEQ,
+            rec["step1_seconds"], "host")
         out["runs"][arch] = rec
         emit({"phase": "train_lm", "arch": arch, **rec}, sys.stderr)
         del params, opt, data, step, batch, met, before
@@ -3028,10 +3088,15 @@ DIST_BACKEND = "gloo"
 DIST_TIMEOUT_S = 180          # a collective's wait for a peer
 DIST_JOIN_S = 900             # a spawn's whole run
 DIST_ALGOS = ("mec_fused", "mec_lowered")
+DIST_K4_SPLIT = 2             # K4 (mec_fused2) joins the 2-rank splits
+# the precision-flow cells: a declared precision over the kernels' and the
+# plain bodies, f32 and bf16 (analysis.shardcheck / numcheck)
+DIST_PRECISION_ALGOS = ("mec_fused", "mec_fused2", "mec_lowered", "mec")
+DIST_PRECISION_DTYPES = ("float32", "bfloat16")
 DIST_COMPOSITE_BATCH = 8
 DIST_LM_ARCH = "xlstm-125m"
-DIST_LM_STEPS = 6             # 10 before the tp phase (its xlstm-125m on
-                              # (2, 2) runs 10 of each); cut for the time limit
+DIST_LM_STEPS = 4             # 10 before the tp phase, 6 before the
+                              # shardcheck suite; cut for the time limit
 DIST_LM_ARGS = ["--global-batch", "8", "--seq-len", "128", "--lr", "5e-4",
                 "--conv-impl", "fused", "--log-every", "5"]
 DIST_LM_GAP = 0.35            # tests/test_distribution.py:119
@@ -3044,51 +3109,11 @@ PIPE_SHAPE = (8, 16, 12)      # tests/test_pipeline.py: L, D, B
 PIPE_TOLS = (1e-5, 1e-4)
 
 
-class WireCount:
-    """Bytes this rank hands to ``torch.distributed`` inside the block:
-    point-to-point sends (the halo), all-reduce operands (cotangent sums)
-    and all-gather operands (returning global tensors)."""
-
-    def __enter__(self):
-        import torch.distributed as dist
-        self.dist = dist
-        self.saved = (dist.batch_isend_irecv, dist.all_reduce,
-                      dist.all_gather)
-        self.p2p = self.reduce = self.gather = 0
-        batch, reduce, gather = self.saved
-
-        def counted_batch(ops):
-            self.p2p += sum(op.tensor.nbytes for op in ops
-                            if op.op.__name__ == "isend")
-            return batch(ops)
-
-        def counted_reduce(t, *a, **k):
-            self.reduce += t.nbytes
-            return reduce(t, *a, **k)
-
-        def counted_gather(out, t, *a, **k):
-            self.gather += t.nbytes
-            return gather(out, t, *a, **k)
-
-        dist.batch_isend_irecv = counted_batch
-        dist.all_reduce = counted_reduce
-        dist.all_gather = counted_gather
-        return self
-
-    def __exit__(self, *exc):
-        (self.dist.batch_isend_irecv, self.dist.all_reduce,
-         self.dist.all_gather) = self.saved
-
-    def take(self) -> dict:
-        out = {"p2p": self.p2p, "reduce": self.reduce, "gather": self.gather}
-        self.p2p = self.reduce = self.gather = 0
-        return out
-
-
 def dist_table2_cases():
     """(layer, batch, partition, n_dev, mesh shape, mesh axes, algorithm):
     Table 2 at batch 1 under spatial and channel over 2 and 4 ranks where
-    viable, and at batch 8 under the three composites over 2 x 2."""
+    viable (K4 too on the 2-rank splits), and at batch 8 under the three
+    composites over 2 x 2."""
     from repro_torch.bench.scenarios import CV_LAYERS, layer_spec
     from repro_torch.parallel.conv import (COMPOSITE_PARTITIONS,
                                            partition_viable)
@@ -3098,8 +3123,10 @@ def dist_table2_cases():
         for part in ("spatial", "channel"):
             for n in (2, 4):
                 if partition_viable(spec, part, n):
+                    algs = DIST_ALGOS + (("mec_fused2",)
+                                         if n == DIST_K4_SPLIT else ())
                     cases += [(name, 1, part, n, (n,), ("data",), alg)
-                              for alg in DIST_ALGOS]
+                              for alg in algs]
         spec8 = layer_spec(name, batch=DIST_COMPOSITE_BATCH)
         for comp in COMPOSITE_PARTITIONS:
             if partition_viable(spec8, comp, (2, 2)):
@@ -3153,11 +3180,16 @@ class BodyAudit:
 
 
 def dist_table2_rank(seed: int) -> list:
-    """Every Table-2 case on this rank: output and gradients against the
-    single-device conv (rank 0), wire bytes, and the body's requested
-    bytes against Eq. 3 on the local geometry."""
+    """Every Table-2 case on this rank, through ``check_sharding``
+    (``analysis.shardcheck``): the collective contract counted on the
+    ranks, exact per kind at the busiest rank; output and gradients of
+    its ``sum(out^2)`` probe against the single-device conv (rank 0); the
+    body's requested bytes against Eq. 3 on the local geometry.  Every
+    rank takes part in each case (the check gathers the counts over the
+    world); a rank outside the case's mesh records None."""
     import torch.distributed as dist
     from repro_torch.analysis.memaudit import gate
+    from repro_torch.analysis.shardcheck import check_sharding
     from repro_torch.bench.scenarios import CV_LAYERS
     from repro_torch.core import memory
     from repro_torch.core.conv_api import conv2d
@@ -3165,7 +3197,7 @@ def dist_table2_rank(seed: int) -> list:
     from repro_torch.core.numerics import fwd_tolerance, grad_tolerance
     from repro_torch.launch.costmodel import conv_partition_costs
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.parallel.conv import normalize_partition, sharded_conv2d
+    from repro_torch.parallel.conv import normalize_partition
     rank = dist.get_rank()
     meshes, out = {}, []
     for i, (name, batch, part, n_dev, shape, axes, alg) in \
@@ -3173,10 +3205,6 @@ def dist_table2_rank(seed: int) -> list:
         if (shape, axes) not in meshes:
             meshes[(shape, axes)] = make_host_mesh(shape=shape, axes=axes)
         mesh = meshes[(shape, axes)]
-        coord = mesh.get_coordinate()
-        if coord is None:
-            out.append(None)
-            continue
         ih, iw, ic, kh, kw, kc, s = CV_LAYERS[name]
         gen = torch.Generator(device=DEVICE)
         gen.manual_seed(seed + i)
@@ -3184,19 +3212,15 @@ def dist_table2_rank(seed: int) -> list:
         k = torch.randn((kh, kw, ic, kc), generator=gen,
                         device=DEVICE) * (kh * kw * ic) ** -0.5
         spec = spec_of(x, k, (s, s))
-        g = torch.randn(spec.out_shape, generator=gen, device=DEVICE)
-        xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
-        with WireCount() as wire:
-            # the body's own extra calls (the audit's) are local: the
-            # wire counts only the sharded call's collectives
-            with BodyAudit() as audit:
-                y = sharded_conv2d(xg, kg, stride=s, algorithm=alg,
-                                   partition=part, mesh=mesh,
-                                   axis=axes if len(axes) > 1 else None)
-            fwd = wire.take()
-            (y * g).sum().backward()
-            bwd = wire.take()
+        with BodyAudit() as audit:
+            chk = check_sharding(spec, part, mesh=mesh, axes=axes[:len(
+                normalize_partition(part))], algorithm=alg,
+                device=DEVICE, operands=(x, k))
         torch.cuda.synchronize()
+        if chk.outputs is None:
+            out.append(None)
+            continue
+        y, dx, dk = chk.outputs
         parts = normalize_partition(part)
         cost = conv_partition_costs(spec, n_dev)[
             parts if len(parts) > 1 else parts[0]]
@@ -3213,7 +3237,9 @@ def dist_table2_rank(seed: int) -> list:
         verdict, fails = gate(f"dist/{name}/{part}", alg, predicted, temp)
         rec = {"case": i, "layer": name, "batch": batch,
                "partition": "+".join(parts), "n_dev": n_dev,
-               "algorithm": alg, "fwd": fwd, "bwd": bwd,
+               "algorithm": alg,
+               "shardcheck": {k_: chk.record[k_] for k_ in (
+                   "verdict", "violations", "directions", "precision_flow")},
                "halo_bytes_model": cost["halo_bytes_per_device"],
                "bwd_bytes_model": cost["comm_bytes_bwd_per_device"],
                "local_spec": [lspec.i_n, lspec.i_h, lspec.i_w, lspec.i_c,
@@ -3223,22 +3249,43 @@ def dist_table2_rank(seed: int) -> list:
                "halo_concat_bytes": (body["x_bytes"]
                                      if "spatial" in parts else 0),
                "memory_verdict": verdict["verdict"], "memory_fails": fails,
-               "checksum": _checksum(y.detach(), xg.grad, kg.grad)}
+               "checksum": _checksum(y, dx, dk)}
         if rank == 0:
             xr, kr = x.clone().requires_grad_(), k.clone().requires_grad_()
             yr = conv2d(xr, kr, stride=s, algorithm=alg, partition="none")
-            (yr * g).sum().backward()
+            (yr * yr).sum().backward()
             rec.update(
-                fwd_err=_scaled(y.detach(), yr.detach()),
-                dx_err=_scaled(xg.grad, xr.grad),
-                dk_err=_scaled(kg.grad, kr.grad),
-                equal_bits=bool(torch.equal(y.detach(), yr.detach())),
+                fwd_err=_scaled(y, yr.detach()),
+                dx_err=_scaled(dx, xr.grad),
+                dk_err=_scaled(dk, kr.grad),
+                equal_bits=bool(torch.equal(y, yr.detach())),
                 fwd_tol=fwd_tolerance(alg, "float32", kh * kw * ic),
                 dx_tol=grad_tolerance(alg, "float32", kh * kw * kc),
                 dk_tol=grad_tolerance(alg, "float32",
                                       batch * spec.o_h * spec.o_w))
         out.append(rec)
-        del x, k, g, xg, kg, y
+        del x, k, y, dx, dk, chk
+    return out
+
+
+def dist_precision_rank() -> list:
+    """The precision flow under a declared ``HIGHEST`` precision, f32 and
+    bf16, over the kernels' bodies and the plain one, on the smoke spatial
+    cell over 2 ranks (every rank takes part): each record's verdict and
+    tally."""
+    from repro_torch.analysis.shardcheck import check_sharding
+    from repro_torch.core.convspec import ConvSpec
+    spec = ConvSpec(2, 16, 16, 8, 3, 3, 16, 1, 1)
+    out = []
+    for dtype in DIST_PRECISION_DTYPES:
+        for alg in DIST_PRECISION_ALGOS:
+            rec = check_sharding(spec, "spatial", 2, dtype=dtype,
+                                 algorithm=alg, precision="HIGHEST",
+                                 device=DEVICE).record
+            out.append({"dtype": dtype, "algorithm": alg,
+                        "verdict": rec["verdict"],
+                        "violations": rec["violations"],
+                        "precision_flow": rec["precision_flow"]})
     return out
 
 
@@ -3346,6 +3393,7 @@ def dist_rank_main(seed: int) -> dict:
     table2 = dist_table2_rank(seed)
     t_table2 = time.perf_counter() - t0
     table2_launches = K.launch_counts()
+    precision = dist_precision_rank()
     stack = dist_stack_rank(seed)
     t_stack = time.perf_counter() - t0 - t_table2
     K.reset_launch_counts()
@@ -3360,6 +3408,7 @@ def dist_rank_main(seed: int) -> dict:
             "backend": dist.get_backend(), "world": dist.get_world_size(),
             "device": str(torch.cuda.current_device()),
             "table2": table2, "table2_launches": table2_launches,
+            "precision": precision,
             "table2_s": t_table2, "stack": stack, "stack_s": t_stack,
             "suite": suite if rank == 0 else None,
             "suite_launches": suite_launches, "gpipe": gpipe,
@@ -3489,11 +3538,33 @@ def dist_nccl_rank(seed: int) -> dict:
             "equal_bits": equal}
 
 
-def dist_lm_run(compress: bool) -> list:
-    """``launch.train --mesh host`` on xlstm-125m at full size through
-    ``torch.distributed.run`` over 2 ranks sharing the card (gloo): each
-    rank's summary line, read from the rank's own standard output file
-    (two ranks writing one pipe can interleave their lines)."""
+class Background(threading.Thread):
+    """``fn()`` in a thread from construction; :meth:`result` joins it and
+    returns its value or raises its exception."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=True)
+        self.fn, self.value, self.error = fn, None, None
+        self.start()
+
+    def run(self):
+        try:
+            self.value = self.fn()
+        except BaseException as e:  # raised again in the caller's thread
+            self.error = e
+
+    def result(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+def start_dist_lm(compress: bool) -> dict:
+    """Start ``launch.train --mesh host`` on xlstm-125m at full size
+    through ``torch.distributed.run`` over 2 ranks sharing the card
+    (gloo), in the background (each ``--standalone`` run takes a free
+    port of its own); :func:`finish_dist_lm` collects it."""
     logs = Path(tempfile.mkdtemp(prefix="dist-lm-"))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "2", "--log-dir", str(logs), "--redirects",
@@ -3503,18 +3574,34 @@ def dist_lm_run(compress: bool) -> list:
     if compress:
         cmd.append("--compress-grads")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          cwd=ROOT, timeout=600)
-    wall = time.perf_counter() - t0
+    err = open(logs / "torchrun.err", "w")
+    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=err,
+                            env=env, cwd=ROOT)
+    err.close()
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "logs": logs, "compress": compress,
+            "t0": time.perf_counter()}
+
+
+def finish_dist_lm(run: dict) -> list:
+    """Wait for a :func:`start_dist_lm` run: each rank's summary line, read
+    from the rank's own standard output file (two ranks writing one pipe
+    can interleave their lines)."""
+    try:
+        rc = run["proc"].wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        run["proc"].kill()
+        rc = run["proc"].wait()
+    wall = time.perf_counter() - run["t0"]
+    logs = run["logs"]
     outs = sorted(logs.rglob("stdout.log"))
     texts = [out.read_text() for out in outs]
+    err = (logs / "torchrun.err").read_text()
     shutil.rmtree(logs, ignore_errors=True)
-    print(*(t[-3000:] for t in texts), proc.stderr[-4000:], sep="\n",
+    print(*(t[-3000:] for t in texts), err[-4000:], sep="\n",
           file=sys.stderr)
-    check(proc.returncode == 0,
-          f"torchrun launch.train (compress={compress}) exited "
-          f"{proc.returncode}")
+    check(rc == 0, f"torchrun launch.train (compress={run['compress']}) "
+                   f"exited {rc}")
     lines = [json.loads(ln.split("summary ", 1)[1])
              for text in texts for ln in text.splitlines()
              if ln.startswith("[train] summary ")]
@@ -3523,6 +3610,62 @@ def dist_lm_run(compress: bool) -> list:
     for s in lines:
         s["wall_s"] = wall
     return sorted(lines, key=lambda s: s["rank"])
+
+
+def shardcheck_suite_rank(dist_path: str) -> dict:
+    """One rank of ``--suite shardcheck``: every cell's record and this
+    rank's kernel launches."""
+    from repro_torch.analysis.shardcheck import suite_cells, suite_rank
+    from repro_torch.kernels import mec_conv as K
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = suite_rank(suite_cells(dist_path), DEVICE)
+    return {"results": results, "launches": K.launch_counts(),
+            "seconds": time.perf_counter() - t0}
+
+
+def dist_shardcheck_suite() -> dict:
+    """``python -m repro_torch.analysis --suite shardcheck`` over the dist
+    baseline on 8 gloo ranks sharing cuda:0 (its largest cell's ranks):
+    verdicts and skip reasons equal to the committed
+    ``BENCH_shardcheck.json`` cell by cell, none failing.  Returns the
+    ranks' kernel launches."""
+    import json as json_mod
+    from repro_torch.analysis.shardcheck import SHARDCHECK_MAX_RANKS
+    from repro_torch.launch.mesh import spawn
+    dist_path = str(ROOT / "benchmarks" / "baselines" / "dist.json")
+    t0 = time.perf_counter()
+    ranks = spawn(shardcheck_suite_rank, SHARDCHECK_MAX_RANKS,
+                  args=(dist_path,), backend=DIST_BACKEND, device="cuda",
+                  timeout_s=DIST_TIMEOUT_S, join_timeout_s=DIST_JOIN_S)
+    mine = ranks[0]["results"]
+    ref = json_mod.loads((ROOT / "BENCH_shardcheck.json").read_text())[
+        "results"]
+    check(len(mine) == len(ref) == 65, f"shardcheck: {len(mine)} cells")
+    differ = [f"{a['scenario']}/{a['algorithm']}: {a['verdict']} "
+              f"({a['skipped_reason']}) against {b['verdict']}"
+              for a, b in zip(mine, ref)
+              if (a["verdict"], a["skipped_reason"])
+              != (b["verdict"], b["skipped_reason"])]
+    failed = [f"{a['scenario']}/{a['algorithm']}: {a['violations']}"
+              for a in mine if a["verdict"] == "fail"]
+    check(not failed, f"shardcheck suite failures: {failed}")
+    check(not differ, f"shardcheck verdicts against BENCH_shardcheck.json: "
+                      f"{differ}")
+    counts = {v: sum(a["verdict"] == v for a in mine)
+              for v in ("pass", "skipped", "fail")}
+    emit({"phase": "dist", "step": "shardcheck_suite", "ranks": len(ranks),
+          "verdicts": counts,
+          "busiest_grad_bytes": {
+              f"{a['scenario']}/{a['algorithm']}":
+                  a["directions"]["grad"]["observed"]
+              for a in mine if a["verdict"] == "pass"},
+          "precision_flow": [a["precision_flow"] for a in mine
+                             if a["verdict"] == "pass"][:1],
+          "seconds": time.perf_counter() - t0,
+          "rank_seconds": max(r["seconds"] for r in ranks)})
+    return {n: sum(r["launches"][n] for r in ranks)
+            for n in ranks[0]["launches"]}
 
 
 def dist_phase(seed: int) -> dict:
@@ -3557,6 +3700,11 @@ def dist_phase(seed: int) -> dict:
     emit({"phase": "dist", "step": "nccl_world1", **nccl,
           "refused_two_ranks": refused})
 
+    # the launcher's two runs and the shardcheck suite's 8 ranks go on
+    # beside the phase's ranks (nothing of the phase is timed against a
+    # limit)
+    lm_runs = [start_dist_lm(False), start_dist_lm(True)]
+    shardcheck_bg = Background(dist_shardcheck_suite)
     t_spawn = time.time()
     ranks = spawn(dist_rank_main, DIST_WORLD, args=(seed,),
                   backend=DIST_BACKEND, device="cuda",
@@ -3581,14 +3729,21 @@ def dist_phase(seed: int) -> dict:
             worst[f] = max(worst[f], lead[f"{f}_err"])
         check(all(r["checksum"] == lead["checksum"] for r in recs),
               f"{tag}: ranks returned different global answers")
-        fwd_b = max(r["fwd"]["p2p"] + r["fwd"]["reduce"] for r in recs)
-        bwd_b = max(r["bwd"]["p2p"] + r["bwd"]["reduce"] for r in recs)
+        # the collective contract, exact per kind at the busiest rank
+        # (check_sharding); every rank computed the same record
+        sc = lead["shardcheck"]
+        check(sc["verdict"] == "pass", f"{tag}: shardcheck {sc['violations']}")
+        check(all(r["shardcheck"] == sc for r in recs),
+              f"{tag}: the ranks' shardcheck records differ")
+        fwd_b = sc["directions"]["fwd"]["observed"]["collective-permute"]
+        grad = sc["directions"]["grad"]["observed"]
         check(fwd_b == lead["halo_bytes_model"],
               f"{tag}: halo sent {fwd_b} B, cost model "
               f"{lead['halo_bytes_model']} B")
-        check(bwd_b == lead["bwd_bytes_model"],
-              f"{tag}: backward sent {bwd_b} B, cost model "
-              f"{lead['bwd_bytes_model']} B")
+        check(grad["all-reduce"]
+              == lead["bwd_bytes_model"] - lead["halo_bytes_model"],
+              f"{tag}: cotangent sums {grad['all-reduce']} B, cost model "
+              f"{lead['bwd_bytes_model'] - lead['halo_bytes_model']} B")
         for r in recs:
             check(r["memory_verdict"] == "pass",
                   f"{tag} rank memory: {r['memory_fails']}")
@@ -3604,7 +3759,7 @@ def dist_phase(seed: int) -> dict:
               "n_dev": case[3], "algorithm": case[6],
               "fwd_err": lead["fwd_err"], "dx_err": lead["dx_err"],
               "dk_err": lead["dk_err"], "equal_bits": lead["equal_bits"],
-              "halo_bytes": fwd_b, "bwd_bytes": bwd_b,
+              "halo_bytes": fwd_b, "grad_observed": grad,
               "rank_temp_bytes": [r["temp_bytes"] for r in recs],
               "eq3_bytes": lead["eq3_bytes"],
               "halo_concat_bytes": lead["halo_concat_bytes"],
@@ -3613,6 +3768,18 @@ def dist_phase(seed: int) -> dict:
                     ("mec_gemm", "K3")):
         check(all(r["table2_launches"][name] > 0 for r in ranks),
               f"{k} did not launch in every rank's body")
+    # K4 runs on the 2-rank splits: the world's first two ranks
+    check(all(r["table2_launches"]["mec_conv_fused2"] > 0
+              for r in ranks[:DIST_K4_SPLIT]),
+          "K4 did not launch in the 2-rank splits' bodies")
+    # the precision flow under a declared HIGHEST, f32 and bf16
+    for rec in ranks[0]["precision"]:
+        check(rec["verdict"] == "pass"
+              and rec["precision_flow"]["unannotated_dot_ops"] == 0,
+              f"dist precision flow {rec['dtype']}/{rec['algorithm']}: "
+              f"{rec['violations']}")
+    emit({"phase": "dist", "step": "precision_flow",
+          "cells": ranks[0]["precision"]})
     emit({"phase": "dist", "step": "table2_summary", "cases": len(cases),
           "max_scaled_err": worst, "batch_equal_bits": bits,
           "seconds": max(r["table2_s"] for r in ranks),
@@ -3644,6 +3811,10 @@ def dist_phase(seed: int) -> dict:
     extra = [f for f in fails if not any(
         k in f for k in ("shardcheck", "run_spec", "out_shape", "run_flops"))]
     check(not extra, f"dist suite against the baseline: {extra}")
+    verdicts = {f"{r['scenario']}/{r['algorithm']}": r["shardcheck"]["verdict"]
+                for r in suite["results"] if "shardcheck" in r}
+    check(len(verdicts) == 12 and set(verdicts.values()) == {"pass"},
+          f"dist suite shardcheck fields: {verdicts}")
     emit({"phase": "dist", "step": "bench_dist", "records": 65,
           "smoke_us_on_this_card_not_scaling": {
               f"{r['scenario']}/{r['algorithm']}": r["us_per_call"]
@@ -3656,6 +3827,7 @@ def dist_phase(seed: int) -> dict:
               f"GPipe rank {r['rank']}: {r['gpipe']}")
     emit({"phase": "dist", "step": "gpipe",
           "per_rank": [r["gpipe"] for r in ranks]})
+    shardcheck_launches = shardcheck_bg.result()
 
     # data-parallel training: the gradient, the repeated batch, the launcher
     dp = spawn(dist_dp_rank, 2, args=(seed,), backend=DIST_BACKEND,
@@ -3674,8 +3846,7 @@ def dist_phase(seed: int) -> dict:
               f"compressed step on a repeated batch, rank {r['rank']}: {ls}")
     emit({"phase": "dist", "step": "dp_gradient", **dp[0],
           "rank1_losses": dp[1]["repeated_batch_losses"]})
-    plain = dist_lm_run(False)
-    comp = dist_lm_run(True)
+    plain, comp = (finish_dist_lm(run) for run in lm_runs)
     for run, label in ((plain, "plain"), (comp, "compressed")):
         for s in run:
             check(all(math.isfinite(v) for v in s["losses"]),
@@ -3698,7 +3869,7 @@ def dist_phase(seed: int) -> dict:
               "compressed": comp[0]["staged_bytes_per_step"]},
           "rank_staged_bytes": [r["staged_bytes"] for r in ranks]})
     launches = {n: sum(r["table2_launches"][n] + r["suite_launches"][n]
-                       for r in ranks)
+                       for r in ranks) + shardcheck_launches[n]
                 for n in ranks[0]["table2_launches"]}
     launches["mec_conv1d"] = sum(s["k5_launches_per_step"] * DIST_LM_STEPS
                                  for s in plain + comp)
@@ -3729,10 +3900,14 @@ TP_MOE_GATE_TOKENS = (2, 64)
 TP_DP_MOE_LAYERS = 2         # 4 layers' f32 gradient and its flat f32
                              # reduction buffer overrun the card on 2 ranks
 TP_DP_MOE_BATCH = (4, 64)    # global: 2 rows a rank
-TP_XLSTM_STEPS = 10
+TP_XLSTM_STEPS = 3            # 10 before the ZeRO-1 steps joined the phase
 TP_XLSTM_BATCH = (8, 64)     # global
 TP_XLSTM_GAP = 0.3           # tests/test_distribution.py:169's bar
 TP_XLSTM_GRAD_LAYERS = 4
+TP_ZERO1_STEPS = 3            # ZeRO-1 steps of xlstm-125m at full size
+TP_ZERO1_BATCH = (8, 128)     # global, bf16
+TP_ZERO1_GATE_STEPS = 2       # ZeRO-1 against plain, f32, 4 layers
+TP_ZERO1_TOL = 1e-5
 TP_YI = "yi-6b"
 TP_YI_LAYERS = 4
 TP_YI_STEPS = 3
@@ -3855,9 +4030,11 @@ def tp_serve_full(cfg, seed: int, rules, batch: int, prompt: int,
 
 
 def tp_train(cfg, seed: int, rules, n_steps: int, batch_shape,
-             compressed: bool = False, lr: float = 1e-4) -> dict:
+             compressed: bool = False, lr: float = 1e-4,
+             zero1: bool = False) -> dict:
     """``n_steps`` train steps on the rank's mesh from the rank-local
-    init: losses, grad norms, K5 launches a step, peak bytes."""
+    init (``zero1``: the ZeRO-1 step, its moments the rank's slices):
+    losses, grad norms, K5 launches a step, peak bytes, moment bytes."""
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import mec_conv1d as C
     from repro_torch.models.lm import LM
@@ -3868,8 +4045,11 @@ def tp_train(cfg, seed: int, rules, n_steps: int, batch_shape,
     torch.cuda.reset_peak_memory_stats()
     model = LM(cfg)
     params = model.init(_seeded_gen(seed), device=DEVICE, mesh=rules.mesh)
-    opt = steps.init_opt_state(params, compressed=compressed)
-    fn = (steps.make_compressed_train_step if compressed
+    opt = steps.init_opt_state(params, compressed=compressed,
+                               model=model if zero1 else None,
+                               rules=rules if zero1 else None)
+    fn = (steps.make_zero1_train_step if zero1
+          else steps.make_compressed_train_step if compressed
           else steps.make_train_step)(model, AdamWConfig(
               lr=lr, total_steps=n_steps, warmup_steps=2), rules)
     n_data = axis_sizes(rules.mesh)["data"]
@@ -3888,7 +4068,9 @@ def tp_train(cfg, seed: int, rules, n_steps: int, batch_shape,
     out = {"losses": losses, "grad_norms": norms, "step_s": secs,
            "k5_launches_per_step": C.mec_conv1d.launches / n_steps,
            "peak_bytes": torch.cuda.max_memory_allocated(),
-           "rank_param_bytes": _leaf_bytes(params), "layers": cfg.n_layers}
+           "rank_param_bytes": _leaf_bytes(params),
+           "moment_bytes": _leaf_bytes({"m": opt["m"], "v": opt["v"]}),
+           "layers": cfg.n_layers}
     del params, opt
     free_card()
     return out
@@ -4189,8 +4371,87 @@ def tp_xlstm_grad(seed: int) -> dict:
     return out
 
 
+def tp_zero1_gate(seed: int) -> dict:
+    """xlstm-125m at full width, TP_XLSTM_GRAD_LAYERS layers, f32, K5: the
+    ZeRO-1 step against the plain step on (2, 2) from one rank-local init
+    and the same batches, the parameters gathered whole after
+    TP_ZERO1_GATE_STEPS steps: the largest absolute difference over the
+    leaves (and each leaf's scaled error, reported)."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import tensor
+    from repro_torch.training import steps
+    cfg = ARCHS[SSM_ARCH].with_(n_layers=TP_XLSTM_GRAD_LAYERS,
+                                dtype="float32", conv_impl="fused")
+    model = LM(cfg)
+    rules = _tp_rules((2, 2))
+    d = rules.mesh.get_local_rank("data")
+    data = SyntheticLMData(cfg, 4, 64, seed=seed, device=DEVICE)
+    batches = [{k: v[2 * d:2 * d + 2] for k, v in data.next_batch().items()}
+               for _ in range(TP_ZERO1_GATE_STEPS)]
+    whole = {}
+    for run, zero in (("plain", False), ("zero1", True)):
+        params = model.init(_seeded_gen(seed), device=DEVICE,
+                            mesh=rules.mesh)
+        opt = steps.init_opt_state(params, model=model if zero else None,
+                                   rules=rules if zero else None)
+        fn = (steps.make_zero1_train_step if zero else
+              steps.make_train_step)(model, AdamWConfig(
+                  lr=5e-4, total_steps=10, warmup_steps=2), rules)
+        with f32_acc():
+            for b in batches:
+                params, opt, _ = fn(params, opt, b)
+        whole[run] = tree_leaves(tensor.gather_params(params, rules.mesh,
+                                                      cfg))
+        del params, opt
+    # absolute, as tests/test_torch_tensor_parallel_steps.py holds it: a
+    # leaf that starts at zero (a bias) is a few steps' lr in size, so
+    # its scaled error reads Adam's sign steps at gradients near eps
+    out = {"steps": TP_ZERO1_GATE_STEPS, "layers": cfg.n_layers,
+           "max_abs_err": max(float((whole["zero1"][k].double()
+                                     - whole["plain"][k].double()).abs()
+                                    .max()) for k in whole["plain"]),
+           "max_leaf_scaled_err": max(
+               scaled_err(whole["zero1"][k], whole["plain"][k])
+               for k in whole["plain"])}
+    del whole
+    free_card()
+    return out
+
+
+def zero1_share_bytes(cfg, shape) -> int:
+    """A rank's AdamW moment bytes (m and v, f32) under ZeRO-1 over "data"
+    on a ``shape`` ("data", "model") mesh: each of the rank's leaves
+    (``parallel.tensor``'s placement) over the data ranks where
+    ``sharding.opt_state_specs`` splits it.  Where the rank holds
+    ``param_specs``' bytes (no leaf kept whole), this is the share
+    ``opt_state_specs`` gives."""
+    from repro_torch.launch.mesh import AbstractMesh, axis_sizes
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.parallel import sharding, tensor
+    mesh = AbstractMesh(shape, ("data", "model"))
+    params = fake_params(cfg)
+    specs = sharding.opt_state_specs(sharding.param_specs(params, mesh),
+                                     params, mesh, zero_axes=("data",))["m"]
+    placements = tensor.local_placement(params, mesh, cfg)
+    dp = axis_sizes(mesh)["data"]
+    shares = []
+
+    def one(spec, pl, leaf):
+        local = math.prod(pl.local_shape(leaf.shape))
+        shares.append(local // dp if any(
+            ax == "data" or (isinstance(ax, tuple) and "data" in ax)
+            for ax in spec) else local)
+
+    tree_map(one, specs, placements, params)
+    return 2 * 4 * sum(shares)
+
+
 def tp_rank_four(seed: int, ckpt_dir: str) -> dict:
-    """The 4-rank body of the tp phase: xlstm-125m on (2, 2), yi-6b's SP
+    """The 4-rank body of the tp phase: xlstm-125m on (2, 2) (plain,
+    compressed, ZeRO-1 and the ZeRO-1 gate), yi-6b's SP
     and dots against base on (1, 2), the elastic restore."""
     import torch.distributed as dist
     from repro_torch.configs.archs import ARCHS
@@ -4218,6 +4479,9 @@ def tp_rank_four(seed: int, ckpt_dir: str) -> dict:
         timed("xlstm_" + ("compressed" if compressed else "plain"), tp_train,
               xlstm, seed, rules, TP_XLSTM_STEPS, TP_XLSTM_BATCH,
               compressed=compressed, lr=5e-4)
+    timed("xlstm_zero1", tp_train, xlstm, seed, rules, TP_ZERO1_STEPS,
+          TP_ZERO1_BATCH, lr=5e-4, zero1=True)
+    timed("xlstm_zero1_gate", tp_zero1_gate, seed)
     timed("xlstm_grad", tp_xlstm_grad, seed)
     yi_rules = _tp_rules((1, 2))
     yi = ARCHS[TP_YI].with_(n_layers=TP_YI_LAYERS, dtype="float32",
@@ -4322,6 +4586,27 @@ def tp_phase(seed: int, tmp_dir: Path, C, ref, grad_tolerance) -> dict:
     check(all(math.isfinite(v) for v in plain["losses"] + comp["losses"])
           and gap < TP_XLSTM_GAP,
           f"tp xlstm-125m on (2, 2): compressed against plain {gap}")
+    z1 = lead4["xlstm_zero1"]
+    share = zero1_share_bytes(ARCHS[SSM_ARCH], (2, 2))
+    for r in four:
+        rz = r["xlstm_zero1"]
+        check(all(math.isfinite(v) for v in rz["losses"]),
+              f"tp xlstm-125m ZeRO-1 rank {r['rank']}: {rz['losses']}")
+        check(rz["moment_bytes"] == share,
+              f"tp xlstm-125m ZeRO-1 rank {r['rank']}: moments "
+              f"{rz['moment_bytes']} B, opt_state_specs' share {share} B")
+        check(rz["k5_launches_per_step"] == 24,
+              f"tp xlstm-125m ZeRO-1 rank {r['rank']}: K5 "
+              f"{rz['k5_launches_per_step']} a step, not 24")
+    check(lead4["xlstm_zero1_gate"]["max_abs_err"] <= TP_ZERO1_TOL,
+          f"tp xlstm-125m ZeRO-1 against the plain step: "
+          f"{lead4['xlstm_zero1_gate']}")
+    emit({"phase": "tp", "step": "zero1", "arch": SSM_ARCH,
+          "batch": TP_ZERO1_BATCH, "losses": z1["losses"],
+          "step_s": z1["step_s"], "moment_bytes": z1["moment_bytes"],
+          "share_bytes": share, "plain_moment_bytes":
+              lead4["xlstm_plain"]["moment_bytes"],
+          "gate": lead4["xlstm_zero1_gate"]})
     check(lead4["xlstm_grad"]["max_leaf_err"] <= DIST_GRAD_TOL,
           f"tp xlstm-125m gradient on (2, 2): "
           f"{lead4['xlstm_grad']['max_leaf_err']}")
@@ -4350,6 +4635,7 @@ def tp_phase(seed: int, tmp_dir: Path, C, ref, grad_tolerance) -> dict:
         for r in two) + sum(
         (r["xlstm_plain"]["k5_launches_per_step"]
          + r["xlstm_compressed"]["k5_launches_per_step"]) * TP_XLSTM_STEPS
+        + r["xlstm_zero1"]["k5_launches_per_step"] * TP_ZERO1_STEPS
         for r in four)
     return {"launches": launches, "k5_slices": k5_cases,
             "hybrid_serve_k5_per_rank": lead["hybrid_serve"]["k5_launches"]}
@@ -4381,6 +4667,96 @@ def profile_decode(model, params, cache, tok, steps: int = 4) -> dict:
             wall = time.perf_counter() - t0
         out[mode] = {"steps": steps, **device_breakdown(prof, wall, top=8)}
         del prog, c
+    return out
+
+
+DRYRUN_LM = ("whisper-tiny", "train_4k")   # the fake group's LM cell
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_CODE = """
+import sys
+import torch
+torch.set_num_threads(1)   # beside the phases, on one core
+from repro_torch.launch import dryrun
+out = sys.argv[1]
+dryrun.main(["--arch", sys.argv[2], "--shape", sys.argv[3], "--out", out])
+dryrun.main(["--conv", "all", "--out", out])
+"""
+
+
+def start_dryrun(out_dir: Path):
+    """``launch.dryrun`` on the host, in a process of its own (the fake
+    process group of 256 ranks must not meet the phases' groups) and in
+    the background, with no card: one LM cell (:data:`DRYRUN_LM`) and the
+    three conv cells.  Returns the process; its log is ``out_dir/log``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log = open(out_dir / "log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CODE, str(out_dir), *DRYRUN_LM],
+        env=env, stdout=log, stderr=subprocess.STDOUT,
+        preexec_fn=lambda: os.nice(10))
+    log.close()
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_dryrun(proc, out_dir: Path, t_start: float) -> dict:
+    """Wait for :func:`start_dryrun`'s process and gate its records: the
+    LM cell's parameter bytes a device equal ``local_param_bytes`` and its
+    moment bytes the ZeRO-1 share, both exact; each conv cell's contract
+    held; every count finite.  Counts on fake tensors, not measurements."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.parallel.tensor import local_param_bytes
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                   - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    tail = (out_dir / "log").read_text()[-3000:]
+    check(rc == 0, f"dry run: exit {rc}\n{tail}")
+    arch, shape = DRYRUN_LM
+    lm = json.loads((out_dir / f"{arch}__{shape}__pod.json").read_text())
+    cfg = ARCHS[arch]
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    want_params = local_param_bytes(fake_params(cfg), mesh, cfg)
+    want_moments = zero1_share_bytes(cfg, (16, 16))
+    dev = lm["per_device"]
+    check(dev["param_bytes"] == want_params,
+          f"dry run {arch}: {dev['param_bytes']} parameter bytes a device, "
+          f"local_param_bytes {want_params}")
+    check(dev["moment_bytes"] == want_moments,
+          f"dry run {arch}: {dev['moment_bytes']} moment bytes a device, "
+          f"the ZeRO-1 share {want_moments}")
+    check(math.isfinite(dev["flops"]) and dev["flops"] > 0
+          and dev["collectives"]["total"] > 0,
+          f"dry run {arch}: flops {dev['flops']}, collectives "
+          f"{dev['collectives']}")
+    conv = {}
+    for name in ("conv_channel", "conv_spatial", "conv_batch_spatial"):
+        rec = json.loads((out_dir / f"{name}__pod.json").read_text())
+        check(rec["shardcheck"]["verdict"] == "pass",
+              f"dry run {name}: {rec['shardcheck']['violations']}")
+        conv[name] = {"busiest_grad": rec["shardcheck"]["directions"][
+            "grad"]["observed"], "replicated_ways":
+            rec["shardcheck"]["replicated_ways"]}
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.costmodel import MeshShape, cell_cost
+    cell = SHAPES[shape]
+    cost = cell_cost(cfg, cell.kind, cell.global_batch, cell.seq_len,
+                     MeshShape())
+    out = {"phase": "dryrun", "torch": torch.__version__,
+           "what": "counts on fake tensors for a 16 x 16 mesh of H100s; "
+                   "not measured",
+           "lm": {"cell": f"{arch}/{shape}", "param_bytes": dev["param_bytes"],
+                  "moment_bytes": dev["moment_bytes"], "flops": dev["flops"],
+                  "cell_cost_flops_per_chip": cost["flops"] / 256,
+                  "collectives": dev["collectives"], "memory": dev["memory"]},
+           "conv": conv, "seconds_after_start": time.perf_counter() - t_start}
+    emit(out)
     return out
 
 
@@ -4419,6 +4795,16 @@ def main(argv=None) -> int:
     import repro_torch
     check(Path(repro_torch.__file__).resolve().is_relative_to(ROOT),
           f"repro_torch imported from {repro_torch.__file__}, not {ROOT}")
+    # one set of constants: the package's roofline reads the H100 SXM's
+    from repro_torch.launch import hlo_analysis
+    if peak_label == hlo_analysis.SOURCE:
+        check((peak_bf16, peak_bw) == (hlo_analysis.PEAK_FLOPS,
+                                       hlo_analysis.HBM_BW),
+              f"PEAKS {peak_bf16, peak_bw} against launch.hlo_analysis "
+              f"{hlo_analysis.PEAK_FLOPS, hlo_analysis.HBM_BW}")
+    t_dryrun = time.perf_counter()
+    dryrun_dir = Path(plan_dir) / "dryrun"
+    dryrun = start_dryrun(dryrun_dir)
     from repro_torch.core import memory
     from repro_torch.core.conv_api import conv2d, conv2d_spec, resolve_algorithm
     from repro_torch.core.convspec import spec_of
@@ -5161,7 +5547,12 @@ def main(argv=None) -> int:
               "caller": f"{name} tp 2", **rec})
 
     # 8. profile ------------------------------------------------------------
-    emit({"phase": "profile", **profile_serving(cfg, args.seed)})
+    prof = profile_serving(cfg, args.seed)
+    emit({"phase": "profile", **prof})
+    roofline_reading("profile zamba2-7b decode (graph)", cfg, "decode",
+                     SERVE_BATCH, SERVE_PROMPT + 2 + GRAPH_STEPS,
+                     prof["decode"]["graph"]["device_busy_s"] / GRAPH_STEPS,
+                     "device")
 
     # Main-path totals: each kernel over the calls its path made at batch 16
     # (K1: the 34-conv stack; K2, K3: one call per Table-3 layer; K4: the
@@ -5290,6 +5681,7 @@ def main(argv=None) -> int:
     rows[list(KERNEL_ROWS).index("mec_gemm")]["lowered_pair"] = {
         "ms": sum(pair[(n, SLICE_BATCH)]["ms"] for n in RESNET101),
         "library_ms": sum(pair[(n, SLICE_BATCH)]["library_ms"] for n in RESNET101)}
+    finish_dryrun(dryrun, dryrun_dir, t_dryrun)
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,11 @@
 """CLI (counterpart of ``python -m repro.analysis``)::
 
   PYTHONPATH=src python -m repro_torch.analysis \\
-      --suite memaudit|launch|lint|numcheck|all [--device cuda|cpu] \\
-      [--plans plans.json] [--out BENCH_torch_memaudit.json] \\
-      [--record-calibration] [--numcheck-out BENCH_torch_numcheck.json] \\
+      --suite memaudit|launch|lint|numcheck|shardcheck|all \\
+      [--device cuda|cpu] [--plans plans.json] \\
+      [--out BENCH_torch_memaudit.json] [--record-calibration] \\
+      [--numcheck-out BENCH_torch_numcheck.json] [--dist dist.json] \\
+      [--shardcheck-out BENCH_torch_shardcheck.json] \\
       [--lint-baseline PATH] [--update-lint-baseline]
 
 * ``memaudit``: the allocator's bytes of one ``conv2d(plan=)`` call
@@ -20,8 +22,16 @@
   on the card also the kernel paths on the five Table-3 layers at batch
   16 in f32 and bf16, against an f64 oracle on the card, with the budgets
   scaled to each layer's reductions.  Writes ``BENCH_torch_numcheck.json``.
-* ``all``: the four above.  ``shardcheck`` raises: it waits for the
-  distributed port (ROADMAP Queue 1 item 11).
+* ``shardcheck``: the collective contract (``analysis.shardcheck``) of
+  every partitioned record of the dist baseline (``--dist``, default
+  ``benchmarks/baselines/dist.json``) and every partitioned plan of
+  ``--plans`` under a 2-way axis a component, each run forward and
+  backward on gloo ranks (spawned, as many as the largest cell needs, at
+  most 8; on the card they share it), and the precision flow of the
+  rank's body.  Writes ``BENCH_torch_shardcheck.json`` in the JAX
+  package's schema; skips are recorded, a ``fail`` exits 1.
+* ``all``: the four before ``shardcheck``, which spawns ranks and runs
+  alone.
 
 Runs on the CUDA card unless ``--device cpu``.  Exit status is non-zero
 on any violation.
@@ -197,10 +207,51 @@ def _run_numcheck(args) -> int:
     return 0
 
 
+DEFAULT_DIST = "benchmarks/baselines/dist.json"
+DEFAULT_SHARDCHECK = "BENCH_torch_shardcheck.json"
+
+
+def _run_shardcheck(args) -> int:
+    from repro_torch.analysis.lint import repo_root
+    from repro_torch.analysis.shardcheck import SHARDCHECK_MAX_RANKS, run_suite
+    from repro_torch.bench.harness import require_device
+    from repro_torch.bench.report import make_report, write_report
+    require_device(args.device)
+    dist_path = pathlib.Path(args.dist or repo_root() / DEFAULT_DIST)
+    results = run_suite(args.device, dist_path, args.plans)
+    n_fail = n_skip = 0
+    for rec in results:
+        where = f"{rec['scenario']}/{rec['algorithm']}"
+        if rec["verdict"] == "fail":
+            n_fail += 1
+            print(f"shardcheck: FAIL {where}:")
+            for v in rec["violations"]:
+                print(f"  {v}")
+        elif rec["verdict"] == "skipped":
+            n_skip += 1
+            print(f"shardcheck: skip {where}: {rec['skipped_reason']}")
+    out = pathlib.Path(args.shardcheck_out or DEFAULT_SHARDCHECK)
+    doc = make_report("shardcheck", results,
+                      harness={"max_ranks": SHARDCHECK_MAX_RANKS,
+                               "dist_baseline": str(dist_path),
+                               "directions": ["fwd", "grad"],
+                               "device": args.device},
+                      backend=args.device)
+    write_report(doc, out)
+    print(f"shardcheck: report written to {out}")
+    if n_fail:
+        print(f"shardcheck: {n_fail} cell(s) broke their contract")
+        return 1
+    print(f"shardcheck: {len(results) - n_skip} cell(s) verified, "
+          f"{n_skip} skipped, 0 contract violations")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="Analysis suites (memaudit, launch, lint, numcheck)")
+        description="Analysis suites (memaudit, launch, lint, numcheck, "
+                    "shardcheck)")
     parser.add_argument("--suite", choices=SUITES, default="all")
     parser.add_argument("--plans", default=None,
                         help="plans document to audit or check (default: "
@@ -214,6 +265,12 @@ def main(argv=None) -> int:
     parser.add_argument("--numcheck-out", default=None,
                         help=f"numcheck report path (default: "
                              f"{DEFAULT_NUMCHECK})")
+    parser.add_argument("--dist", default=None,
+                        help=f"dist baseline the shardcheck suite checks "
+                             f"(default: {DEFAULT_DIST})")
+    parser.add_argument("--shardcheck-out", default=None,
+                        help=f"shardcheck report path (default: "
+                             f"{DEFAULT_SHARDCHECK})")
     parser.add_argument("--lint-baseline", default=None,
                         help="lint baseline JSON (default: "
                              "src/repro_torch/analysis/lint_baseline.json)")
@@ -222,10 +279,6 @@ def main(argv=None) -> int:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where to run (default: the CUDA card)")
     args = parser.parse_args(argv)
-    if args.suite == "shardcheck":
-        raise NotImplementedError(
-            "--suite shardcheck: the collective-contract checker needs "
-            "distributed execution, not ported yet: ROADMAP Queue 1 item 11")
     rc = 0
     if args.suite in ("lint", "all"):
         rc |= _run_lint(args)
@@ -235,6 +288,8 @@ def main(argv=None) -> int:
         rc |= _run_memaudit(args)
     if args.suite in ("numcheck", "all"):
         rc |= _run_numcheck(args)
+    if args.suite == "shardcheck":
+        rc |= _run_shardcheck(args)
     return rc
 
 

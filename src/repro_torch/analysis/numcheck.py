@@ -38,10 +38,15 @@ traced like any other.  The rules:
 * **error-budget**: a measured probe, forward and both gradients against
   an f64 oracle on fixed seeds (:func:`error_probe`).
 
-Not ported here: the JAX package's HLO precision-flow pass
-(``precision_flow_findings``) reads XLA's optimised HLO, which belongs
-with the collective checker, ``shardcheck`` (ROADMAP Queue 1 item 11).
-Every precision name computes alike in the port (f32 at f32 accuracy).
+The precision-flow pass (:func:`precision_flow_findings`, run by
+``analysis.shardcheck`` over a partitioned cell's rank body) holds the
+same records to a plan's declared precision: under ``HIGHEST`` or
+``HIGH`` a contraction is unannotated when it runs in f32 while TF32 is
+allowed for it (``torch.backends.cuda.matmul.allow_tf32`` for the
+matmuls, ``torch.backends.cudnn.allow_tf32`` for the convolutions, each
+read when the op is dispatched), or when it accumulates below the
+contract's accumulator.  The kernels multiply f32 as three TF32 products
+and sum in f32, which keeps the declared precision.
 
 Wiring, as in the JAX package: ``plan_conv2d`` asserts the static
 contract (:func:`assert_plan_numerics`, memoised); bench records carry a
@@ -75,7 +80,8 @@ KERNEL_PATHS = KERNEL_ALGORITHMS
 #: the accumulator each kernel's source instantiates, by C entry name
 #: (``csrc/mec_mma.cuh``: f32 sums; ``mec_lower`` moves bytes)
 KERNEL_ACCUM = {"mec_fused": "float32", "mec_fused2": "float32",
-                "mec_gemm": "float32", "mec_lower": None}
+                "mec_gemm": "float32", "mec_lower": None,
+                "mec_conv1d": "float32"}
 
 
 def probe_spec():
@@ -110,7 +116,8 @@ class NumCheckError(AssertionError):
 class ContractViolation:
     rule: str          # disallowed-dtype | f64-leak | accumulation |
     #                    kernel-accum | narrow-widen | output-cast-count |
-    #                    error-budget
+    #                    error-budget | precision-flow | the collective
+    #                    rules of analysis.shardcheck
     direction: str     # 'fwd' | 'grad' | 'static'
     message: str
 
@@ -181,6 +188,16 @@ def _tensors(x):
             yield from _tensors(v)
 
 
+def _tf32_allowed(op: str) -> bool:
+    """Whether the backend may run an f32 ``op`` in TF32, as set now."""
+    import torch
+    if op.startswith("convolution"):
+        return bool(torch.backends.cudnn.allow_tf32)
+    if op.startswith("_fft"):
+        return False
+    return bool(torch.backends.cuda.matmul.allow_tf32)
+
+
 def _recorder_class():
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -230,7 +247,8 @@ def _recorder_class():
                 self.dots.append({
                     "op": name, "operands": [_dtype(t) for t in ins],
                     "out": _dtype(outs[0]) if outs else None,
-                    "kernel": False, "accum": None, "site": _site()})
+                    "kernel": False, "accum": None, "site": _site(),
+                    "tf32": _tf32_allowed(name)})
             elif name == "_to_copy" and outs:
                 self._cast(_dtype(args[0]), _dtype(outs[0]), _site(),
                            args[0], outs)
@@ -258,7 +276,7 @@ def _recorder_class():
             self.dots.append({
                 "op": f"kernel:{name}",
                 "operands": [_dtype(t) for t in operands], "out": accum,
-                "kernel": True, "accum": accum, "site": site})
+                "kernel": True, "accum": accum, "site": site, "tf32": False})
             if cast_kind(accum, _dtype(out)) == "narrow":
                 # the kernel writes its f32 sums in the output's dtype
                 self._cast(accum, _dtype(out), site, None, [out],
@@ -389,6 +407,58 @@ def signature_findings(sig: Dict, contract: NumericContract,
 # ---------------------------------------------------------------------------
 # f64 reference + error probe
 # ---------------------------------------------------------------------------
+
+#: precision names that require f32 arithmetic of every contraction
+PRECISIONS_REQUIRING_F32 = ("HIGHEST", "HIGH")
+
+
+def _below_declared(d: Dict, accum_bits: int) -> bool:
+    """An f32 contraction the backend may run in TF32, or one whose
+    accumulator is narrower than ``accum_bits``."""
+    if d["tf32"] and any(o == "float32" for o in d["operands"]):
+        return True
+    bits = float_bits(d["accum"] if d["kernel"] else d["out"])
+    return bits is not None and bits < accum_bits
+
+
+def precision_flow_findings(signatures: Sequence[Dict],
+                            declared: Optional[str],
+                            accum_dtype: str = "float32"
+                            ) -> Tuple[Dict, List[ContractViolation]]:
+    """The precision-flow pass over one cell's traced directions
+    (:func:`trace` signatures).
+
+    ``declared`` is the plan's precision name ('HIGHEST' / 'HIGH' /
+    'DEFAULT') or None (nothing declared: trivially clean).  Contractions
+    count once a line, as in the static rules.  The tally keeps the JAX
+    package's keys; ``hlo_dots``/``hlo_unannotated`` read the same two
+    counts (the port compiles no HLO: the ops dispatched are the program
+    that runs)."""
+    tally = {"declared": declared, "dot_ops": 0, "unannotated_dot_ops": 0,
+             "hlo_dots": 0, "hlo_unannotated": 0}
+    violations: List[ContractViolation] = []
+    accum_bits = float_bits(accum_dtype) or 32
+    bad = []
+    for sig in signatures:
+        for d in _static_sites(sig["dots"], ("op", "operands", "out",
+                                             "site", "tf32")):
+            tally["dot_ops"] += 1
+            if declared in PRECISIONS_REQUIRING_F32 and \
+                    _below_declared(d, accum_bits):
+                tally["unannotated_dot_ops"] += 1
+                bad.append(d)
+    tally["hlo_dots"] = tally["dot_ops"]
+    tally["hlo_unannotated"] = tally["unannotated_dot_ops"]
+    if bad:
+        violations.append(ContractViolation(
+            "precision-flow", "static",
+            f"{len(bad)}/{tally['dot_ops']} contraction(s) run below the "
+            f"declared precision={declared} (f32 under TF32, or an "
+            f"accumulator below {accum_dtype}): "
+            + "; ".join(f"{_render_dot(d)}{' [tf32]' if d['tf32'] else ''}"
+                        for d in bad[:4])))
+    return tally, violations
+
 
 def f64_conv2d(x64, k64, s_h: int, s_w: int):
     """The f64 numpy oracle: direct valid convolution, NHWC x HWIO ->

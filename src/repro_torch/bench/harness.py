@@ -236,6 +236,9 @@ def measure(sc: Scenario, algorithm: str, iters: int = 3, warmup: int = 1,
     if sc.partition is not None:
         mesh = _dist_fields(record, sc, dtype_bytes, with_timing)
         with_timing = mesh is not None
+        if mesh is not None:
+            # every rank of the world takes part in the check
+            record["shardcheck"] = cell_shardcheck(sc, kwargs, mesh, device)
         if mesh is not None and mesh.get_coordinate() is None:
             return record          # a rank outside the cell's mesh
     if not with_timing:
@@ -265,6 +268,32 @@ def measure(sc: Scenario, algorithm: str, iters: int = 3, warmup: int = 1,
     record["timing"] = timing
     record["us_per_call"] = timing["us_median"]
     return record
+
+
+def cell_shardcheck(sc: Scenario, kwargs: Dict, mesh, device: str) -> Dict:
+    """The executed dist cell's collective-contract verdict
+    (``analysis.shardcheck``), reduced to the fields ``bench.check``
+    gates: the verdict, each direction's status, the expected required
+    and optional bytes, the violations.  The full evidence (every rank's
+    counts) is the shardcheck suite's.  Collective over the world."""
+    from repro_torch.analysis.shardcheck import check_sharding
+    chk = check_sharding(
+        sc.run_spec, sc.partition, dtype=sc.dtype,
+        algorithm=kwargs.get("algorithm", "auto"),
+        solution=kwargs.get("solution", "auto"), mesh=mesh,
+        axes=tuple(mesh.mesh_dim_names), device=device).record
+    return {
+        "verdict": chk["verdict"],
+        "skipped_reason": chk["skipped_reason"],
+        "directions": {d: ("unmodeled" if "unmodeled" in info
+                           else "verified")
+                       for d, info in chk["directions"].items()},
+        "expected": {d: {"required": info["expected"],
+                         "optional": info["optional"]}
+                     for d, info in chk["directions"].items()
+                     if "expected" in info},
+        "violations": chk["violations"],
+    }
 
 
 def _dist_fields(record: Dict, sc: Scenario, dtype_bytes: int,

@@ -8,9 +8,8 @@ every failed section.
   PYTHONPATH=src python -m repro_torch.benchmarks.run            # on the card
   PYTHONPATH=src python -m repro_torch.benchmarks.run --only fig4b_memory --device cpu
 
-The JAX package's ``roofline`` section costs LM architectures on a
-device mesh; it comes with distributed execution (ROADMAP Queue 1 item
-11).
+``roofline`` costs the LM architectures' cells on the (16, 16) mesh at
+the card's data-sheet constants (analytic, no device).
 """
 from __future__ import annotations
 
@@ -18,7 +17,8 @@ import sys
 import traceback
 
 from repro_torch.benchmarks import (_cli, conv_memory, conv_runtime,
-                                    hbm_traffic, ks_sweep, resnet101)
+                                    hbm_traffic, ks_sweep, resnet101,
+                                    roofline)
 
 SECTIONS = {
     "fig4b_memory": conv_memory.main,        # Fig 4(b,e): memory overhead
@@ -26,9 +26,10 @@ SECTIONS = {
     "fig4a_ks_sweep": ks_sweep.main,         # Fig 4(a): k/s sweep
     "table3_resnet101": resnet101.main,      # Table 3: ResNet-101 weighted
     "hbm_traffic": hbm_traffic.main,         # the kernels' traffic model
+    "roofline": roofline.main,               # LM cells: three roofline terms
 }
 # sections that run nothing on a device take no --device
-_ANALYTIC = ("hbm_traffic",)
+_ANALYTIC = ("hbm_traffic", "roofline")
 
 
 def main(argv=None, emit=print) -> dict:

@@ -8,7 +8,9 @@ Autograd differentiates the upcast convolution and narrows each gradient
 back to its operand dtype through the casts, as the JAX custom VJP does.
 
 cuDNN runs f32 convolutions in TF32 by default, which cannot meet the f32
-budget of ``numerics.CONTRACTS``; the CUDA call therefore turns TF32 off.
+budget of ``numerics.CONTRACTS``; the CUDA call therefore turns TF32 off,
+in the forward and in its gradients, which autograd runs later, outside
+the forward's context (:class:`_IeeeConv2d`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core.convspec import normalize_stride
 
@@ -49,6 +52,29 @@ def cudnn_operands(inp: torch.Tensor, kernel: torch.Tensor):
     return inp.permute(0, 3, 1, 2).to(acc), kernel.permute(3, 2, 0, 1).to(acc)
 
 
+class _IeeeConv2d(torch.autograd.Function):
+    """``F.conv2d`` (NCHW x OIHW, VALID) with TF32 off in the forward and
+    in the one ``convolution_backward`` of its gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with ieee_f32_conv():
+            return F.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with ieee_f32_conv():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, list(ctx.stride), [0, 0], [1, 1], False,
+                [0, 0], 1, [ctx.needs_input_grad[0],
+                            ctx.needs_input_grad[1], False])
+        return dx, dw, None
+
+
 def direct_conv2d(inp: torch.Tensor, kernel: torch.Tensor,
                   stride=1) -> torch.Tensor:
     """inp (n, h, w, c) pre-padded; kernel (k_h, k_w, i_c, k_c); VALID.
@@ -58,6 +84,5 @@ def direct_conv2d(inp: torch.Tensor, kernel: torch.Tensor,
         raise TypeError(f"direct_conv2d requires arguments to have the same "
                         f"dtypes, got {inp.dtype} and {kernel.dtype}")
     x, w = cudnn_operands(inp, kernel)
-    with ieee_f32_conv():
-        y = F.conv2d(x, w, stride=normalize_stride(stride))
+    y = _IeeeConv2d.apply(x, w, normalize_stride(stride))
     return y.permute(0, 2, 3, 1).to(inp.dtype).contiguous()

@@ -6,7 +6,10 @@ CUDA tensor (``conv1d_any_kw_kernel`` for k_w above :data:`MAX_KW`), and
 computes the same function with its plain PyTorch version for a CPU
 tensor; any other device, mixed devices or another dtype than
 f32/bf16/f16 raise.  There is no fallback from a CUDA tensor to the plain
-version.  ``mec_conv1d.launches`` counts its launches.
+version.  ``mec_conv1d.launches`` counts its launches.  On meta tensors
+the forward is a trace of the CUDA path: the launch becomes the op
+``repro_torch::kernel_call`` (``kernels.mec_conv``), and nothing is
+counted.
 
 Operands of two dtypes compute the JAX package's function, which
 multiplies by the kernel in its own dtype: both are promoted to
@@ -43,7 +46,7 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.core.mec import mec_conv1d_shift
 from repro_torch.kernels import build
-from repro_torch.kernels.mec_conv import _DTYPE_CODE, _on_cpu
+from repro_torch.kernels.mec_conv import _DTYPE_CODE, _kernel_call, _on_cpu
 
 #: the largest kernel width of the CUDA source's specialised instances (its
 #: kMaxKw); above it one instance per dtype takes k_w at run time
@@ -170,12 +173,15 @@ def _conv1d_forward(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     x, kernel = _promoted(x, kernel)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"K5 takes float32/bfloat16/float16, got {x.dtype}")
-    if _on_cpu(x, kernel):
+    if _on_cpu(x, kernel, trace=True):
         return mec_conv1d_plain(x, kernel).to(out_dtype)
     if x.stride(2) != 1:
         x = x.contiguous()
     kernel = kernel.contiguous()
     out = torch.empty((n, t, c), dtype=x.dtype, device=x.device)
+    if out.device.type == "meta":
+        _kernel_call("mec_conv1d", [x, kernel], out)
+        return out.to(out_dtype)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

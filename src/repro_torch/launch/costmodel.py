@@ -1,11 +1,32 @@
-"""The conv half of ``repro.launch.costmodel``: the conv2d algorithm
-choice (the paper's analytic memory overheads, §3.4 ``core.memory``, with
-mult-add counts, and the fitted correction layer
-``repro_torch.plan.calibrate`` the planner consults) and the conv2d
-partition choice (per-device Eq. 2-3 memory and the bytes the halo
-exchange and the cotangent sums send, consulted by
+"""Analytic cost model (counterpart of ``repro.launch.costmodel``), in two
+halves.
+
+The LM half counts a whole train, prefill or decode step of a
+``models.config.ModelConfig`` per chip of a :class:`MeshShape`: FLOPs,
+device-memory bytes and collective bytes (operand-size convention), and
+the model FLOPs (6·N·D) a roofline share divides by.  The formulas are the
+JAX package's, in the same order, so the numbers are equal:
+
+* matmul flops = 2*M*N*K; attention runs the full S^2 (the triangular
+  kernel, ``attn_skip_masked``, half of it);
+* train = fwd + remat-refwd + bwd(2x) = 4x block fwd flops; logits 3x
+  (``remat_policy="dots"``: the recompute pass costs 0.15 of a forward
+  and no collectives);
+* device memory: every weight byte read once a pass, the optimizer reads
+  and writes m, v and the master weights (f32), activations cross memory
+  ~8x the hidden bytes a block a pass (a calibrated coefficient of the
+  JAX package);
+* collectives a chip: 2 hidden all-reduces a dense block a pass (1 with
+  sequence parallelism, whose RS+AG move half the operand each), the
+  expert all-to-alls, one gradient all-reduce over the data axes.
+
+The conv half: the conv2d algorithm choice (the paper's analytic memory
+overheads, §3.4 ``core.memory``, with mult-add counts, and the fitted
+correction layer ``repro_torch.plan.calibrate`` the planner consults) and
+the conv2d partition choice (per-device Eq. 2-3 memory and the bytes the
+halo exchange and the cotangent sums send, consulted by
 ``parallel.conv.sharded_conv2d(partition="auto")`` and the bench ``dist``
-suite).  The LM-cost half waits (ROADMAP Queue 1 item 11)."""
+suite)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +34,9 @@ import math
 from typing import Dict
 
 from repro_torch.core import memory
+
+BF16 = 2
+F32 = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +53,199 @@ class MeshShape:
     def dp(self) -> int:
         return self.pod * self.data
 
+
+def _attn_flops_fwd(cfg, b, s, s_kv=None) -> float:
+    s_kv = s_kv or s
+    hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    d = cfg.d_model
+    proj = 2 * b * s * d * hd * (h + 2 * kv) + 2 * b * s * h * hd * d
+    # qk^T + av; the triangular kernel (attn_skip_masked) visits only the
+    # causal half of the chunk grid
+    factor = 2 if getattr(cfg, "attn_skip_masked", False) else 4
+    scores = factor * b * h * s * s_kv * hd
+    return proj + scores
+
+
+def _block_flops_fwd(cfg, b, s) -> Dict[str, float]:
+    d = cfg.d_model
+    out = {"attn": 0.0, "mlp": 0.0, "ssm": 0.0}
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe", "audio"):
+        out["attn"] = _attn_flops_fwd(cfg, b, s)
+        f = cfg.moe_d_ff if fam == "moe" else cfg.d_ff
+        mult = cfg.top_k + cfg.n_shared_experts if fam == "moe" else 1
+        out["mlp"] = 3 * 2 * b * s * d * f * mult
+        if fam == "moe":
+            out["mlp"] += 2 * b * s * d * cfg.n_experts     # router
+    if fam == "hybrid":
+        d_in = cfg.ssm_expand * d
+        n = cfg.ssm_state
+        h = d_in // cfg.ssm_head_dim
+        proj = 2 * b * s * d * (2 * d_in + 2 * n + h) + 2 * b * s * d_in * d
+        conv = 2 * b * s * cfg.conv_width * (d_in + 2 * n)
+        # SSD: intra-chunk quadratic (chunk=128) + state updates
+        chunk = 128
+        ssd = (2 * b * s * chunk * n            # C B^T within chunk
+               + 2 * b * s * chunk * h * cfg.ssm_head_dim
+               + 4 * b * s * h * cfg.ssm_head_dim * n)
+        out["ssm"] = proj + conv + ssd
+    if fam == "ssm":
+        d_in = 2 * d
+        proj = 2 * b * s * d * 2 * d_in + 3 * 2 * b * s * d_in * d_in \
+            + 2 * b * s * d_in * d
+        quad = 4 * b * cfg.n_heads * s * s * (d_in // cfg.n_heads)
+        out["ssm"] = proj + quad
+    return out
+
+
+def _layer_multiplier(cfg) -> float:
+    return cfg.n_layers + (cfg.encoder_layers if cfg.family == "audio" else 0)
+
+
+def flops_fwd(cfg, b, s) -> float:
+    blk = _block_flops_fwd(cfg, b, s)
+    per_layer = sum(blk.values())
+    total = per_layer * cfg.n_layers
+    if cfg.family == "audio":
+        enc = _attn_flops_fwd(cfg, b, cfg.encoder_len) + \
+            2 * 2 * b * cfg.encoder_len * cfg.d_model * cfg.d_ff
+        total += enc * cfg.encoder_layers
+        total += _attn_flops_fwd(cfg, b, s, cfg.encoder_len) * cfg.n_layers
+    if cfg.family == "hybrid":
+        n_apps = cfg.n_layers // max(1, cfg.attn_every)
+        shared = _attn_flops_fwd(cfg, b, s) + 3 * 2 * b * s * cfg.d_model * cfg.d_ff
+        total += shared * n_apps - 0  # shared block applied n_apps times
+    return total
+
+
+def logits_flops(cfg, b, s) -> float:
+    return 2 * b * s * cfg.d_model * cfg.vocab
+
+
+def params_bytes(cfg, dtype_bytes=BF16) -> float:
+    return cfg.param_count() * dtype_bytes
+
+
+# --------------------------------------------------------------------- train
+def train_cost(cfg, b: int, s: int, mesh: MeshShape) -> Dict:
+    fwd = flops_fwd(cfg, b, s)
+    lg = logits_flops(cfg, b, s)
+    # remat_policy="dots": matmul outputs are saved, the recompute pass
+    # re-runs only elementwise ops (~15% of fwd flops) and NO collectives
+    remat = 0.0 if not cfg.remat else \
+        (0.15 if cfg.remat_policy == "dots" else 1.0)
+    flops = fwd * (3 + remat) + lg * 3
+    # HBM: weights (3+remat passes) + optimizer (read m,v,p + write) + acts
+    w = params_bytes(cfg) / mesh.chips
+    opt = cfg.param_count() * (3 * F32 * 2) / mesh.chips     # m,v,master rw
+    act = (8 * _layer_multiplier(cfg) * (b / mesh.dp) * s * cfg.d_model
+           * BF16 * (3 + remat))
+    # The conv1d's lowered L (k_w x its channels a block) is not charged,
+    # as in the JAX package; K5, the fused dataflow, never builds it.
+    hbm = w * (3 + remat) + opt + act
+    # collectives per chip (operand-size convention)
+    hid = (b / mesh.dp) * s * cfg.d_model * BF16
+    passes = 2 + (1 if remat == 1.0 else 0)   # dots policy: no refwd colls
+    tp_ar = _tp_ars_per_stack(cfg) * hid * passes
+    ep = 0.0
+    if cfg.family == "moe":
+        # int8 dispatch: 1 byte/elem + one bf16 scale per row
+        elem = (1 + 2.0 / cfg.d_model) if getattr(
+            cfg, "moe_dispatch_int8", False) else BF16
+        tok_bytes = (b / mesh.dp) * (s / mesh.model) * cfg.top_k \
+            * cfg.d_model * elem * cfg.capacity_factor
+        ep = 2 * cfg.n_layers * tok_bytes * passes
+    # gradient all-reduce over DP: grads carry the param dtype (bf16);
+    # int8-EF compression gathers 1 byte/elem instead (conservative 2x in
+    # the operand-bytes convention; the real ring-AR wire saving is ~8x)
+    grad_byte = 1 if getattr(cfg, "grad_compress_int8", False) else BF16
+    dp_ar = cfg.param_count() / mesh.model * grad_byte if mesh.dp > 1 else 0.0
+    coll = tp_ar + ep + dp_ar
+    return {"flops": flops, "hbm_bytes_chip": hbm, "coll_bytes_chip": coll,
+            "model_flops": 6 * cfg.param_count(active_only=True) * b * s}
+
+
+def _tp_ars_per_stack(cfg) -> float:
+    """Hidden-sized TP all-reduces per forward pass of the whole stack.
+
+    Dense/attention block: 2 (attn out-proj + MLP down-proj row-parallel).
+    With sequence-parallel residual segments (cfg.seq_parallel) the pair
+    becomes RS+AG at half the operand bytes each -> counts as 1.
+    Mamba2 block: 1 (out_proj).  xLSTM: 1 (down).  MoE block: 1 attn AR +
+    SP gather/scatter around the a2a (~1).
+    """
+    sp = 0.5 if getattr(cfg, "seq_parallel", False) else 1.0
+    if cfg.family in ("dense", "vlm"):
+        return 2 * cfg.n_layers * sp
+    if cfg.family == "moe":
+        return (1 + 1) * cfg.n_layers * sp
+    if cfg.family == "hybrid":
+        n_apps = cfg.n_layers // max(1, cfg.attn_every)
+        return (1 * cfg.n_layers + 2 * n_apps) * sp
+    if cfg.family == "ssm":
+        return 1 * cfg.n_layers
+    if cfg.family == "audio":
+        return 2 * (cfg.n_layers + cfg.encoder_layers) + cfg.n_layers
+    return 2 * cfg.n_layers
+
+
+# ------------------------------------------------------------------- prefill
+def prefill_cost(cfg, b, s, mesh: MeshShape) -> Dict:
+    fwd = flops_fwd(cfg, b, s)
+    flops = fwd + 2 * b * cfg.d_model * cfg.vocab   # last-token logits
+    w = params_bytes(cfg) / mesh.chips
+    act = 8 * _layer_multiplier(cfg) * (b / mesh.dp) * s * cfg.d_model * BF16
+    cache = (_layer_multiplier(cfg) * (b / mesh.dp) * s * 2
+             * cfg.n_kv_heads * cfg.head_dim * BF16)
+    hbm = w + act + cache
+    hid = (b / mesh.dp) * s * cfg.d_model * BF16
+    tp_ar = _tp_ars_per_stack(cfg) * hid
+    ep = 0.0
+    if cfg.family == "moe":
+        ep = 2 * cfg.n_layers * (b / mesh.dp) * (s / mesh.model) \
+            * cfg.top_k * cfg.d_model * BF16 * cfg.capacity_factor
+    return {"flops": flops, "hbm_bytes_chip": hbm, "coll_bytes_chip": tp_ar + ep,
+            "model_flops": 2 * cfg.param_count(active_only=True) * b * s}
+
+
+# -------------------------------------------------------------------- decode
+def decode_cost(cfg, b: int, s_cache: int, mesh: MeshShape) -> Dict:
+    n_act = cfg.param_count(active_only=True)
+    flops = 2 * n_act * b
+    kv_layers = (cfg.n_layers if cfg.family in ("dense", "vlm", "moe", "audio")
+                 else cfg.n_layers // max(1, cfg.attn_every)
+                 if cfg.family == "hybrid" else 0)
+    kv_elem = ((1 + 2.0 / cfg.head_dim)
+               if getattr(cfg, "kv_cache_int8", False) else BF16)
+    cache_bytes = (kv_layers * b * s_cache * 2 * cfg.n_kv_heads
+                   * cfg.head_dim * kv_elem)
+    flops += 2 * kv_layers * b * cfg.n_heads * s_cache * cfg.head_dim * 2
+    # every live weight byte + the whole cache cross HBM once per token
+    hbm = params_bytes(cfg) / mesh.chips + cache_bytes / mesh.chips
+    if cfg.family == "moe":
+        # only routed experts' weights are touched per token batch
+        live = (cfg.param_count(active_only=True)
+                + 3 * cfg.d_model * cfg.moe_d_ff
+                * min(cfg.n_experts, b * cfg.top_k)) * BF16
+        hbm = live / mesh.chips + cache_bytes / mesh.chips
+    hid = max(b / mesh.dp, 1) * cfg.d_model * BF16
+    tp_ar = _tp_ars_per_stack(cfg) * hid
+    logits_ag = max(b / mesh.dp, 1) * cfg.vocab / mesh.model * F32
+    return {"flops": flops,
+            "hbm_bytes_chip": hbm,
+            "coll_bytes_chip": tp_ar + logits_ag,
+            "model_flops": 2 * n_act * b}
+
+
+def cell_cost(cfg, kind: str, b: int, s: int, mesh: MeshShape) -> Dict:
+    if kind == "train":
+        return train_cost(cfg, b, s, mesh)
+    if kind == "prefill":
+        return prefill_cost(cfg, b, s, mesh)
+    return decode_cost(cfg, b, s, mesh)
+
+
+# ----------------------------------------------------- conv2d algorithm choice
 
 def conv2d_algorithm_costs(spec, calibration=None) -> Dict[str, Dict[str, float]]:
     """Per-eligible-algorithm {flops, overhead_elems} for one ConvSpec.

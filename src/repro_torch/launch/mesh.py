@@ -92,8 +92,13 @@ def _device_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
                            "call launch.mesh.init_world (or run under "
                            "launch.mesh.spawn / torchrun) first")
     n = math.prod(shape)
-    return DeviceMesh(_device_type(), torch.arange(n).reshape(shape),
+    mesh = DeviceMesh(_device_type(), torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
+    if len(shape) > 1 and n < dist.get_world_size():
+        # The group over all of a smaller mesh's axes (axes_group), made
+        # now, while every rank of the world takes part.
+        mesh.all_axes_group = dist.new_group(ranks=list(range(n)))
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False):
@@ -137,19 +142,31 @@ def make_host_mesh(shape=None, axes=None):
 
 def axes_group(mesh, axes: Sequence[str]):
     """The process group over the mesh axes ``axes``: one axis's own
-    group, or, for every axis of a mesh that spans the world, the world.
-    Other multi-axis groups would have to be made by every rank of the
-    world ahead of time; none is needed yet."""
+    group; for every axis of a mesh, the world (a mesh that spans it) or
+    the group its builder made over its ranks; for some axes of a mesh
+    that spans the world, the group of those axes flattened (made by
+    every rank, as a step builder runs on all of them: ("pod", "data") of
+    the multipod mesh)."""
     axes = tuple(axes)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    if set(axes) == set(axis_names(mesh)) and \
-            mesh.size() == dist.get_world_size():
-        return dist.group.WORLD
+    spans = mesh.size() == dist.get_world_size()
+    if set(axes) == set(axis_names(mesh)):
+        if spans:
+            return dist.group.WORLD
+        if hasattr(mesh, "all_axes_group"):
+            return mesh.all_axes_group
+    elif spans and set(axes) < set(axis_names(mesh)):
+        # the mesh's rank bookkeeping is host data, also where a dry run
+        # builds its step under FakeTensorMode
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        with unset_fake_temporarily():
+            return mesh[axes]._flatten().get_group()
     raise ValueError(
-        f"a group over mesh axes {axes} needs them to be every axis of a "
-        f"mesh that spans the world; mesh axes {axis_names(mesh)}, "
-        f"{mesh.size()} of {dist.get_world_size()} ranks")
+        f"a group over mesh axes {axes} needs a mesh that spans the world "
+        f"(or all of a smaller mesh's axes); mesh axes "
+        f"{axis_names(mesh)}, {mesh.size()} of {dist.get_world_size()} "
+        f"ranks")
 
 
 # ---------------------------------------------------------------- processes

@@ -29,13 +29,30 @@ one card cannot use NCCL.  Under NCCL nothing is staged.  Which applies
 is decided from the group's backend, never by catching an error.  Each
 of the two counts the bytes it copied in ``<function>.bytes``, as the
 kernels' wrappers count their launches.
+
+Every collective here also reports its kind and operand bytes to the
+counters ``launch.hlo_analysis.collective_bytes`` opens (:data:`COUNTERS`):
+``all-reduce``, ``all-gather`` (the rank's operand, not the gathered
+result), ``reduce-scatter`` (the whole operand), ``all-to-all`` (the whole
+operand) and ``collective-permute`` (the point-to-point sends of one
+:func:`exchange`).
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+
+#: the open counters: dicts of bytes by collective kind and ``count``
+COUNTERS: List[dict] = []
+
+
+def _count(kind: str, nbytes: int) -> None:
+    for counter in COUNTERS:
+        counter[kind] += nbytes
+        counter["count"] += 1
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -69,6 +86,11 @@ def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def all_reduce_sum(t: torch.Tensor, group=None,
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
     """A new tensor: ``t`` summed (or reduced by ``op``) over ``group``."""
+    _count("all-reduce", t.nbytes)
+    return _all_reduce(t, group, op)
+
+
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     if _staged(t, group):
         h = stage_to_host(t)
         dist.all_reduce(h, op=op, group=group)
@@ -87,19 +109,41 @@ def all_gather_cat(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """The ranks' ``t`` (one shape) concatenated along ``dim`` in group
     rank order."""
     n = dist.get_world_size(group)
+    _count("all-gather", t.nbytes)
     src = stage_to_host(t) if _staged(t, group) else t.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return _back(torch.cat(parts, dim=dim), t)
 
 
+def reduce_scatter_sum(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's slice (one of ``n`` equal ones along ``dim``, in group
+    rank order) of ``t`` summed over ``group``.  Under gloo it runs as the
+    all-reduce of ``t`` and the slice: ranks that share one card stage the
+    whole operand through host memory either way."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    _count("reduce-scatter", t.nbytes)
+    if dist.get_backend(group) == "gloo":
+        return _all_reduce(t, group).chunk(n, dim)[me].contiguous()
+    src = t.detach().movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
 def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
              recvs: Sequence[Tuple[torch.Tensor, int]],
-             group=None) -> List[torch.Tensor]:
+             group=None, kind: Optional[str] = "collective-permute"
+             ) -> List[torch.Tensor]:
     """Point-to-point in one batch (``batch_isend_irecv``, so no order of
     posting can deadlock): ``sends`` are (tensor, group rank of the peer),
     ``recvs`` (buffer shaped like the message, group rank of the peer).
-    Returns the filled receive buffers, on the buffers' device."""
+    Returns the filled receive buffers, on the buffers' device.  The sends
+    are counted as one collective of ``kind`` (None: the caller counts)."""
+    if kind is not None and sends:
+        _count(kind, sum(t.nbytes for t, _ in sends))
     ops, bufs = [], []
     for t, peer in sends:
         src = stage_to_host(t) if _staged(t, group) else t.contiguous()
@@ -133,8 +177,9 @@ def all_to_all(t: torch.Tensor, split_dim: int, concat_dim: int,
     chunks = t.chunk(n, split_dim)
     peers = [j for j in range(n) if j != me]
     all_to_all.bytes += sum(chunks[j].nbytes for j in peers)
+    _count("all-to-all", t.nbytes)
     got = exchange([(chunks[j], j) for j in peers],
-                   [(chunks[me], j) for j in peers], group)
+                   [(chunks[me], j) for j in peers], group, kind=None)
     parts = dict(zip(peers, got))
     parts[me] = chunks[me]
     return torch.cat([parts[j] for j in range(n)], dim=concat_dim)

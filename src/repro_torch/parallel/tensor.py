@@ -678,21 +678,30 @@ def model_rank(mesh) -> int:
     return mesh.get_local_rank(TP_AXIS)
 
 
+def square_parts(pl: Placement, g: torch.Tensor):
+    """(split, replicated) lists of f32 sums of squares of a rank's leaf
+    ``g`` (or of a slice of it along another dimension than ``pl.dim``):
+    its split segments' and its replicated segments' (the whole leaf,
+    where it does not split)."""
+    from repro_torch.optim.adamw import sum_squares
+    if not pl.split:
+        return [], [sum_squares(g)]
+    dim = pl.dim % g.dim()
+    return tuple([sum_squares(g.narrow(dim, a, b - a))
+                  for a, b in pl.local_ranges(split_part)]
+                 for split_part in (True, False))
+
+
 def global_norm(grads, placements, tp: Optional[TP]) -> torch.Tensor:
     """The gradient norm of the whole model from one rank's local tree:
     each split segment's squares summed over the axis once, each
     replicated leaf or segment counted once."""
-    from repro_torch.optim.adamw import sum_squares
     split, rep = [], []
 
     def one(pl, g):
-        if not pl.split:
-            rep.append(sum_squares(g))
-            return
-        dim = pl.dim % g.dim()
-        for parts, split_part in ((split, True), (rep, False)):
-            for a, b in pl.local_ranges(split_part):
-                parts.append(sum_squares(g.narrow(dim, a, b - a)))
+        s, r = square_parts(pl, g)
+        split.extend(s)
+        rep.extend(r)
 
     _zip(one, placements, grads)
     zero = torch.zeros((), dtype=_F32)

@@ -9,8 +9,8 @@ costmodel consults, for one backend ("cpu" or "cuda") and one device:
 * **time samples**: every trial ``plan_conv2d(mode="measured")`` times,
   keyed ``spec|dtype|algorithm|solution|w_blk``;
 * **memory samples**: measured/predicted temporary-byte ratios, keyed
-  ``spec|dtype|algorithm`` (``add_memory``; what reads memory reports
-  into it waits for ROADMAP Queue 1 item 7).
+  ``spec|dtype|algorithm`` (``add_memory``; ``python -m
+  repro_torch.analysis --suite memaudit --record-calibration`` feeds it).
 
 :meth:`Calibration.fit` gives ``time_cells`` (per cell, the best median
 us per algorithm: where a cell's evidence covers the analytic pick and a

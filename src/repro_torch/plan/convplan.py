@@ -39,8 +39,9 @@ Where the port differs from the JAX package:
   kernel candidate that fails (to build, launch or run) raises: only a
   configuration the launcher refuses by design is skipped.  Every
   returned plan passes ``analysis.numcheck.assert_plan_numerics``, as in
-  the JAX package; the collective contract of partitioned plans
-  (``shardcheck``) waits for ROADMAP Queue 1 item 11.
+  the JAX package, and a partitioned one the collective contract
+  (``analysis.shardcheck.assert_plan_contract``) on the installed rules'
+  ranks: every rank plans the cell together.
 * ``partition`` follows the executor's rules-aware convention and
   resolves against the installed ``parallel.axes`` mesh at plan time, as
   in the JAX package: the plan records the components and the mesh axes.
@@ -347,6 +348,17 @@ def _assert_numerics(plan: ConvPlan) -> None:
     on meta tensors and memoised, so planning stays cheap)."""
     from repro_torch.analysis.numcheck import assert_plan_numerics
     assert_plan_numerics(plan)
+
+
+def _assert_contract(plan: ConvPlan) -> None:
+    """A partitioned plan passes its collective and precision contract
+    (``analysis.shardcheck.assert_plan_contract``), run on the installed
+    rules' ranks and memoised; skipped silently with no installed rules.
+    Collective: every rank of the rules' mesh reaches it together, as
+    every rank of a distributed program plans the same cells."""
+    if plan.partition is not None:
+        from repro_torch.analysis.shardcheck import assert_plan_contract
+        assert_plan_contract(plan)
 
 
 def _resolve_partition(spec: ConvSpec, partition, partition_axis,
@@ -736,6 +748,7 @@ def plan_conv2d(spec: ConvSpec, *, dtype="float32", mode: str = "analytic",
             calibration=calibration)
         plan = dataclasses.replace(base, partition=parts,
                                    partition_axes=axes)
+        _assert_contract(plan)
         _assert_numerics(plan)
         return plan
 
@@ -748,6 +761,7 @@ def plan_conv2d(spec: ConvSpec, *, dtype="float32", mode: str = "analytic",
                     precision=precision_name, partition=parts,
                     partition_axes=axes, backend=backend, mode=mode)
     assert_plan(plan)
+    _assert_contract(plan)
     _assert_numerics(plan)
     return plan
 

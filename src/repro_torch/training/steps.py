@@ -31,10 +31,22 @@ data rank, as in the JAX package's ``shard_map``), the int8
 count, local over "model".  Both steps install the rules as
 ``local_batch``: each rank holds its own batch, so a conv inside stays on
 the rank.
+
+``make_zero1_train_step`` applies ZeRO-1 as the JAX package's dry run
+places it (``parallel.sharding.opt_state_specs`` over the data-parallel
+axes): each rank keeps its slice of every AdamW moment that
+``zero1_specs`` splits, along the dimension it picks on the whole leaf
+(:func:`zero1_dims`; the others stay whole).  The gradient of the global
+batch is reduced and scattered over the data axes, each rank updates its
+slice of the parameters with its moment slice, and the updated slices are
+gathered back, so every rank holds its whole (tensor-parallel) parameters
+again.  :func:`init_opt_state` with ``model`` and ``rules`` builds the
+rank's slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Callable, Dict, Optional
 
 import torch
@@ -135,12 +147,13 @@ def make_loss_fn(model: LM) -> Callable:
     return loss_fn
 
 
-def make_grad_fn(model: LM, rules: Optional[ShardingRules] = None
-                 ) -> Callable:
+def make_grad_fn(model: LM, rules: Optional[ShardingRules] = None,
+                 reduce_grads: bool = True) -> Callable:
     """``grad_fn(params, batch) -> (loss, metrics, grads)``: the loss of the
     batch and its gradient by autograd; with ``rules``, the global batch's
     (every rank passes its slice) on every rank of the data-parallel
-    group."""
+    group.  ``reduce_grads=False`` leaves each rank its own part of that
+    gradient, which the parts sum to over the group."""
     group = dp_group(rules)
     rules = _local_batch(rules)
     loss_fn = make_loss_fn(model)
@@ -166,7 +179,7 @@ def make_grad_fn(model: LM, rules: Optional[ShardingRules] = None
             part = (nll + Z_LOSS * z) / tokens + aux / n_ranks
             part.backward()
         grads = _take_grads(params, leaves)
-        if n_ranks > 1:
+        if n_ranks > 1 and reduce_grads:
             grads = _all_reduce_tree(grads, group)
         aux_mean = comm.all_reduce_sum(aux.detach().reshape(1), group)[0] \
             / n_ranks
@@ -238,12 +251,133 @@ def make_compressed_train_step(model: LM, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
+def zero1_dims(model: LM, params, rules: ShardingRules):
+    """The tree of the dimension each leaf's moments split on over the
+    data-parallel axes (None: kept whole): ``sharding.zero1_specs`` of
+    ``param_specs`` on the whole leaves' shapes (a rank's leaves are its
+    tensor-parallel slices, ``parallel.tensor``), as the JAX package's dry
+    run places the optimizer state."""
+    from repro_torch.parallel import sharding
+    mesh = rules.mesh
+    placements = tensor.local_placement(params, mesh, model.cfg, local=True)
+
+    def whole(pl, p):
+        shape = list(p.shape)
+        if pl.split:
+            shape[pl.dim % p.dim()] = sum(n for n, _ in pl.segments)
+        return types.SimpleNamespace(shape=tuple(shape))
+
+    shapes = tensor._zip(whole, placements, params)
+    p_specs = sharding.param_specs(shapes, mesh)
+    z_specs = sharding.zero1_specs(p_specs, shapes, mesh,
+                                   tuple(rules.dp_axes))
+    # the dimension zero1_specs placed the data axes on (specs are tuples,
+    # leaves of tree_map)
+    return adamw.tree_map(
+        lambda ps, zs: next((i for i, (a, b) in enumerate(zip(ps, zs))
+                             if a != b), None), p_specs, z_specs)
+
+
+def _zero1_slice(t: torch.Tensor, dim: Optional[int], index: int, n: int):
+    return t if dim is None else t.chunk(n, dim)[index]
+
+
+def _moment_bytes(opt_state) -> int:
+    """Bytes of a rank's AdamW moments (m and v)."""
+    return sum(t.numel() * t.element_size()
+               for key in ("m", "v")
+               for t in adamw.tree_leaves(opt_state[key]))
+
+
+def _zero1_norm(placements, reduced, dims, group, tp) -> torch.Tensor:
+    """The clip's norm from a rank's reduced gradient (f32) and its
+    leaves' ``placements``: a sliced leaf's squares summed over the data
+    group, a whole one's counted once, and the split segments' summed
+    over "model" (``tensor.global_norm``'s terms)."""
+    parts = {True: ([], []), False: ([], [])}   # sliced: (split, rep)
+
+    def one(pl, g_dim):
+        split, rep = tensor.square_parts(pl, g_dim[0])
+        parts[g_dim[1] is not None][0].extend(split)
+        parts[g_dim[1] is not None][1].extend(rep)
+
+    tensor._zip(one, placements,
+                adamw.tree_map(lambda g, d: (g, d), reduced, dims))
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=adamw.tree_leaves(reduced)[0].device)
+
+    def total(xs):
+        return torch.stack(xs).sum() if xs else zero
+
+    sliced = comm.all_reduce_sum(torch.stack(
+        [total(parts[True][0]), total(parts[True][1])]), group)
+    split = sliced[0] + total(parts[False][0])
+    rep = sliced[1] + total(parts[False][1])
+    if tp is not None:
+        split = comm.all_reduce_sum(split.reshape(1), tp)[0]
+    return torch.sqrt(split + rep)
+
+
+def make_zero1_train_step(model: LM, opt_cfg: adamw.AdamWConfig,
+                          rules: ShardingRules) -> Callable:
+    """:func:`make_train_step` with ZeRO-1 over ``rules``' data-parallel
+    axes: ``opt_state`` holds the rank's moment slices
+    (:func:`init_opt_state` with ``model`` and ``rules``).  Each leaf's
+    gradient (f32) is reduced and scattered over the data group along
+    :func:`zero1_dims`' dimension (summed whole where it is None); the
+    clip's norm sums the slices' squares over the data group (and the
+    split segments' over "model"); AdamW updates the rank's slice of each
+    parameter, and the slices are gathered back into the parameters."""
+    group = dp_group(rules)
+    grad_fn = make_grad_fn(model, rules, reduce_grads=False)
+    tp = _model_group(rules)
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = grad_fn(params, batch)
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        dims = zero1_dims(model, params, rules)
+        reduced = adamw.tree_map(
+            lambda g, d: comm.all_reduce_sum(g.to(torch.float32), group)
+            if d is None else
+            comm.reduce_scatter_sum(g.to(torch.float32), d, group),
+            grads, dims)
+        del grads
+        gnorm = _zero1_norm(tensor.local_placement(
+            params, rules.mesh, model.cfg, local=True), reduced, dims,
+            group, tp)
+        with torch.no_grad():
+            own = adamw.tree_map(
+                lambda p, d: _zero1_slice(p, d, me, n).contiguous(),
+                params, dims)
+            om = adamw.update_(opt_cfg, reduced, opt_state, own, gnorm)
+            adamw.tree_map(
+                lambda p, o, d: None if d is None else
+                p.copy_(comm.all_gather_cat(o, d, group)),
+                params, own, dims)
+        del reduced, own
+        return params, opt_state, dict(metrics, loss=loss, **om)
+
+    return train_step
+
+
 def metrics_shape(model: LM):  # lint-ignore: accepted-kwarg-not-forwarded
     return {"nll": 0.0, "tokens": 0.0, "aux": 0.0}
 
 
-def init_opt_state(params, compressed: bool = False) -> Dict:
-    state = adamw.init(params)
+def init_opt_state(params, compressed: bool = False, *,
+                   model: Optional[LM] = None,
+                   rules: Optional[ShardingRules] = None) -> Dict:
+    """AdamW's state of ``params`` (and the error feedback, ``compressed``).
+    With ``model`` and ``rules``, ZeRO-1: the rank's slices of the moments
+    (:func:`make_zero1_train_step`)."""
+    if model is not None and rules is not None:
+        group = dp_group(rules)
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        state = adamw.init(adamw.tree_map(
+            lambda p, d: _zero1_slice(p, d, me, n),
+            params, zero1_dims(model, params, rules)))
+    else:
+        state = adamw.init(params)
     if compressed:
         state["ef"] = compression.init_ef(params)
     return state

@@ -191,10 +191,28 @@ def test_analysis_cli_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert {r["scenario"] for r in json.loads(out.read_text())["results"]} \
         == {f"smoke/{n}" for n in ("s3x3", "s5x5", "s11x11", "w520")}
     # the suites of ROADMAP item 9 run (tests/test_torch_numcheck.py,
-    # test_torch_lint.py, test_torch_launch_check.py); shardcheck waits
-    # for item 11
-    with pytest.raises(NotImplementedError, match="item 11"):
-        analysis_cli.main(["--suite", "shardcheck", "--device", "cpu"])
+    # test_torch_lint.py, test_torch_launch_check.py); shardcheck runs on
+    # spawned gloo ranks, here over the dist baseline's smoke cells (their
+    # largest mesh: 4 ranks), in the JAX package's report schema
+    base = json.loads((REPO / "benchmarks" / "baselines" / "dist.json")
+                      .read_text())
+    smoke = dict(base, results=[r for r in base["results"]
+                                if r["scenario"].startswith("smoke")])
+    trimmed, sc_out = tmp_path / "dist_smoke.json", tmp_path / "sc.json"
+    trimmed.write_text(json.dumps(smoke))
+    assert analysis_cli.main(["--suite", "shardcheck", "--device", "cpu",
+                              "--dist", str(trimmed),
+                              "--shardcheck-out", str(sc_out)]) == 0
+    doc = json.loads(sc_out.read_text())
+    assert validate_report(doc) == [] and doc["suite"] == "shardcheck"
+    committed = {(r["scenario"], r["algorithm"]): r["verdict"] for r in
+                 json.loads((REPO / "BENCH_shardcheck.json").read_text())[
+                     "results"]}
+    assert len(doc["results"]) == 12
+    for r in doc["results"]:
+        assert r["verdict"] == committed[(r["scenario"], r["algorithm"])] \
+            == "pass"
+    assert "12 cell(s) verified, 0 skipped" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("own,verdict", [(0, "pass"), (4096, "pass"),

@@ -662,3 +662,153 @@ def _nest(flat):
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return out
+
+
+def zero1_train(arch, params_np, batches_np, n_steps, lr, shape=(2, 2)):
+    """``n_steps`` ZeRO-1 steps (``steps.make_zero1_train_step``) and as
+    many plain steps of the smoke ``arch`` on a ``shape`` ("data",
+    "model") mesh from the JAX package's parameters and batches, each data
+    rank on its contiguous rows: both runs' whole parameters (numpy, flat
+    names), this rank's moment bytes under ZeRO-1 and the losses."""
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import tensor
+    from repro_torch.training import steps
+    cfg = smoke_config(arch)
+    rules = _tp_rules(shape)
+    model = LM(cfg)
+    opt_cfg = AdamWConfig(lr=lr, total_steps=n_steps, warmup_steps=2)
+    d, n_data = rules.mesh.get_local_rank("data"), shape[0]
+    out = {}
+    for name, build, zero in (
+            ("zero1", steps.make_zero1_train_step, True),
+            ("plain", steps.make_train_step, False)):
+        params = params_from_jax(params_np, "cpu", mesh=rules.mesh, cfg=cfg)
+        opt = steps.init_opt_state(params, model=model if zero else None,
+                                   rules=rules if zero else None)
+        if zero:
+            out["moment_bytes"] = steps._moment_bytes(opt)
+        fn = build(model, opt_cfg, rules)
+        losses = []
+        for b in batches_np[:n_steps]:
+            rows = len(b["tokens"]) // n_data
+            batch = {k: torch.tensor(v[d * rows:(d + 1) * rows])
+                     for k, v in b.items()}
+            params, opt, m = fn(params, opt, batch)
+            losses.append(float(m["loss"]))
+        whole = tensor.gather_params(params, rules.mesh, cfg)
+        out[name] = {"params": {k: v.detach().numpy() for k, v in
+                                _flat_tensors(whole).items()},
+                     "losses": losses}
+    return out
+
+
+def counter_ops():
+    """Each collective of ``parallel.comm`` on a (2, 8) f32 tensor over the
+    world (4 ranks), under ``launch.hlo_analysis.collective_bytes``: the
+    counts by kind of each."""
+    from repro_torch.launch.hlo_analysis import collective_bytes
+    from repro_torch.parallel import comm
+    t = torch.ones((2, 8))
+    n, me = dist.get_world_size(), dist.get_rank()
+    ops = {
+        "all-reduce": lambda: comm.all_reduce_sum(t),
+        "all-gather": lambda: comm.all_gather_cat(t, 0),
+        "reduce-scatter": lambda: comm.reduce_scatter_sum(t, 1),
+        "all-to-all": lambda: comm.all_to_all(t, 1, 1),
+        "collective-permute": lambda: comm.exchange(
+            [(t, (me + 1) % n)], [(t, (me - 1) % n)]),
+    }
+    out = {}
+    for kind, fn in ops.items():
+        with collective_bytes() as c:
+            fn()
+        out[kind] = dict(c)
+    return out
+
+
+def _drop_halo(t, halo, index, n, group):
+    """``comm.Halo.apply`` with its exchange deleted: zeros appended."""
+    return torch.cat([t, torch.zeros_like(t[:, :halo])], dim=1)
+
+
+class _NoCotangentSum(torch.autograd.Function):
+    """``comm.Replicated`` with its backward sum dropped."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _unpatch(comm):
+    """Undo the mutations: the Functions' own ``apply`` again."""
+    for cls in (comm.Halo, comm.Replicated):
+        if "apply" in vars(cls):
+            delattr(cls, "apply")
+
+
+def shardcheck_cases(cases):
+    """Each case (``spec`` fields, ``partition``, ``n_dev``, ``algorithm``,
+    ``dtype``, ``precision``, ``mutation``: None, "drop_halo" or
+    "drop_cotangent_sum")
+    through ``analysis.shardcheck.check_sharding`` on the world's first
+    ranks, with this rank's wire counted by :class:`WireCounter`: the
+    record and the counted bytes (forward and backward together)."""
+    from repro_torch.analysis.shardcheck import check_sharding
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.parallel import comm
+    out = []
+    for case in cases:
+        if case.get("mutation") == "drop_halo":
+            comm.Halo.apply = _drop_halo
+        elif case.get("mutation") == "drop_cotangent_sum":
+            comm.Replicated.apply = _NoCotangentSum.apply
+        try:
+            with WireCounter() as wire:
+                chk = check_sharding(ConvSpec(*case["spec"]),
+                                     case["partition"], case["n_dev"],
+                                     algorithm=case["algorithm"],
+                                     dtype=case.get("dtype", "float32"),
+                                     precision=case.get("precision"),
+                                     device="cpu")
+        finally:
+            _unpatch(comm)
+        out.append({"record": chk.record, "wire": wire.take(),
+                    "ran": chk.outputs is not None})
+    return out
+
+
+def plan_hook(spec_fields):
+    """``plan_conv2d`` of a spatial partition under the world's default
+    rules (the hook runs the contract on every rank), then again with the
+    halo exchange deleted on every rank: the plan's partition, the hook's
+    memo and the error the broken exchange raises."""
+    from repro_torch.analysis import shardcheck
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.axes import default_rules, use_rules
+    from repro_torch.plan import plan_conv2d
+    spec = ConvSpec(*spec_fields)
+    rules = default_rules(_mesh((dist.get_world_size(),), ("data",)))
+    with use_rules(rules):
+        plan = plan_conv2d(spec, backend="cpu", partition="spatial")
+        memo = [ok for ok, _ in shardcheck._HOOK_CACHE.values()]
+        comm.Halo.apply = _drop_halo
+        try:
+            broken = spec.__class__(spec.i_n, spec.i_h, spec.i_w, spec.i_c,
+                                    spec.k_h, spec.k_w, spec.k_c + 4,
+                                    spec.s_h, spec.s_w)
+            plan_conv2d(broken, backend="cpu", partition="spatial")
+            error = None
+        except shardcheck.ShardCheckError as e:
+            error = str(e)
+        finally:
+            _unpatch(comm)
+    return {"partition": plan.partition, "axes": plan.partition_axes,
+            "memo": memo, "error": error}

@@ -639,9 +639,14 @@ def test_conv1d_plain_against_f64_oracle():
 
 
 def test_conv1d_wrapper_refuses_bad_operands():
+    """Bad operands raise.  Meta operands are a trace of the kernel path,
+    as K1-K4's: the launch becomes ``repro_torch::kernel_call`` and
+    nothing is counted."""
     x, k = torch.zeros((1, 8, 4)), torch.zeros((3, 4))
-    with pytest.raises(ValueError, match="cuda"):
-        C.mec_conv1d(x.to("meta"), k.to("meta"))
+    C.mec_conv1d.launches = 0
+    y = C.mec_conv1d(x.to("meta"), k.to("meta"))
+    assert y.device.type == "meta" and y.shape == (1, 8, 4)
+    assert C.mec_conv1d.launches == 0
     with pytest.raises(ValueError, match="different devices"):
         C.mec_conv1d(x, k.to("meta"))
     for dtype in (torch.float64, torch.int32):

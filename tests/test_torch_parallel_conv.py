@@ -45,6 +45,7 @@ from repro.parallel.axes import ShardingRules as JRules    # noqa: E402
 from repro.parallel.axes import use_rules as juse_rules    # noqa: E402
 
 import repro_torch.plan as plan_mod                        # noqa: E402
+from repro_torch.analysis import shardcheck                # noqa: E402
 import test_torch_dist_workers as W                        # noqa: E402
 from repro_torch.bench import check as tcheck              # noqa: E402
 from repro_torch.bench import harness, scenarios           # noqa: E402
@@ -508,13 +509,52 @@ def test_dist_suite_on_4_ranks_equals_the_committed_baseline(dist_doc):
         timed = mine["scenario"].startswith("smoke")
         assert (mine["us_per_call"] is not None) == timed, mine["scenario"]
     failures, _ = tcheck.compare(dist_doc, base, schema_only_on_timing=True)
-    # The JAX package's CPU run timed its Table-2 cells and recorded
-    # shardcheck verdicts and channel-capped run specs; nothing else may
-    # differ.
-    assert all(any(f"{k}" in msg for k in ("shardcheck", "run_spec",
-                                           "out_shape", "run_flops",
-                                           "numcheck"))
+    # The JAX package's CPU run timed its Table-2 cells (so recorded their
+    # shardcheck verdicts) and channel-capped run specs; nothing else may
+    # differ.  The executed smoke cells' shardcheck fields equal the
+    # baseline's but where the port's execution differs from GSPMD's
+    # (``analysis.shardcheck.rank_contract``): its output and gradient
+    # all-gathers, which the JAX package's contract does not expect; no
+    # trim permute (the port trims locally); and the halo slabs the
+    # busiest rank sends (one each way, so one over the gradient program
+    # with two spatial ranks, where GSPMD counts each device's operand of
+    # both permutes).
+    timed = {r["scenario"] for r in dist_doc["results"]
+             if r["us_per_call"] is not None}
+    # (shardcheck differences are held field by field below)
+    assert all(any(f"{k}" in msg for k in ("run_spec", "out_shape",
+                                           "run_flops", "numcheck",
+                                           "shardcheck"))
                for msg in failures), failures
+    checked = 0
+    for mine, ref in zip(dist_doc["results"], base["results"]):
+        if mine["scenario"] not in timed:
+            assert "shardcheck" not in mine, mine["scenario"]
+            continue
+        got, want = mine["shardcheck"], ref["shardcheck"]
+        for f in ("verdict", "skipped_reason", "directions", "violations"):
+            assert got[f] == want[f], (mine["scenario"], f)
+        assert set(got["expected"]) == set(want["expected"])
+        parts = tconv.normalize_partition(mine["partition"])
+        n_s = dict(zip(parts, mine["n_dev_axes"])).get("spatial", 1)
+        for direction, exp in want["expected"].items():
+            halo = exp["required"]["collective-permute"] / \
+                (1 if direction == "fwd" else 2)
+            for which in ("required", "optional"):
+                ours = dict(got["expected"][direction][which])
+                gathers = ours.pop("all-gather")
+                assert (gathers > 0) == (which == "required"), \
+                    (mine["scenario"], direction, which)
+                permute = ours.pop("collective-permute")
+                assert permute == (halo * shardcheck.halo_sends(n_s, direction)
+                                   if which == "required" else 0.0), \
+                    (mine["scenario"], direction, which)
+                assert ours == {k: v for k, v in exp[which].items()
+                                if k not in ("all-gather",
+                                             "collective-permute")}, \
+                    (mine["scenario"], direction, which)
+        checked += 1
+    assert checked == 12
     assert dist_doc["harness"]["world_size"] == 4
 
 

@@ -23,7 +23,7 @@ from repro_torch.configs import archs as tarchs            # noqa: E402
 from repro_torch.launch import mesh as tmesh               # noqa: E402
 from repro_torch.models.lm import LM                       # noqa: E402
 from repro_torch.ckpt.manager import CheckpointManager     # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig            # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, tree_map  # noqa: E402
 from repro_torch.training import steps as tsteps           # noqa: E402
 from test_torch_tensor_parallel import _nest               # noqa: E402
 
@@ -197,3 +197,103 @@ def test_checkpoint_from_1x2_restores_onto_world_1_and_2x1(tmp_path):
                    {k: torch.tensor(v) for k, v in batches[2].items()})
     losses.append(float(m["loss"]))
     assert max(losses) - min(losses) <= 1e-6 * abs(losses[0]), losses
+
+
+# ------------------------------------------------------------------ ZeRO-1
+
+def _jax_one_device_steps(arch, n_steps, lr):
+    """The JAX package's jitted one-device train step on its smoke config
+    (f32), from its seed-0 init and its synthetic batches: the initial
+    parameters, the batches and the parameters after ``n_steps``."""
+    import jax
+    from repro.configs.archs import smoke_config
+    from repro.data.pipeline import SyntheticLMData
+    from repro.models.lm import LM as JLM
+    from repro.optim.adamw import AdamWConfig as JAdamW
+    from repro.training.steps import init_opt_state, make_train_step
+    cfg = smoke_config(arch)
+    assert cfg.dtype == "float32"
+    model = JLM(cfg)
+    data = SyntheticLMData(cfg, 8, 32)
+    batches = [{k: np.asarray(v) for k, v in data.next_batch().items()}
+               for _ in range(n_steps)]
+    params = model.init(jax.random.key(0))
+    start = jax.tree.map(np.asarray, params)
+    opt = init_opt_state(params)
+    fn = jax.jit(make_train_step(
+        model, JAdamW(lr=lr, total_steps=n_steps, warmup_steps=2), None))
+    losses = []
+    for b in batches:
+        params, opt, m = fn(params, opt, b)
+        losses.append(float(m["loss"]))
+    flat = {"/".join(k.key for k in path): np.asarray(v) for path, v in
+            jax.tree_util.tree_flatten_with_path(params)[0]}
+    return start, batches, flat, losses
+
+
+def _zero1_share_bytes(cfg, shape):
+    """A rank's AdamW moment bytes (m and v, f32) under ZeRO-1 over "data"
+    on a ``shape`` ("data", "model") mesh, from fake whole parameters:
+    each of the rank's leaves (its tensor-parallel placement) over the
+    data ranks where ``sharding.opt_state_specs`` splits it; where no leaf
+    is kept whole, ``opt_state_specs``' share."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.parallel import sharding, tensor
+    mesh = tmesh.AbstractMesh(shape, ("data", "model"))
+    dp = tmesh.axis_sizes(mesh)["data"]
+    with FakeTensorMode():
+        params = LM(cfg).init(torch.Generator(), device="cpu")
+    specs = sharding.opt_state_specs(sharding.param_specs(params, mesh),
+                                     params, mesh, zero_axes=("data",))["m"]
+    placements = tensor.local_placement(params, mesh, cfg)
+    shares = []
+
+    def one(spec, pl, leaf):
+        local = int(np.prod(pl.local_shape(leaf.shape)))
+        shares.append(local // dp if "data" in spec else local)
+
+    tree_map(one, specs, placements, params)
+    return 2 * 4 * sum(shares)
+
+
+def test_zero1_share_is_opt_state_specs_where_the_rank_holds_its_spec():
+    """At (2, 2) the smoke configs and xlstm-125m hold ``param_specs``'
+    bytes, so the rank's share is ``opt_state_specs``' own: each leaf's
+    elements over the product of the axes its placement names."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.parallel import sharding
+    for cfg in (tarchs.smoke_config("yi-6b"), tarchs.smoke_config(
+            "xlstm-125m"), tarchs.ARCHS["xlstm-125m"]):
+        mesh = tmesh.AbstractMesh((2, 2), ("data", "model"))
+        sizes = tmesh.axis_sizes(mesh)
+        with FakeTensorMode():
+            params = LM(cfg).init(torch.Generator(), device="cpu")
+        specs = sharding.opt_state_specs(sharding.param_specs(params, mesh),
+                                         params, mesh)["m"]
+        shares = []
+        tree_map(lambda sp, leaf: shares.append(leaf.numel() // int(np.prod(
+            [sizes[a] for a in sp if a is not None]))), specs, params)
+        assert _zero1_share_bytes(cfg, (2, 2)) == 8 * sum(shares)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "xlstm-125m"])
+def test_zero1_steps_on_2x2_equal_the_jax_one_device_step(arch):
+    """Three ZeRO-1 steps of the smoke ``arch`` (f32) on (2, 2): every
+    rank's whole parameters within 1e-5 of the JAX package's one-device
+    step and of the port's plain step on the same ranks, the losses
+    within 1e-5 (relative) of the JAX package's; each rank's moments
+    exactly the share ``opt_state_specs`` gives it, half the plain
+    step's."""
+    start, batches, ref, ref_losses = _jax_one_device_steps(arch, 3, 1e-3)
+    got = tmesh.spawn(W.zero1_train, 4, args=(arch, start, batches, 3, 1e-3),
+                      timeout_s=60, join_timeout_s=300)
+    share = _zero1_share_bytes(tarchs.smoke_config(arch), (2, 2))
+    for r in got:
+        assert r["moment_bytes"] == share
+        for run in ("zero1", "plain"):
+            for a, b in zip(r[run]["losses"], ref_losses):
+                assert abs(a - b) <= 1e-5 * abs(b), (run, a, b)
+        for k, want in ref.items():
+            assert np.max(np.abs(r["zero1"]["params"][k] - want)) <= 1e-5, k
+            assert np.max(np.abs(r["zero1"]["params"][k]
+                                 - r["plain"]["params"][k])) <= 1e-5, k
