@@ -49,6 +49,7 @@ from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.convspec import (ConvSpec, normalize_stride, pad_nhwc,
                                        pad_same, padding_amounts, spec_of)
 from repro_torch.core.direct import direct_conv2d
@@ -109,20 +110,25 @@ def _mec_input_grad(g: torch.Tensor, kernel: torch.Tensor, s_h: int,
     """dL/dI as a transposed MEC conv: stride-dilate the cotangent, pad it
     fully, and MEC-convolve with the spatially flipped kernel whose
     channel axes are swapped (HWIO -> HWOI)."""
-    k_h, k_w = kernel.shape[:2]
-    g32 = g.to(torch.float32)
-    i_n, o_h, o_w, k_c = g.shape
-    if s_h > 1 or s_w > 1:
-        gd = g32.new_zeros((i_n, (o_h - 1) * s_h + 1, (o_w - 1) * s_w + 1,
-                            k_c))
-        gd[:, ::s_h, ::s_w, :] = g32
-    else:
-        gd = g32
-    gp = pad_nhwc(gd, (k_h - 1, k_h - 1), (k_w - 1, k_w - 1))
-    k_t = kernel.flip(0, 1).permute(0, 1, 3, 2).to(torch.float32)
-    di = _mec_reference(gp, k_t, (1, 1))   # (n, (o_h-1)s_h + k_h, ..., i_c)
-    # Input rows/cols beyond the last kernel window receive zero gradient.
-    return pad_nhwc(di, (0, i_h - di.shape[1]), (0, i_w - di.shape[2]))
+    with obs.span("mec_vjp.dx"):
+        k_h, k_w = kernel.shape[:2]
+        i_n, o_h, o_w, k_c = g.shape
+        with obs.span("mec_vjp.dx.dilate_pad"):
+            g32 = g.to(torch.float32)
+            if s_h > 1 or s_w > 1:
+                gd = g32.new_zeros((i_n, (o_h - 1) * s_h + 1,
+                                    (o_w - 1) * s_w + 1, k_c))
+                gd[:, ::s_h, ::s_w, :] = g32
+            else:
+                gd = g32
+            gp = pad_nhwc(gd, (k_h - 1, k_h - 1), (k_w - 1, k_w - 1))
+        with obs.span("mec_vjp.dx.flip"):
+            k_t = kernel.flip(0, 1).permute(0, 1, 3, 2).to(torch.float32)
+        di = _mec_reference(gp, k_t, (1, 1))  # (n, (o_h-1)s_h + k_h, .., i_c)
+        # Input rows/cols beyond the last kernel window receive zero gradient.
+        with obs.span("mec_vjp.dx.crop"):
+            return pad_nhwc(di, (0, i_h - di.shape[1]),
+                            (0, i_w - di.shape[2]))
 
 
 def _mec_weight_grad(inp: torch.Tensor, g: torch.Tensor, s_h: int, s_w: int,
@@ -130,14 +136,19 @@ def _mec_weight_grad(inp: torch.Tensor, g: torch.Tensor, s_h: int, s_w: int,
     """dL/dK from the compact L (Eq. 3): for each kernel row r, the
     stride-s_h view of L against the cotangent, the k_h-decomposition of
     the forward kernels run in reverse."""
-    low = mec_lower(inp, k_w, s_w).to(torch.float32)  # (n, o_w, i_h, k_w, i_c)
-    o_h = g.shape[1]
-    g32 = g.to(torch.float32)
-    rows = []
-    for r in range(k_h):
-        lr = low[:, :, r:r + s_h * (o_h - 1) + 1:s_h]  # (n, o_w, o_h, k_w, i_c)
-        rows.append(torch.einsum("nwhjc,nhwo->jco", lr, g32))
-    return torch.stack(rows)               # (k_h, k_w, i_c, k_c)
+    with obs.span("mec_vjp.dw"):
+        low = mec_lower(inp, k_w, s_w)     # (n, o_w, i_h, k_w, i_c)
+        with obs.span("mec_vjp.dw.rows"):
+            low = low.to(torch.float32)
+            o_h = g.shape[1]
+            g32 = g.to(torch.float32)
+            rows = []
+            for r in range(k_h):
+                # (n, o_w, o_h, k_w, i_c)
+                lr = low[:, :, r:r + s_h * (o_h - 1) + 1:s_h]
+                rows.append(torch.einsum("nwhjc,nhwo->jco", lr, g32))
+        with obs.span("mec_vjp.dw.stack"):
+            return torch.stack(rows)           # (k_h, k_w, i_c, k_c)
 
 
 class _MecConv(torch.autograd.Function):
@@ -148,6 +159,8 @@ class _MecConv(torch.autograd.Function):
     def forward(ctx, inp, kernel, s_h, s_w, variant, solution, w_blk):
         ctx.save_for_backward(inp, kernel)
         ctx.strides = (s_h, s_w)
+        # the backward's spans link to the conv2d call that ran this
+        ctx.cause = obs.current_cause()
         return _mec_forward(inp, kernel, s_h, s_w, variant, solution, w_blk)
 
     @staticmethod
@@ -157,12 +170,21 @@ class _MecConv(torch.autograd.Function):
         inp, kernel = ctx.saved_tensors
         s_h, s_w = ctx.strides
         d_inp = d_ker = None
-        if ctx.needs_input_grad[0]:
-            d_inp = _mec_input_grad(grad_out, kernel, s_h, s_w, inp.shape[1],
-                                    inp.shape[2]).to(inp.dtype)
-        if ctx.needs_input_grad[1]:
-            d_ker = _mec_weight_grad(inp, grad_out, s_h, s_w, kernel.shape[0],
-                                     kernel.shape[1]).to(kernel.dtype)
+        with obs.span("mec_vjp", cause=ctx.cause):
+            # the gradients are f32: a cast back happens only for an
+            # operand of another dtype (``.to`` to the same does nothing)
+            if ctx.needs_input_grad[0]:
+                d_inp = _mec_input_grad(grad_out, kernel, s_h, s_w,
+                                        inp.shape[1], inp.shape[2])
+                if d_inp.dtype != inp.dtype:
+                    with obs.span("mec_vjp.cast"):
+                        d_inp = d_inp.to(inp.dtype)
+            if ctx.needs_input_grad[1]:
+                d_ker = _mec_weight_grad(inp, grad_out, s_h, s_w,
+                                         kernel.shape[0], kernel.shape[1])
+                if d_ker.dtype != kernel.dtype:
+                    with obs.span("mec_vjp.cast"):
+                        d_ker = d_ker.to(kernel.dtype)
         return d_inp, d_ker, None, None, None, None, None
 
 
@@ -230,14 +252,30 @@ def conv2d(inp: torch.Tensor, kernel: torch.Tensor, *, stride=1,
     resolve_cached_plan``: process LRU, on-disk JSON, then the analytic
     costmodel pick), so repeated shapes reuse one decision.
     """
+    if not obs.tracing():
+        return _conv2d(inp, kernel, stride, padding, algorithm, solution,
+                       partition, partition_axis, plan, None)
+    with obs.span("conv2d") as sp:
+        return _conv2d(inp, kernel, stride, padding, algorithm, solution,
+                       partition, partition_axis, plan, sp)
+
+
+def _conv2d(inp, kernel, stride, padding, algorithm, solution, partition,
+            partition_axis, plan, sp) -> torch.Tensor:
+    """:func:`conv2d`'s body; ``sp`` is its span, None while tracing is
+    off (so that the off path opens nothing)."""
     if plan is not None:
-        return _execute_plan(inp, kernel, plan, stride=stride,
-                             padding=padding)
+        out = _execute_plan(inp, kernel, plan, stride=stride, padding=padding)
+        if sp is not None:
+            sp.note(plan.spec, plan.algorithm, inp.dtype)
+        return out
     if partition != "none":
         # Lazy import: parallel sits above core.
         from repro_torch.parallel.axes import global_rules
         if partition is not None or global_rules() is not None:
             from repro_torch.parallel.conv import sharded_conv2d
+            if sp is not None:
+                sp.note(None, algorithm, inp.dtype)
             return sharded_conv2d(
                 inp, kernel, stride=stride, padding=padding,
                 algorithm=algorithm, solution=solution,
@@ -256,9 +294,16 @@ def conv2d(inp: torch.Tensor, kernel: torch.Tensor, *, stride=1,
     if algorithm == "auto":
         # Lazy import: plan sits above core.
         from repro_torch.plan import resolve_cached_plan
-        cached = resolve_cached_plan(spec, dtype=x.dtype,
-                                     backend=x.device.type)
+        if sp is None:
+            cached = resolve_cached_plan(spec, dtype=x.dtype,
+                                         backend=x.device.type)
+        else:
+            with obs.span("conv2d.plan", device=False):
+                cached = resolve_cached_plan(spec, dtype=x.dtype,
+                                             backend=x.device.type)
         algorithm, w_blk = cached.algorithm, cached.w_blk
+    if sp is not None:
+        sp.note(spec, algorithm, x.dtype)
     return _dispatch(x, kernel, spec, s_h, s_w, algorithm, solution, w_blk)
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.convspec import normalize_stride, spec_of
 from repro_torch.core.direct import accum_dtype
 
@@ -38,7 +39,8 @@ def mec_lower(inp: torch.Tensor, k_w: int, s_w: int) -> torch.Tensor:
     L[n, w, h, :, :] = I[n, h, s_w*w : s_w*w + k_w, :]
     """
     # unfold: (i_n, i_h, o_w, i_c, k_w) -> (i_n, o_w, i_h, k_w, i_c)
-    return inp.unfold(2, k_w, s_w).permute(0, 2, 1, 4, 3).contiguous()
+    with obs.span("mec.lower"):
+        return inp.unfold(2, k_w, s_w).permute(0, 2, 1, 4, 3).contiguous()
 
 
 def _shifted_rows(l_mat: torch.Tensor, kernel_mat: torch.Tensor,
@@ -83,22 +85,24 @@ def mec_conv2d(inp: torch.Tensor, kernel: torch.Tensor, stride=1,
         raise ValueError(f"unknown solution {solution!r}")
 
     low = mec_lower(inp, k_w, spec.s_w)  # (i_n, o_w, i_h, k_w, i_c)
-    kernel_mat = kernel.reshape(k_h * k_w * i_c, k_c).to(low.dtype)
-    row_stride = spec.s_h * k_w * i_c
-    window = k_h * k_w * i_c
+    with obs.span("mec.rows"):
+        kernel_mat = kernel.reshape(k_h * k_w * i_c, k_c).to(low.dtype)
+        row_stride = spec.s_h * k_w * i_c
+        window = k_h * k_w * i_c
 
-    # The output, written in n-h-w-c; ``rows`` walks it row by row.
-    out = torch.empty((i_n, o_h, o_w, k_c), dtype=low.dtype,
-                      device=low.device)
-    rows = out.permute(1, 0, 2, 3)         # (o_h, i_n, o_w, k_c)
-    if solution == "A":
-        # Lines 9-19: one GEMM per output row over the whole mini-batch;
-        # the h-n-w-c intermediate (line 13) is the output's h-major view.
-        l_mat = low.reshape(i_n * o_w, i_h * k_w * i_c)
-    else:
-        # Lines 21-25: per-sample GEMMs.
-        l_mat = low.reshape(i_n, o_w, i_h * k_w * i_c)
-    _shifted_rows(l_mat, kernel_mat, row_stride, window, rows)
+        # The output, written in n-h-w-c; ``rows`` walks it row by row.
+        out = torch.empty((i_n, o_h, o_w, k_c), dtype=low.dtype,
+                          device=low.device)
+        rows = out.permute(1, 0, 2, 3)         # (o_h, i_n, o_w, k_c)
+        if solution == "A":
+            # Lines 9-19: one GEMM per output row over the whole
+            # mini-batch; the h-n-w-c intermediate (line 13) is the
+            # output's h-major view.
+            l_mat = low.reshape(i_n * o_w, i_h * k_w * i_c)
+        else:
+            # Lines 21-25: per-sample GEMMs.
+            l_mat = low.reshape(i_n, o_w, i_h * k_w * i_c)
+        _shifted_rows(l_mat, kernel_mat, row_stride, window, rows)
     return out
 
 

@@ -61,7 +61,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the named sources (default: all) that are not built yet,
     one ``nvcc`` each, all started together.  Returns, per name, the
     library path, whether it was compiled now, the seconds taken and the
-    compiler's output.  Raises if any build fails."""
+    compiler's output.  Raises if any build fails.  ``build.compiles`` and
+    ``build.seconds`` sum the compiles of the process and their seconds."""
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
@@ -93,9 +94,15 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         os.replace(tmp, lib)     # atomic: a concurrent build sees all or nothing
         results[name] = {"path": str(lib), "compiled": True,
                          "seconds": seconds, "log": log}
+        build.compiles += 1
+        build.seconds += seconds
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n\n".join(failures))
     return results
+
+
+build.compiles = 0
+build.seconds = 0.0
 
 
 @functools.lru_cache(maxsize=None)

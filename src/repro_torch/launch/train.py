@@ -123,7 +123,7 @@ def train(args: argparse.Namespace, cfg=None) -> dict:
     """The step loop.  ``cfg`` overrides the ``--arch``/``--smoke`` config.
     Returns ``losses`` and ``step_s`` (host clock, the device synchronised
     by reading the loss) of the steps this run took, ``start`` (the step it
-    resumed from, 0 when fresh), ``median_step_s`` and ``stragglers``."""
+    resumed from, 0 when fresh)."""
     device, rules, rank, world = _setup(args)
     if cfg is None:
         cfg = smoke_config(args.arch) if args.smoke else ARCHS[args.arch]
@@ -215,8 +215,7 @@ def train(args: argparse.Namespace, cfg=None) -> dict:
               f"{dog.straggler_events}")
     if world > 1:
         print(f"[train] summary {json.dumps(summary)}", flush=True)
-    return dict(summary, start=start, median_step_s=dog.median,
-                stragglers=dog.straggler_events, params=params)
+    return dict(summary, start=start, params=params)
 
 
 def main(argv=None) -> float:

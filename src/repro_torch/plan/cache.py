@@ -14,8 +14,10 @@ Inside the file, plans are keyed by ``spec|dtype|backend``.
 
 Disk I/O is best effort: an unreadable, corrupt or unwritable file
 degrades to the memory tier, never to an error, and each such failure is
-counted in ``PlanCache.io_errors``.  Writes are atomic (a temporary file,
-then ``os.replace``).
+counted in ``PlanCache.io_errors``.  ``hits`` and ``misses`` count the
+lookups (``plan_conv2d(mode="cached")``'s: a hit that does not satisfy
+its request is a miss), ``disk_loads`` the file's reads.
+Writes are atomic (a temporary file, then ``os.replace``).
 """
 from __future__ import annotations
 
@@ -97,6 +99,7 @@ class PlanCache:
         # Swallowed disk failures (unreadable, corrupt, read-only): silent
         # per call, counted here for whoever reports on the cache.
         self.io_errors = 0
+        self.hits = self.misses = self.disk_loads = 0
 
     def path(self) -> pathlib.Path:
         if self._path is None:
@@ -114,6 +117,7 @@ class PlanCache:
         except OSError:
             self.io_errors += 1
             return
+        self.disk_loads += 1
         try:
             doc = json.loads(text)
         except ValueError:
@@ -145,13 +149,23 @@ class PlanCache:
             self.io_errors += 1  # read-only environment: memory only now
 
     def get(self, key: str) -> Optional[ConvPlan]:
+        """The plan under ``key`` or None, counted as a hit or a miss."""
         with self._lock:
             if key not in self._mem:
                 self._load_disk_locked()
             plan = self._mem.get(key)
             if plan is not None:
                 self._mem.move_to_end(key)
+                self.hits += 1
+            else:
+                self.misses += 1
             return plan
+
+    def count_refused(self) -> None:
+        """Count the last hit, which its caller could not use, as a miss."""
+        with self._lock:
+            self.hits -= 1
+            self.misses += 1
 
     def put(self, key: str, plan: ConvPlan) -> None:
         with self._lock:

@@ -728,6 +728,8 @@ def plan_conv2d(spec: ConvSpec, *, dtype="float32", mode: str = "analytic",
         if hit is not None and _hit_satisfies(hit, precision_name,
                                               partition, partition_axis):
             return hit
+        if hit is not None:
+            cache.count_refused()
         # A miss, or a hit that does not satisfy this request (the key is
         # spec|dtype|backend only): recompute and overwrite.
         plan = plan_conv2d(spec, dtype=dtype, mode="analytic",
