@@ -88,7 +88,13 @@ the script exits non-zero without its last line:
              then the 34-conv stack forward and backward, timed, with the
              launch counts read around it; (b) the CNN trainer
              ``repro_torch.examples.train_cnn`` at its defaults through
-             ``mec_fused2``: accuracy above 0.8, 3 K4 launches a step.
+             ``mec_fused2``: accuracy above 0.8, 3 K4 and 3 K6 launches a
+             step.
+5b. k6     - K6, the MEC weight gradient: against its plain version and
+             the f64 oracle at batch 2 on the Table-3 layers and edge
+             geometries, bit-equal on a second launch; at batch 128 in f32
+             timed beside its bound, the plain version and
+             ``torch.nn.grad.conv2d_weight`` (``k6_phase``).
 6. serve   - zamba2-7b at full width and depth, bf16, seeded random
              weights, ``conv_impl="fused"``, through
              ``repro_torch.launch.serve.serve``: batch 4, prompt 512, 32
@@ -834,6 +840,102 @@ def profile_serving(cfg, seed: int, decode_steps: int = 4) -> dict:
     return out
 
 
+#: K6's timing batch: the training cell's (``mecbench``, train.f32.b128)
+K6_BATCH = 128
+#: K6's edge geometries (ih, iw, ic, kh, kw, kc, stride) beside the Table-3
+#: layers: i_c = 3 at cv1's k_w = 11 (k_w*i_c = 33), s_h > k_h, stride
+#: (2, 3), k_c off the 64-channel tile with i_c off the 32-channel chunk,
+#: and a kernel wider than one CTA's warps
+K6_EDGES = [(227, 227, 3, 11, 11, 96, 4), (8, 8, 3, 2, 2, 5, 3),
+            (11, 13, 2, 4, 5, 3, (2, 3)), (20, 45, 37, 3, 3, 130, 1),
+            (20, 20, 32, 3, 17, 8, 1)]
+
+
+def k6_phase(seed: int, grad_tolerance, peak_tf32: float, peak_bw: float) -> dict:
+    """K6, the MEC weight gradient (phase 5b): at batch 2 on the Table-3
+    layers and ``K6_EDGES``, one launch, within twice the f32 gradient
+    budget of its plain version and of the f64 oracle, and equal bits on
+    a second launch; then at batch ``K6_BATCH`` in f32 on the Table-3
+    layers, the same checks against the plain version and its time beside
+    its bound (three TF32 products on the tensor cores, I and G read once,
+    dW written once), the plain version's time and, as ``library_ms``,
+    ``torch.nn.grad.conv2d_weight`` in IEEE f32 (timed only: the port never
+    calls it)."""
+    from repro_torch.bench.scenarios import CV_LAYERS
+    from repro_torch.bench.scenarios import RESNET101_WEIGHTS as RESNET101
+    from repro_torch.core.direct import ieee_f32_conv
+    from repro_torch.kernels import mec_conv as K
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+
+    def operands(geom, batch):
+        ih, iw, ic, kh, kw, kc, s = geom
+        s_h, s_w = stride_pair(s)
+        x = torch.randn((batch, ih, iw, ic), generator=gen, device=DEVICE)
+        g = torch.randn((batch, (ih - kh) // s_h + 1, (iw - kw) // s_w + 1, kc),
+                        generator=gen, device=DEVICE)
+        return x, g, kh, kw, (s_h, s_w)
+
+    def oracle(x, g, kh, kw, s):
+        k = torch.zeros((kh, kw, x.shape[3], g.shape[3]), dtype=torch.float64,
+                        device=DEVICE, requires_grad=True)
+        ref.conv2d_ref(x.double(), k, s).backward(g.double())
+        return k.grad
+
+    out = {"checks": {}, "timing": {}}
+    cases = [(n, CV_LAYERS[n]) for n in RESNET101] + [
+        (f"edge{i}", geom) for i, geom in enumerate(K6_EDGES)]
+    for name, geom in cases:
+        x, g, kh, kw, s = operands(geom, 2)
+        before = K.mec_weight_grad.launches
+        dw = K.mec_weight_grad(x, g, kh, kw, s)
+        torch.cuda.synchronize()
+        check(K.mec_weight_grad.launches == before + 1,
+              f"K6 {name}: {K.mec_weight_grad.launches - before} launches")
+        n, oh, ow, _ = g.shape
+        tol = 2 * grad_tolerance("mec_fused2", "float32", n * oh * ow)
+        err = {"f64": ref.scaled_error(dw, oracle(x, g, kh, kw, s)),
+               "plain": ref.scaled_error(dw, K.mec_weight_grad_plain(x, g, kh, kw, s))}
+        check(all(math.isfinite(e) and e <= tol for e in err.values()),
+              f"K6 {name} batch 2: errors {err} > {tol}")
+        check(torch.equal(dw, K.mec_weight_grad(x, g, kh, kw, s)),
+              f"K6 {name}: two launches differ")
+        out["checks"][name] = {"err": err, "tol": tol,
+                               "config": K.wgrad_config(x.shape, g.shape, kh, kw, s)}
+    for name in RESNET101:
+        x, g, kh, kw, s = operands(CV_LAYERS[name], K6_BATCH)
+        n, oh, ow, kc = g.shape
+        ic = x.shape[3]
+        fn = lambda: K.mec_weight_grad(x, g, kh, kw, s)
+        plain = lambda: K.mec_weight_grad_plain(x, g, kh, kw, s)
+        dw = fn()
+        tol = 2 * grad_tolerance("mec_fused2", "float32", n * oh * ow)
+        e = ref.scaled_error(dw, plain())
+        check(math.isfinite(e) and e <= tol, f"K6 {name} batch {K6_BATCH}: {e} > {tol}")
+        check(torch.equal(dw, fn()), f"K6 {name} batch {K6_BATCH}: two launches differ")
+        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        with ieee_f32_conv():
+            lib_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw, (kc, ic, kh, kw), g_nchw, stride=s))
+        flops = 2 * kh * kw * ic * kc * n * oh * ow
+        nbytes = 4 * (x.numel() + g.numel() + dw.numel())
+        t_ops = TF32_PRODUCTS * flops / peak_tf32
+        t_bytes = nbytes / peak_bw
+        rec = {"layer": name, "batch": K6_BATCH, "ms": time_ms(fn),
+               "plain_ms": time_ms(plain), "library_ms": lib_ms,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "tf32_1x_bound_ms": flops / peak_tf32 * 1e3, "err_vs_plain": e,
+               "config": K.wgrad_config(x.shape, g.shape, kh, kw, s)}
+        out["timing"][name] = rec
+        emit({"phase": "k6", **rec})
+        del x, g, dw
+        torch.cuda.empty_cache()
+    emit({"phase": "k6", "checks": out["checks"]})
+    return out
+
+
 def plan_phase(stack, plan_dir: Path) -> dict:
     """The planner on the card (phase 4b): measured plans for each layer of
     ``stack`` (the slice phase's (name, x, w, stride, spec) convs) in each
@@ -1004,7 +1106,8 @@ def plan_phase(stack, plan_dir: Path) -> dict:
     check(acc > 0.8, f"train_cnn --algorithm auto: final accuracy {acc}")
     check(len(plan_lines) == 3, f"train_cnn printed plans {plan_lines}")
     check(train_counts == {"mec_conv_fused": 3 * TRAIN_STEPS, "mec_lower": 0,
-                           "mec_gemm": 0, "mec_conv_fused2": 0},
+                           "mec_gemm": 0, "mec_conv_fused2": 0,
+                           "mec_weight_grad": 3 * TRAIN_STEPS},
           f"train_cnn --algorithm auto launched {train_counts}")
     out = {"phase": "plan", "stacks": stacks,
            "calibration": {"cells": len(cells),
@@ -1044,7 +1147,8 @@ def bench_phase(tmp_dir: Path) -> dict:
         seconds[suite] = round(time.perf_counter() - t0, 3)
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    check(all(n > 0 for n in launches.values()),
+    # the suites time forwards: K6 runs in a backward only
+    check(all(n > 0 for k, n in launches.items() if k != "mec_weight_grad"),
           f"the bench suites launched {launches}: a kernel never ran")
     for suite, doc in docs.items():
         untimed = [f"{r['scenario']}/{r['algorithm']}" for r in doc["results"]
@@ -1250,7 +1354,8 @@ def examples_phase(tol_of) -> dict:
     results = bench_run.main(["--device", "cuda"], emit=to_stderr)
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    check(all(n > 0 for n in launches.values()),
+    # the examples run forwards: K6 runs in a backward only
+    check(all(n > 0 for k, n in launches.items() if k != "mec_weight_grad"),
           f"the examples launched {launches}: a kernel never ran")
     t3 = results["table3_resnet101"]
     fig4cd = results["fig4cd_runtime"]
@@ -1387,7 +1492,8 @@ def serve_conv_phase(seed: int, tol_of, peak_tf32: float, peak_bw: float) -> dic
               f"whisper frontend plans {[p.algorithm for p in svc.plans.values()]}: "
               "not K1")
     check(whisper_launches == {"mec_conv_fused": 2 * 2 * len(WHISPER_CLASSES),
-                               "mec_lower": 0, "mec_gemm": 0, "mec_conv_fused2": 0},
+                               "mec_lower": 0, "mec_gemm": 0, "mec_conv_fused2": 0,
+                               "mec_weight_grad": 0},
           f"whisper frontend launched {whisper_launches}: K1 once eagerly and "
           f"once captured per class and layer")
     check(sum(sum(r.values()) for r in replays.values()) == 2 * WHISPER_REQUESTS,
@@ -1462,7 +1568,8 @@ def serve_conv_phase(seed: int, tol_of, peak_tf32: float, peak_bw: float) -> dic
     check(psvc.warmup.warning_count == 0 and psvc.warmup.plan_cache_io_errors == 0,
           f"patch embed warm-up: {psvc.warmup.summary()}")
     check(patch_launches == {"mec_conv_fused": 2 * len(PATCH_CLASSES),
-                             "mec_lower": 0, "mec_gemm": 0, "mec_conv_fused2": 0},
+                             "mec_lower": 0, "mec_gemm": 0, "mec_conv_fused2": 0,
+                             "mec_weight_grad": 0},
           f"patch embed launched {patch_launches}")
     perr = 0.0
     for img, ans in zip(images, answers):
@@ -1556,7 +1663,7 @@ def serve_whisper_phase(seed: int) -> dict:
         launches = {k: v for k, v in served[mode]["launches"].items()
                     if k != "mec_conv1d"}
         check(launches == {"mec_conv_fused": 4, "mec_lower": 0, "mec_gemm": 0,
-                           "mec_conv_fused2": 0},
+                           "mec_conv_fused2": 0, "mec_weight_grad": 0},
               f"whisper-tiny served ({mode}) with {launches}: K1 once eagerly "
               "and once captured per frontend layer")
         check(served[mode]["warmup"] == [(0, 0, ["mec_fused"])] * 2,
@@ -2270,7 +2377,7 @@ def serve_vlm_phase(seed: int) -> dict:
         run = served[mode]
         check(run["launches"] == {"mec_conv_fused": 2, "mec_lower": 0,
                                   "mec_gemm": 0, "mec_conv_fused2": 0,
-                                  "mec_conv1d": 0},
+                                  "mec_weight_grad": 0, "mec_conv1d": 0},
               f"llava {mode} launched {run['launches']}: K1 once eagerly and "
               "once captured")
         check(run["frontend_replays"] == 1, f"llava {mode}: "
@@ -2419,7 +2526,7 @@ def serve_ssm_phase(seed: int) -> dict:
     cfg = ARCHS[SSM_ARCH].with_(conv_impl="fused")
     n_blocks = cfg.n_layers
     no_conv2d = {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0,
-                 "mec_conv_fused2": 0}
+                 "mec_conv_fused2": 0, "mec_weight_grad": 0}
     served = serve_both(cfg, seed, batch=SSM_BATCH, prompt_len=SSM_PROMPT,
                         gen=SSM_GEN)
     for mode in ("graph", "eager"):
@@ -2915,7 +3022,7 @@ def train_lm_phase(seed: int, tmp_dir: Path) -> dict:
         want = (2 if cfg.remat else 1) * layers if arch in TRAIN_FUSED else 0
         check(rec["launches"] == {"mec_conv_fused": 0, "mec_lower": 0,
                                   "mec_gemm": 0, "mec_conv_fused2": 0,
-                                  "mec_conv1d": want},
+                                  "mec_weight_grad": 0, "mec_conv1d": want},
               f"{arch} train step launched {rec['launches']}, not {want} K5")
         rec["roofline"] = roofline_reading(
             "train_lm step", cfg, "train", TRAIN_BATCH, TRAIN_SEQ,
@@ -5135,7 +5242,9 @@ def main(argv=None) -> int:
     train_counts = K.launch_counts()
     check(train_counts["mec_conv_fused2"] >= len(stack)
           and train_counts["mec_conv_fused"] == 0 and train_counts["mec_lower"] == 0
-          and train_counts["mec_gemm"] == 0, f"mec_fused2 stack launched {train_counts}")
+          and train_counts["mec_gemm"] == 0
+          and train_counts["mec_weight_grad"] == len(stack),
+          f"mec_fused2 stack launched {train_counts}: K4, and K6 once a conv")
     abs_err["mec_conv_fused2"] = 0.0
     for (name, x, w, s, spec), y, wg in zip(stack, outs2, kernels):
         check(tuple(y.shape) == spec.out_shape and wg.grad is not None
@@ -5164,8 +5273,9 @@ def main(argv=None) -> int:
     cnn_counts = K.launch_counts()
     check(acc > 0.8, f"train_cnn through mec_fused2: final accuracy {acc}")
     check(cnn_counts == {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0,
-                         "mec_conv_fused2": 3 * TRAIN_STEPS},
-          f"train_cnn launched {cnn_counts}, not 3 x {TRAIN_STEPS} K4")
+                         "mec_conv_fused2": 3 * TRAIN_STEPS,
+                         "mec_weight_grad": 3 * TRAIN_STEPS},
+          f"train_cnn launched {cnn_counts}, not 3 x {TRAIN_STEPS} K4 and K6")
     emit({"phase": "train", "batch": SLICE_BATCH, "grad_check": grad_err,
           "stack_convs": len(stack), "stack_launches": train_counts,
           "stack_forward_seconds": round(t1 - t0, 4),
@@ -5173,6 +5283,9 @@ def main(argv=None) -> int:
           "train_cnn": {"args": TRAIN_ARGS, "steps": TRAIN_STEPS, "final_acc": acc,
                         "launches": cnn_counts, "seconds": round(train_s, 3),
                         "seconds_per_step": train_s / TRAIN_STEPS}})
+
+    # 5b. k6: the MEC weight gradient against its plain version, timed -----
+    k6 = k6_phase(args.seed, grad_tolerance, peak_tf32, peak_bw)
 
     # 6. serve: zamba2-7b at full width and depth ---------------------------
     cfg = ARCHS[SERVE_ARCH].with_(conv_impl="fused")
@@ -5185,7 +5298,8 @@ def main(argv=None) -> int:
     for mode in ("graph", "eager"):
         counts = served[mode]["launches"]
         check(counts == {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0,
-                         "mec_conv_fused2": 0, "mec_conv1d": n_mamba},
+                         "mec_conv_fused2": 0, "mec_weight_grad": 0,
+                         "mec_conv1d": n_mamba},
               f"serve ({mode}) launched {counts}, not {n_mamba} K5 and no "
               "K1-K4")
     serve_counts = served["graph"]["launches"]
@@ -5653,6 +5767,15 @@ def main(argv=None) -> int:
                          "bound_ms": sum(w * r["bound_ms"] for w, r in bf),
                          "bound_by": f"bf16 tensor cores at "
                                      f"{peak_bf16 / 1e12:g} TFLOP/s"}})
+    # K6: the 34-conv stack's weight gradients at the training batch (k6
+    # phase); it replaces no TPU kernel
+    rows.append({
+        "name": "mec_weight_grad", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mec_wgrad.cu", "replaces": None,
+        "launches": train_counts["mec_weight_grad"], "batch": K6_BATCH,
+        **{f: sum(w * k6["timing"][n][f] for n, w in RESNET101.items())
+           for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "operations", "train_cnn_launches": cnn_counts["mec_weight_grad"]})
     rows[list(KERNEL_ROWS).index("mec_conv_fused2")]["train_cnn_launches"] = \
         cnn_counts["mec_conv_fused2"]
     for row in rows:

@@ -15,9 +15,10 @@ every aten contraction (``mm``, ``bmm``, ``addmm``, ``convolution``,
 and every cast edge (``_to_copy``, and ``copy_`` between two dtypes),
 each with the Python line that made it.  A loop runs one line many
 times; like a jaxpr's equation, a line counts once (``scan`` bodies are
-one equation there).  The kernels K1-K4 are called through ``ctypes``
-and are opaque to the trace: on meta tensors their launch is the op
-``repro_torch::kernel_call`` (``kernels.mec_conv``), recorded as one
+one equation there).  The kernels K1-K4, and K6 in the gradient, are
+called through ``ctypes`` and are opaque to the trace: on meta tensors
+their launch is the op ``repro_torch::kernel_call``
+(``kernels.mec_conv``), recorded as one
 contraction node with the accumulator their source instantiates (f32:
 ``csrc/mec_mma.cuh`` keeps every sum in f32, three TF32 products a
 multiply-add for f32 operands) and, where the output is narrower, the
@@ -78,10 +79,10 @@ NUMCHECK_DTYPES = CONTRACT_DTYPES
 KERNEL_PATHS = KERNEL_ALGORITHMS
 
 #: the accumulator each kernel's source instantiates, by C entry name
-#: (``csrc/mec_mma.cuh``: f32 sums; ``mec_lower`` moves bytes)
+#: (``csrc/mec_mma.cuh``: f32 sums, K6's too; ``mec_lower`` moves bytes)
 KERNEL_ACCUM = {"mec_fused": "float32", "mec_fused2": "float32",
                 "mec_gemm": "float32", "mec_lower": None,
-                "mec_conv1d": "float32"}
+                "mec_conv1d": "float32", "mec_wgrad": "float32"}
 
 
 def probe_spec():

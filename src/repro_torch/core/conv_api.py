@@ -36,12 +36,15 @@ MEC algorithm:
 * input gradient = a transposed MEC conv: the cotangent, stride-dilated
   and fully padded, is MEC-convolved (``core.mec.mec_conv2d``) with the
   spatially flipped, channel-swapped kernel;
-* weight gradient from the compact L (``core.mec.mec_lower``): one
-  contraction per kernel row over the stride-s_h view of L.
+* weight gradient (``kernels.mec_conv.mec_weight_grad``): for each kernel
+  row r, the strips of input rows h*s_h + r (rows of the compact L)
+  against the cotangent.  On CUDA tensors that is the hand-written
+  kernel K6, which stages the input rows on chip and never builds L; on
+  CPU tensors, its plain version, L and one einsum per kernel row.
 
-Both run in f32 and are cast back to the operand dtypes.  The backward
-is plain PyTorch (``torch.matmul``), as the JAX package's is plain jnp:
-it has no Pallas backward kernel.
+Both run in f32 and are cast back to the operand dtypes.  The input
+gradient is plain PyTorch (``torch.matmul``), as the JAX package's whole
+VJP is plain jnp: it has no Pallas backward kernel.
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ from repro_torch.core.convspec import (ConvSpec, normalize_stride, pad_nhwc,
 from repro_torch.core.direct import direct_conv2d
 from repro_torch.core.fft_conv import fft_conv2d
 from repro_torch.core.im2col import im2col_conv2d
-from repro_torch.core.mec import mec_conv2d as _mec_reference, mec_lower
+from repro_torch.core.mec import mec_conv2d as _mec_reference
 from repro_torch.core.winograd import winograd_conv2d
 from repro_torch.launch.costmodel import pick_conv2d_algorithm
 
@@ -133,22 +136,13 @@ def _mec_input_grad(g: torch.Tensor, kernel: torch.Tensor, s_h: int,
 
 def _mec_weight_grad(inp: torch.Tensor, g: torch.Tensor, s_h: int, s_w: int,
                      k_h: int, k_w: int) -> torch.Tensor:
-    """dL/dK from the compact L (Eq. 3): for each kernel row r, the
-    stride-s_h view of L against the cotangent, the k_h-decomposition of
-    the forward kernels run in reverse."""
+    """dL/dK in f32, the k_h-decomposition of the forward kernels run in
+    reverse: for each kernel row r, the strips of input rows h*s_h + r
+    (the compact L's rows, Eq. 3) against the cotangent."""
+    # Lazy import: the kernels import core modules.
+    from repro_torch.kernels.mec_conv import mec_weight_grad
     with obs.span("mec_vjp.dw"):
-        low = mec_lower(inp, k_w, s_w)     # (n, o_w, i_h, k_w, i_c)
-        with obs.span("mec_vjp.dw.rows"):
-            low = low.to(torch.float32)
-            o_h = g.shape[1]
-            g32 = g.to(torch.float32)
-            rows = []
-            for r in range(k_h):
-                # (n, o_w, o_h, k_w, i_c)
-                lr = low[:, :, r:r + s_h * (o_h - 1) + 1:s_h]
-                rows.append(torch.einsum("nwhjc,nhwo->jco", lr, g32))
-        with obs.span("mec_vjp.dw.stack"):
-            return torch.stack(rows)           # (k_h, k_w, i_c, k_c)
+        return mec_weight_grad(inp, g, k_h, k_w, (s_h, s_w))
 
 
 class _MecConv(torch.autograd.Function):

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels under ``csrc/`` and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so``
-at the repository root, on first use; the hash covers the sources and the
+Each library ``<name>`` of :data:`LIBRARIES` is compiled from its
+``csrc/*.cu`` sources, each with a plain C interface, by one ``nvcc`` for
+Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so`` at the
+repository root, on first use; the hash covers the sources and the
 flags, so an edited source rebuilds and an unchanged one is reused.  The
 library is loaded with ``ctypes``.  There is no fallback: a missing
 ``nvcc`` or a failed build raises.  Nothing here runs at import time.
@@ -28,9 +29,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 
+#: the kernel libraries and the ``csrc/`` sources each is built from: K1-K4
+#: (``mec_conv.cu``) with K6, the MEC weight gradient (``mec_wgrad.cu``, a
+#: translation unit of its own); K5
+LIBRARIES = {"mec_conv": ("mec_conv.cu", "mec_wgrad.cu"),
+             "mec_conv1d": ("mec_conv1d.cu",)}
+
+
 def sources() -> list:
-    """Names of the kernel libraries: one per ``csrc/*.cu``."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+    """Names of the kernel libraries."""
+    return sorted(LIBRARIES)
 
 
 def nvcc_path() -> str:
@@ -47,11 +55,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    if not src.is_file():
-        raise FileNotFoundError(f"no kernel source {src}")
+    if name not in LIBRARIES:
+        raise FileNotFoundError(f"no kernel library {name!r}")
+    srcs = [CSRC / f for f in LIBRARIES[name]]
     digest = hashlib.sha256()
-    for path in [src] + sorted(CSRC.glob("*.cuh")):
+    for path in srcs + sorted(CSRC.glob("*.cuh")):
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -78,7 +86,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             continue
         nvcc = nvcc or nvcc_path()
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *(str(CSRC / f) for f in LIBRARIES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, lib, tmp, cmd)

@@ -13,10 +13,12 @@ wrapper              replaces (src/repro/kernels/mec_conv.py)      bound
 ``mec_conv_fused``   ``mec_conv_fused_pallas`` / ``_fused_kernel``   operations
 ``mec_conv_fused2``  ``mec_conv_fused2_pallas`` / ``_fused2_kernel`` operations
 ``mec_gemm``         ``mec_gemm_pallas`` / ``_gemm_kernel``         operations
+``mec_weight_grad``  none: the MEC VJP's weight gradient (K6)       operations
 ===================  ============================================  ==========
 
 The design notes (what bounds each kernel on the card and what its
-design does about it) head ``csrc/mec_conv.cu``.  Every kernel
+design does about it) head ``csrc/mec_conv.cu`` and, for K6,
+``csrc/mec_wgrad.cu``, built into the same library.  Every kernel
 accumulates in f32 and writes the output in the input dtype, which fuses
 the TPU wrappers' final casts.  An input and a kernel of two dtypes are
 both promoted (``torch.promote_types``) before the kernel or its plain
@@ -26,7 +28,9 @@ back in the input's dtype.  K1, K3 and K4 multiply on the tensor
 cores, through one core: bf16/f16 products are exact in f32; f32 operands
 are split into two TF32 halves and multiplied as three TF32 products
 (hi*hi + hi*lo + lo*hi), which keeps the f32 contract.  K3 runs that core
-on L read as an image (:func:`gemm_core`).  K2 and K5 move bytes.
+on L read as an image (:func:`gemm_core`).  K2 and K5 move bytes.  K6
+takes f32 operands (others are cast) through the same three-product
+split.
 """
 from __future__ import annotations
 
@@ -36,7 +40,9 @@ from typing import List
 
 import torch
 
-from repro_torch.core.convspec import spec_of
+from repro_torch import obs
+from repro_torch.core import mec as core_mec
+from repro_torch.core.convspec import normalize_stride, spec_of
 from repro_torch.core.direct import accum_dtype
 from repro_torch.kernels import build
 
@@ -54,11 +60,14 @@ def _lib() -> ctypes.CDLL:
     lib.mec_fused.argtypes = [ptr, ptr, ptr, i32] + [i64] * 12 + [ptr]
     lib.mec_fused2.argtypes = [ptr, ptr, ptr, i32] + [i64] * 13 + [ptr]
     lib.mec_gemm.argtypes = [ptr, ptr, ptr, i32] + [i64] * 10 + [ptr]
+    lib.mec_wgrad.argtypes = [ptr] * 4 + [i64] * 12 + [ptr]
+    lib.mec_wgrad_config.argtypes = [i64] * 11 + [ctypes.POINTER(i64)]
     lib.mec_fused2_tile.argtypes = [i64] * 6 + [ctypes.POINTER(i32)] * 2
     lib.mec_fused_config.argtypes = [i32, i32] + [i64] * 13 + [
         ctypes.POINTER(i64)]
     for fn in (lib.mec_lower, lib.mec_fused, lib.mec_fused2, lib.mec_gemm,
-               lib.mec_fused2_tile, lib.mec_fused_config):
+               lib.mec_fused2_tile, lib.mec_fused_config, lib.mec_wgrad,
+               lib.mec_wgrad_config):
         fn.restype = i32
     lib.mec_error_string.argtypes = [i32]
     lib.mec_error_string.restype = ctypes.c_char_p
@@ -425,8 +434,107 @@ def mec_gemm(low: torch.Tensor, kernel_mat: torch.Tensor, k_h: int, s_h: int,
 
 mec_gemm.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K6: MEC weight gradient  I, G -> dW (k_h, k_w, i_c, k_c)
+# ---------------------------------------------------------------------------
+
+def _wgrad_geometry(inp: torch.Tensor, g: torch.Tensor, k_h: int, k_w: int,
+                    stride):
+    """(s_h, s_w, o_h, o_w, k_c) of a weight gradient; raises on a
+    cotangent that is not the conv's output shape."""
+    s_h, s_w = normalize_stride(stride)
+    i_n, i_h, i_w, _ = inp.shape
+    if not (1 <= k_h <= i_h and 1 <= k_w <= i_w):
+        raise ValueError(f"bad kernel {k_h}x{k_w} for input {i_h}x{i_w}")
+    o_h, o_w = (i_h - k_h) // s_h + 1, (i_w - k_w) // s_w + 1
+    if g.dim() != 4 or tuple(g.shape[:3]) != (i_n, o_h, o_w):
+        raise ValueError(f"cotangent {tuple(g.shape)} is not the output "
+                         f"({i_n}, {o_h}, {o_w}, k_c)")
+    return s_h, s_w, o_h, o_w, g.shape[3]
+
+
+def mec_weight_grad_plain(inp: torch.Tensor, g: torch.Tensor, k_h: int,
+                          k_w: int, stride=1) -> torch.Tensor:
+    """dW[r] = the stride-s_h view of the compact L (n, o_w, i_h, k_w,
+    i_c) at rows h*s_h + r against the cotangent, one einsum per kernel
+    row, in f32 (the MEC VJP's plain form, the JAX package's)."""
+    s_h, s_w = normalize_stride(stride)
+    low = core_mec.mec_lower(inp, k_w, s_w)     # (n, o_w, i_h, k_w, i_c)
+    with obs.span("mec_vjp.dw.rows"):
+        low = low.to(torch.float32)
+        o_h = g.shape[1]
+        g32 = g.to(torch.float32)
+        rows = []
+        for r in range(k_h):
+            # (n, o_w, o_h, k_w, i_c)
+            lr = low[:, :, r:r + s_h * (o_h - 1) + 1:s_h]
+            rows.append(torch.einsum("nwhjc,nhwo->jco", lr, g32))
+    with obs.span("mec_vjp.dw.stack"):
+        return torch.stack(rows)           # (k_h, k_w, i_c, k_c)
+
+
+#: the fields of :func:`wgrad_config`, in the C entry's order
+WGRAD_CONFIG_FIELDS = ("cc", "ldc", "jb", "bn", "warps_m", "threads",
+                       "smem_bytes", "ctas_per_sm", "splits", "tiles",
+                       "workspace", "stages")
+
+
+def wgrad_config(inp_shape, g_shape, k_h: int, k_w: int, stride=1) -> dict:
+    """What K6 runs for this geometry on the current CUDA device, with
+    16-byte-aligned operands: the channel chunk ``cc`` and its staged row
+    stride ``ldc`` (floats), ``jb`` kernel columns by ``bn`` output
+    channels a CTA (``jb * cc`` rows on ``warps_m`` warps), its threads and
+    shared memory, the CTAs an SM holds, the ``splits`` of the positions
+    over CTAs, the output ``tiles``, the ``workspace`` floats of the split
+    partial sums (0 without a split) and the ``stages`` of 64 positions.
+    It launches nothing.  Raises :class:`LaunchRefused` where the launcher
+    would refuse the geometry, ``RuntimeError`` on any other failure."""
+    i_n, i_h, i_w, i_c = inp_shape
+    s_h, s_w = normalize_stride(stride)
+    o_h, o_w = (i_h - k_h) // s_h + 1, (i_w - k_w) // s_w + 1
+    vals = (ctypes.c_longlong * len(WGRAD_CONFIG_FIELDS))()
+    lib = _lib()
+    rc = lib.mec_wgrad_config(i_n, i_h, i_w, i_c, k_h, k_w, g_shape[3], s_h,
+                              s_w, o_h, o_w, vals)
+    if rc == _CUDA_ERROR_INVALID_VALUE:
+        raise LaunchRefused(f"mec_wgrad_config: configuration refused "
+                            f"({lib.mec_error_string(rc).decode()})")
+    if rc != 0:
+        raise RuntimeError(f"mec_wgrad_config: CUDA error {rc} "
+                           f"({lib.mec_error_string(rc).decode()})")
+    return dict(zip(WGRAD_CONFIG_FIELDS, vals))
+
+
+def mec_weight_grad(inp: torch.Tensor, g: torch.Tensor, k_h: int, k_w: int,
+                    stride=1) -> torch.Tensor:
+    """The MEC conv's kernel gradient: inp (n, i_h, i_w, i_c) pre-padded,
+    g (n, o_h, o_w, k_c) the output's cotangent.  Returns dW (k_h, k_w,
+    i_c, k_c) in f32.  On CUDA tensors K6 reads the input rows in place
+    (the lowering in shared memory, no L); operands not in f32 are cast
+    first.  CPU tensors take :func:`mec_weight_grad_plain`."""
+    s_h, s_w, o_h, o_w, k_c = _wgrad_geometry(inp, g, k_h, k_w, stride)
+    if inp.device.type != "cpu":
+        inp, g = inp.to(torch.float32), g.to(torch.float32)
+    if _on_cpu(inp, g, trace=True):
+        return mec_weight_grad_plain(inp, g, k_h, k_w, (s_h, s_w))
+    inp, g = inp.contiguous(), g.contiguous()
+    i_n, i_h, i_w, i_c = inp.shape
+    out = torch.empty((k_h, k_w, i_c, k_c), dtype=torch.float32,
+                      device=inp.device)
+    words = 0 if out.device.type == "meta" else wgrad_config(
+        inp.shape, g.shape, k_h, k_w, (s_h, s_w))["workspace"]
+    ws = torch.empty((words,), dtype=torch.float32, device=inp.device)
+    _launch(mec_weight_grad, "mec_wgrad", (inp, g, ws), out, words, i_n, i_h,
+            i_w, i_c, k_h, k_w, k_c, s_h, s_w, o_h, o_w)
+    return out
+
+
+mec_weight_grad.launches = 0
+
 #: every kernel wrapper of this module, for resetting and reading counts
-KERNELS = (mec_conv_fused, mec_lower, mec_gemm, mec_conv_fused2)
+KERNELS = (mec_conv_fused, mec_lower, mec_gemm, mec_conv_fused2,
+           mec_weight_grad)
 
 
 def reset_launch_counts() -> None:

@@ -11,7 +11,7 @@ It builds ``launch.mesh.make_production_mesh`` and runs one train step
 step under ``default_rules``, on fake tensors of the ``meta`` device
 (``FakeTensorMode``): the parameters are the rank's tensor-parallel
 slices, the moments its ZeRO-1 slices, the batch its data-parallel rows.
-K1-K5 are traced as ``repro_torch::kernel_call`` on the path the card
+K1-K6 are traced as ``repro_torch::kernel_call`` on the path the card
 takes.  Each cell records, per device:
 
 * ``flops``: ``launch.hlo_analysis.flops_bytes`` (``FlopCounterMode``,

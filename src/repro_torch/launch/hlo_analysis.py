@@ -13,7 +13,7 @@ partitioned HLO are taken from the program as it runs:
   are ``collective-permute``.
 * :func:`flops_bytes` runs a program under
   ``torch.utils.flop_counter.FlopCounterMode``, with a formula for
-  ``repro_torch::kernel_call``, so a K1-K5 launch traced on meta tensors
+  ``repro_torch::kernel_call``, so a K1-K6 launch traced on meta tensors
   counts its own arithmetic (K2 moves bytes and counts none).
 
 The constants are the H100 SXM's data sheet: nothing here measures them.
@@ -63,7 +63,10 @@ def kernel_flops(name: str, operands, out) -> int:
     """The arithmetic of one kernel launch (multiply and add counted
     apart), from its operands' and output's shapes: K1, K4 and K3
     2·N·o_h·o_w·k_h·k_w·i_c·k_c (K3 over its o_h shifted GEMMs, the same
-    sum), K2 0, K5 2·n·t·c·k_w."""
+    sum), K6 the same over its dW and cotangent, K2 0, K5 2·n·t·c·k_w."""
+    if name == "mec_wgrad":
+        g = operands[1]           # (n, o_h, o_w, k_c); out dW (k_h, k_w, i_c, k_c)
+        return 2 * out.numel() * (g.numel() // g.shape[-1])
     if name in ("mec_fused", "mec_fused2"):
         k_h, k_w, i_c, _ = operands[1].shape
         return 2 * out.numel() * k_h * k_w * i_c

@@ -116,11 +116,13 @@ def test_roofline_reads_dry_run_records_only_when_asked(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["mec_conv_fused", "mec_conv_fused2",
-                                  "mec_lowered", "mec_conv1d"])
+                                  "mec_lowered", "mec_conv1d",
+                                  "mec_weight_grad"])
 def test_kernel_launches_on_meta_count_their_arithmetic(name):
-    """A K1-K5 launch traced on meta tensors is one ``kernel_call`` whose
-    FLOPs (``hlo_analysis.flops_bytes``) are its own multiply-adds; K2
-    (the lowering) counts none."""
+    """A K1-K6 launch traced on meta tensors is one ``kernel_call`` whose
+    FLOPs (``hlo_analysis.flops_bytes``) are its own multiply-adds (K6's,
+    the weight gradient's, the forward's); K2 (the lowering) counts
+    none."""
     n, i_h, i_w, i_c, k_h, k_w, k_c, s = 2, 9, 11, 3, 3, 2, 5, 1
     x = torch.zeros((n, i_h, i_w, i_c), device="meta")
     k = torch.zeros((k_h, k_w, i_c, k_c), device="meta")
@@ -131,6 +133,11 @@ def test_kernel_launches_on_meta_count_their_arithmetic(name):
             torch.zeros((4, 6), device="meta")
         got = thlo.flops_bytes(lambda: C.mec_conv1d(xs, ks))
         assert got == {"flops": 2 * n * 7 * 6 * 4, "bytes_accessed": 0.0}
+        return
+    if name == "mec_weight_grad":
+        g = torch.zeros((n, o_h, o_w, k_c), device="meta")
+        got = thlo.flops_bytes(lambda: K.mec_weight_grad(x, g, k_h, k_w, s))
+        assert got == {"flops": conv, "bytes_accessed": 0.0}
         return
     if name == "mec_lowered":
         low = K.mec_lower(x, k_w, s)

@@ -86,7 +86,7 @@ FUSED2_GEOMS = [g + (8,) for g in GEOMS] + [
 FUSED2_IDS = IDS + ["f1_7x7", "f1_6x6", "f1_9x9", "kh_lt_sh", "ragged_h",
                     "rows_gt_16"]
 NO_LAUNCHES = {"mec_conv_fused": 0, "mec_lower": 0, "mec_gemm": 0,
-               "mec_conv_fused2": 0}
+               "mec_conv_fused2": 0, "mec_weight_grad": 0}
 
 
 @pytest.fixture(autouse=True)
@@ -503,7 +503,8 @@ def test_conv2d_on_the_card_runs_the_kernels(cuda, padding, stride):
 def test_mec_backward_on_the_card_matches_f64_autograd(cuda, stride, algorithm):
     """d_input and d_kernel of sum(out * g) through the MEC VJP on the card
     against autograd through the f64 direct conv; the forward launches
-    the algorithm's kernels and the backward none."""
+    the algorithm's kernels and the backward exactly one K6
+    (``mec_weight_grad``) for the conv."""
     x, k = _operands((15, 17, 5, 3, 4, 7, 1), "float32", cuda)
     x64 = x.double().requires_grad_()
     k64 = k.double().requires_grad_()
@@ -516,7 +517,7 @@ def test_mec_backward_on_the_card_matches_f64_autograd(cuda, stride, algorithm):
                     device=cuda)
     y.backward(g)
     torch.cuda.synchronize()
-    assert K.launch_counts() == fwd_counts
+    assert K.launch_counts() == {**fwd_counts, "mec_weight_grad": 1}
     conv2d(x64, k64, stride=stride, padding="SAME",
            algorithm="direct").backward(g.double())
     i_n, o_h, o_w, k_c = y.shape
@@ -524,6 +525,83 @@ def test_mec_backward_on_the_card_matches_f64_autograd(cuda, stride, algorithm):
         grad_tolerance(algorithm, "float32", 3 * 4 * k_c)
     assert ref.scaled_error(k.grad, k64.grad) <= \
         grad_tolerance(algorithm, "float32", i_n * o_h * o_w)
+
+
+# K6, the MEC weight gradient: the five Table-3 layers (ih, iw, ic, kh, kw,
+# kc, stride; cv4's k_w*i_c = 448), then i_c = 3 at cv1's k_w = 11, s_h >
+# k_h, stride (2, 3), k_c off the 64-channel tile with i_c off the
+# 32-channel chunk, a patch embed (k = s = 14), stride 16 (the launcher
+# halves the channel chunk to fit shared memory) and k_w = 17 (two blocks
+# of kernel columns)
+WGRAD_GEOMS = [(224, 224, 64, 7, 7, 64, 2), (56, 56, 64, 3, 3, 64, 1),
+               (28, 28, 128, 3, 3, 128, 1), (14, 14, 256, 3, 3, 256, 1),
+               (7, 7, 512, 3, 3, 512, 1), (227, 227, 3, 11, 11, 96, 4),
+               (8, 8, 3, 2, 2, 5, 3), (11, 13, 2, 4, 5, 3, (2, 3)),
+               (20, 45, 37, 3, 3, 130, 1), (56, 56, 3, 14, 14, 40, 14),
+               (66, 66, 64, 3, 3, 8, 16), (20, 24, 32, 3, 17, 8, 1)]
+WGRAD_IDS = ["cv4", "cv9", "cv10", "cv11", "cv12", "ic3_k11", "sh_gt_kh",
+             "s23", "kc130", "patch14", "s16", "kw17"]
+
+
+def _cotangent(geom, device, batch=2):
+    """A seeded cotangent of the conv's output shape."""
+    ih, iw, _, kh, kw, kc = geom[:6]
+    s_h, s_w = _strides(geom[6])
+    rng = np.random.RandomState(sum(geom[:6]) + 1)
+    g = rng.randn(batch, (ih - kh) // s_h + 1, (iw - kw) // s_w + 1, kc)
+    return torch.from_numpy(g.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("geom", WGRAD_GEOMS, ids=WGRAD_IDS)
+def test_weight_grad_kernel_matches_plain(cuda, geom):
+    """K6 against its plain version (the compact L and k_h einsums, in
+    IEEE f32 on the card) at batch 2: one launch of K6 alone, dW in f32
+    within twice the f32 gradient budget, and equal bits on a second
+    launch."""
+    x, _ = _operands(geom, "float32", cuda)
+    g = _cotangent(geom, cuda)
+    kh, kw, s = geom[3], geom[4], _strides(geom[6])
+    K.reset_launch_counts()
+    dw = K.mec_weight_grad(x, g, kh, kw, s)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {**NO_LAUNCHES, "mec_weight_grad": 1}
+    assert dw.dtype == torch.float32 and dw.shape == (kh, kw, geom[2], geom[5])
+    tol = 2 * grad_tolerance("mec_fused2", "float32",
+                             g.shape[0] * g.shape[1] * g.shape[2])
+    assert ref.scaled_error(dw, K.mec_weight_grad_plain(x, g, kh, kw, s)) <= tol
+    assert torch.equal(dw, K.mec_weight_grad(x, g, kh, kw, s))
+
+
+def test_weight_grad_kernel_splits_the_positions_deterministically(cuda):
+    """cv9 at batch 16: the launcher splits the positions over CTAs (a
+    workspace and a second pass that adds the splits in order); the
+    result is within budget of the plain version and equal to the bit on
+    every launch."""
+    geom = (56, 56, 64, 3, 3, 64, 1)
+    x, _ = _operands(geom, "float32", cuda, batch=16)
+    g = _cotangent(geom, cuda, batch=16)
+    cfg = K.wgrad_config(x.shape, g.shape, 3, 3, 1)
+    assert cfg["splits"] > 1 and cfg["workspace"] == cfg["splits"] * 3 * 3 * 64 * 64
+    first = K.mec_weight_grad(x, g, 3, 3, 1)
+    tol = 2 * grad_tolerance("mec_fused2", "float32", 16 * 54 * 54)
+    assert ref.scaled_error(first, K.mec_weight_grad_plain(x, g, 3, 3, 1)) <= tol
+    for _ in range(3):
+        assert torch.equal(first, K.mec_weight_grad(x, g, 3, 3, 1))
+
+
+def test_weight_grad_kernel_casts_other_dtypes_and_strided_inputs(cuda):
+    """bf16 operands are cast to f32 first (the same bits as the f32 call
+    on their values), and a strided input is made contiguous."""
+    geom = (12, 14, 6, 3, 3, 10, 1)
+    x, _ = _operands(geom, "float32", cuda)
+    g = _cotangent(geom, cuda)
+    xb, gb = x.bfloat16(), g.bfloat16()
+    assert torch.equal(K.mec_weight_grad(xb, gb, 3, 3, 1),
+                       K.mec_weight_grad(xb.float(), gb.float(), 3, 3, 1))
+    x_t = x.transpose(1, 2).contiguous().transpose(1, 2)    # same values
+    assert not x_t.is_contiguous()
+    assert torch.equal(K.mec_weight_grad(x_t, g, 3, 3, 1),
+                       K.mec_weight_grad(x, g, 3, 3, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -911,7 +989,8 @@ def test_serve_on_the_card_launches_k5_per_mamba_layer(cuda):
 
 def test_bench_smoke_suite_on_the_card_times_every_variant(cuda):
     """``run_suite("smoke")`` on the card: every variant timed on the
-    device timer, K1-K4 launched, the card named in the report."""
+    device timer, K1-K4 launched (and K6 not: the suite times forwards),
+    the card named in the report."""
     from repro_torch.bench.harness import run_suite
     from repro_torch.bench.report import validate_report
     K.reset_launch_counts()
@@ -922,7 +1001,9 @@ def test_bench_smoke_suite_on_the_card_times_every_variant(cuda):
     assert {r["algorithm"] for r in doc["results"]} >= {
         "direct", "im2col", "fft", "winograd", "mecA", "mecB",
         "mec_lowered", "mec_fused", "mec_fused2"}
-    assert all(n > 0 for n in K.launch_counts().values()), K.launch_counts()
+    counts = K.launch_counts()
+    assert counts.pop("mec_weight_grad") == 0
+    assert all(n > 0 for n in counts.values()), counts
     env = doc["environment"]
     assert (env["backend"], env["device_kind"]) == \
         ("cuda", torch.cuda.get_device_name(0))

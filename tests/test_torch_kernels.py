@@ -21,6 +21,11 @@ contract's forward tolerance (``numerics.fwd_tolerance``, f32 scaled by
 sqrt(K/27)), since each side is held to it on its own; K2 is data
 movement and must match exactly.
 
+K6 (the MEC weight gradient) replaces no Pallas kernel: its plain
+version, what its wrapper runs on CPU tensors, is held against the JAX
+package's VJP (``repro.core.conv_api._mec_weight_grad``) within twice the
+f32 gradient budget (``numerics.grad_tolerance``).
+
 The kernels themselves, on the card, are held against these plain
 versions in ``tests/test_torch_cuda.py``.
 """
@@ -40,7 +45,7 @@ from repro.kernels.ref import conv1d_ref as j_conv1d_ref  # noqa: E402
 from repro.kernels.ref import conv2d_ref as j_conv2d_ref  # noqa: E402
 from repro.kernels.ref import lower_ref as j_lower_ref  # noqa: E402
 
-from repro_torch.core.numerics import fwd_tolerance  # noqa: E402
+from repro_torch.core.numerics import fwd_tolerance, grad_tolerance  # noqa: E402
 from repro_torch.kernels import build, ops, ref      # noqa: E402
 from repro_torch.kernels import mec_conv as K        # noqa: E402
 from repro_torch.kernels import mec_conv1d as C      # noqa: E402
@@ -379,7 +384,8 @@ def test_cpu_path_launches_no_kernel():
     ops.mec_conv2d_cuda(tx, tk, 2, mode="fused2")
     ops.mec_conv2d_cuda(tx, tk, 2, mode="lowered")
     assert K.launch_counts() == {"mec_conv_fused": 0, "mec_lower": 0,
-                                 "mec_gemm": 0, "mec_conv_fused2": 0}
+                                 "mec_gemm": 0, "mec_conv_fused2": 0,
+                                 "mec_weight_grad": 0}
 
 
 # (o_h, o_w, k_c, i_n): the Table-3 layers at batch 1 and 16, then edges:
@@ -480,6 +486,63 @@ def test_build_names_sources_and_hashes_them():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     with pytest.raises(FileNotFoundError):
         build.library_path("nope")
+
+
+# ---------------------------------------------------------------------------
+# K6: the MEC weight gradient
+# ---------------------------------------------------------------------------
+
+# (ih, iw, ic, kh, kw, kc, stride): cv4's 7x7 kernel at stride 2, a stride
+# (2, 3) with i_c = 2, and s_h > k_h
+WGRAD_GEOMS = [(16, 16, 8, 7, 7, 16, 2), (11, 13, 2, 4, 5, 3, (2, 3)),
+               (8, 8, 3, 2, 2, 5, 3)]
+
+
+def _wgrad_operands(geom, batch=2):
+    """Seeded numpy input and cotangent of the conv's output shape, and the
+    kernel size and strides."""
+    ih, iw, ic, kh, kw, kc, s = geom
+    s_h, s_w = (s, s) if isinstance(s, int) else s
+    rng = np.random.RandomState(sum(geom[:6]))
+    x = rng.randn(batch, ih, iw, ic).astype(np.float32)
+    g = rng.randn(batch, (ih - kh) // s_h + 1, (iw - kw) // s_w + 1,
+                  kc).astype(np.float32)
+    return x, g, kh, kw, (s_h, s_w)
+
+
+@pytest.mark.parametrize("geom", WGRAD_GEOMS, ids=["k7s2", "s23", "sh_gt_kh"])
+def test_weight_grad_plain_matches_the_jax_vjp(geom):
+    """The weight gradient on CPU tensors runs K6's plain version, launches
+    nothing, and agrees with the JAX package's VJP."""
+    from repro.core.conv_api import _mec_weight_grad as j_wgrad
+    x, g, kh, kw, (s_h, s_w) = _wgrad_operands(geom)
+    before = K.mec_weight_grad.launches
+    got = K.mec_weight_grad(torch.from_numpy(x), torch.from_numpy(g), kh, kw,
+                            (s_h, s_w))
+    assert K.mec_weight_grad.launches == before
+    want = np.array(j_wgrad(jnp.asarray(x), jnp.asarray(g), s_h, s_w, kh, kw))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    tol = 2 * grad_tolerance("mec_fused2", "float32",
+                             g.shape[0] * g.shape[1] * g.shape[2])
+    assert ref.scaled_error(got, torch.from_numpy(want)) <= tol
+
+
+def test_weight_grad_wrapper_traces_on_meta_and_refuses_bad_operands():
+    """On meta tensors the launch is one traced kernel call (f32 dW, nothing
+    counted); a cotangent of another shape than the output, or operands on
+    two devices, raise."""
+    x = torch.zeros((2, 9, 9, 4), device="meta", dtype=torch.bfloat16)
+    g = torch.zeros((2, 4, 7, 6), device="meta", dtype=torch.bfloat16)
+    before = K.mec_weight_grad.launches
+    dw = K.mec_weight_grad(x, g, 3, 3, (2, 1))
+    assert dw.device.type == "meta" and dw.dtype == torch.float32
+    assert tuple(dw.shape) == (3, 3, 4, 6)
+    assert K.mec_weight_grad.launches == before
+    with pytest.raises(ValueError, match="cotangent"):
+        K.mec_weight_grad(torch.zeros((2, 9, 9, 4)), torch.zeros((2, 7, 7, 6)),
+                          3, 3, 2)
+    with pytest.raises(ValueError, match="different devices"):
+        K.mec_weight_grad(torch.zeros((2, 9, 9, 4)), g.float(), 3, 3, (2, 1))
 
 
 # ---------------------------------------------------------------------------

@@ -374,17 +374,23 @@ def test_dilate_pad_allocates_the_dilated_and_padded_cotangent_on_the_card():
     exactly the dilated cotangent and its padded copy (sizes that are
     whole 512-byte blocks, the allocator's rounding), and the profiler's
     kernels give every span a device time, positive for the call and the
-    VJP's parts, the parts within the whole."""
+    VJP's parts, the parts within the whole.  The weight gradient is one
+    K6 launch: ``mec_vjp.dw`` opens no lowering, einsum or stack span."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     n, k_c, k = 2, 128, 3
     _step("mec", "cuda", shape=(n, 13, 13, 4), kernel=(k, k, 4, k_c))
     torch.cuda.synchronize()
+    before = obs.counters()["launches"]["mec_weight_grad"]
     with obs.recording(), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         y = _step("mec", "cuda", shape=(n, 13, 13, 4), kernel=(k, k, 4, k_c))
         torch.cuda.synchronize()
+    assert obs.counters()["launches"]["mec_weight_grad"] == before + 1
     assert obs.attribute(prof) == len(obs.records())
+    paths = set(obs.summary()["paths"])
+    assert "mec_vjp/mec_vjp.dw" in paths
+    assert not [p for p in paths if p.startswith("mec_vjp/mec_vjp.dw/")]
     o_h = y.shape[1]
     dil = (o_h - 1) * 2 + 1
     want = 4 * n * k_c * (dil * dil + (dil + 2 * (k - 1)) ** 2)

@@ -129,7 +129,8 @@ def test_cpu_slice_launches_no_kernel():
     for algorithm in ALGOS:
         conv2d(tx, tk, padding="SAME", algorithm=algorithm)
     assert K.launch_counts() == {"mec_conv_fused": 0, "mec_lower": 0,
-                                 "mec_gemm": 0, "mec_conv_fused2": 0}
+                                 "mec_gemm": 0, "mec_conv_fused2": 0,
+                                 "mec_weight_grad": 0}
 
 
 def test_auto_resolves_to_the_fused_kernel_on_cuda():

@@ -124,7 +124,8 @@ def build_all(names) -> dict:
     for name in names:
         src = make_variant(name)
         lib = OUT / name / "libmec_conv.so"
-        cmd = [nvcc, *build.NVCC_FLAGS, "-o", str(lib), str(src / "mec_conv.cu")]
+        cmd = [nvcc, *build.NVCC_FLAGS, "-o", str(lib),
+               *(str(src / f) for f in build.LIBRARIES["mec_conv"])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
