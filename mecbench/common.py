@@ -1,11 +1,13 @@
 """What the drivers share: the run's context, host spans, the profiler's
-reading, the import check and the comparison verdict.
+reading, the token window of the LM rates, the import check and the
+comparison verdict.
 
 Nothing here imports the port: the drivers do, after ``run.py`` has set
 the environment up.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import sys
 import time
@@ -169,6 +171,44 @@ def profile(fn: Callable[[], None], synchronize: Callable[[], None]) -> dict:
                           sorted(gaps.items(), key=lambda kv: -kv[1])[:10]],
         },
     }
+
+
+#: steps the host keeps enqueued ahead of the card in a token window
+IN_FLIGHT = 2
+
+
+def token_window(step: Callable[[int], int], seconds: float,
+                 device) -> Tuple[int, int, float]:
+    """A closed loop of ``step(0), step(1), ...`` for ``seconds`` on the
+    host's clock, then a wait for the device: (steps, tokens, window
+    seconds).
+
+    Each step enqueues its work and returns the tokens it counts: a
+    prefill batch its prompt tokens, a decode step its batch's emitted
+    tokens, a decode batch's own prefill none (its time is in the window,
+    its prompt is not counted).  The window runs from an idle device to
+    the end of the last step enqueued, so every token counted completed
+    inside it.  On a card the host keeps at most ``IN_FLIGHT`` steps
+    enqueued ahead of the device, so the window ends near ``seconds``."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    pending = collections.deque()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = tokens = 0
+    while time.perf_counter() - t0 < seconds:
+        tokens += step(steps)
+        steps += 1
+        if cuda:
+            event = torch.cuda.Event()
+            event.record()
+            pending.append(event)
+            if len(pending) > IN_FLIGHT:
+                pending.popleft().synchronize()
+    if cuda:
+        torch.cuda.synchronize()
+    return steps, tokens, time.perf_counter() - t0
 
 
 def kernel_time(trace: dict, token: str) -> Tuple[float, int]:

@@ -1,7 +1,8 @@
 """Device milliseconds a training step inside the MEC VJP's kernel
-gradient (the port's span ``mec_vjp.dw``: the input's lowering, the k_h
-einsums over strided views of L, the stack), from the readers' profiled
-pass: the durations of the kernels launched inside the span, summed."""
+gradient (the port's span ``mec_vjp.dw``: on CUDA tensors one K6 launch,
+``wgrad_kernel``, and ``wgrad_sum_kernel`` where the positions are split),
+from the readers' profiled pass: the durations of the kernels launched
+inside the span, summed."""
 from mecbench.spans import device_ms
 
 

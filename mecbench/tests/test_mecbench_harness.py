@@ -1,7 +1,9 @@
 """The harness on the CPU: its files load by name, ``BENCHMARK.json`` keeps
 to the benchmark's contract, the drivers' arithmetic and the result line
-have their shape at smoke size, a run refuses without a card, and the
-import check refuses the JAX package by its top-level name.
+have their shape at smoke size (each configuration's and traffic's own
+``smoke`` sizes), a configuration with a driver of its own comes in as new
+files only, a run refuses without a card, and the import check refuses the
+JAX package by its top-level name.
 
     python -m pytest -q mecbench/tests
 
@@ -26,26 +28,29 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
-#: smoke size of the configuration
-SMOKE_LAYERS = {
-    "cv9": dict(i_h=10, i_w=10, i_c=8, k_h=3, k_w=3, k_c=8, stride=1, count=2),
-    "cv4": dict(i_h=12, i_w=12, i_c=4, k_h=5, k_w=5, k_c=8, stride=2, count=1),
-}
-SMOKE_TRAFFIC = {
-    "resnet101.infer.bf16.b64": dict(batch=2),
-    "resnet101.train.f32.b128": dict(batch=2),
-}
+#: the end-to-end metrics allowed; each cell reports exactly one of the
+#: rates.  The LM rates enter with the first cell that reports them (a
+#: metric's ``workloads`` may not be empty), with bounds no wider than
+#: those read for them on the card (PERF.md section 2).
+RATES = ("images_per_s", "prefill_tokens_per_s", "decode_tokens_per_s")
+END_TO_END = set(RATES) | {"peak_mem_gib", "setup_s"}
+LM_RATE_BOUNDS = {"prefill_tokens_per_s": 0.01, "decode_tokens_per_s": 0.077}
+#: the layers of PERF.md's list
+LAYERS = {"conv front end", "conv backward (MEC VJP)", "kernels", "device",
+          "whole step", "model blocks", "serving"}
+CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
 def smoke_context(workload: str, seed: int = 2 ** 33 + 7,
-                  seconds: float = 0.3, trace: bool = False):
-    """The cell's context at smoke size on the CPU (the look for a card
-    skipped)."""
+                  seconds: float = 0.3, trace: bool = False,
+                  bench: dict = BENCH, root: Path = ROOT):
+    """The cell's context on the CPU at the sizes its configuration's and
+    its traffic's ``smoke`` keys give (the look for a card skipped)."""
     args = argparse.Namespace(workload=workload, seed=seed, seconds=seconds,
                               trace=int(trace))
-    ctx = bench_run.make_context(args, BENCH, device="cpu")
-    ctx.config = dict(ctx.config, layers=SMOKE_LAYERS)
-    ctx.traffic = dict(ctx.traffic, **SMOKE_TRAFFIC[workload])
+    ctx = bench_run.make_context(args, bench, root=root, device="cpu")
+    ctx.config = dict(ctx.config, **ctx.config["smoke"])
+    ctx.traffic = dict(ctx.traffic, **ctx.traffic["smoke"])
     return ctx
 
 
@@ -60,16 +65,17 @@ def test_config_loads_by_name(cfg):
     data = bench_run.load_config(cfg["name"])
     assert (ROOT / cfg["file"]).resolve() == (
         ROOT / "mecbench/configs" / f"{cfg['name']}.json").resolve()
-    assert data["name"] == cfg["name"] and data["driver"] == "conv_stack"
-    assert data["reduced"] == cfg["reduced"]
-    assert bench_run.load_reference(cfg["name"]).scaled_error
-    assert bench_run.load_driver(data).run
+    assert data["name"] == cfg["name"]
+    assert (ROOT / "mecbench/drivers" / f"{data['driver']}.py").is_file()
+    assert data["reduced"] == cfg["reduced"] and data["smoke"]
+    assert bench_run.load_reference(cfg["name"])
+    assert callable(bench_run.load_driver(data).run)
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda c: c["name"])
 def test_traffic_loads_by_name(cell):
     traffic = bench_run.load_traffic(cell["traffic"])
-    assert traffic["why"] and traffic["batch"] > 0
+    assert traffic["why"] and traffic["batch"] > 0 and traffic["smoke"]
     assert set(traffic["limits"]) and all(v > 0 for v in
                                           traffic["limits"].values())
 
@@ -98,40 +104,59 @@ def test_benchmark_json_keys_and_names():
     assert len(json.dumps(BENCH)) < 64 * 1024
 
 
-def test_benchmark_json_metrics():
-    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
-    assert set(e2e) == {"images_per_s", "peak_mem_gib", "setup_s"}
-    for m in BENCH["end_to_end"]:
+def check_metrics(bench: dict) -> None:
+    """The end-to-end and per-layer metrics keep to the contract: the
+    end-to-end names among the five, each cell under exactly one rate,
+    every ``workloads`` list a non-empty list of cells, bounds, units,
+    layers and ``moves``."""
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    assert "setup_s" in e2e and set(e2e) <= END_TO_END
+    cells = {w["name"] for w in bench["workloads"]}
+    for m in bench["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25 and UNIT.match(m["unit"])
         assert m["source"] in ("host_clock", "device_trace")
+        if "workloads" in m:
+            assert m["workloads"] and set(m["workloads"]) <= cells
     assert e2e["setup_s"]["bound"] <= 0.25
+    for name, bound in LM_RATE_BOUNDS.items():
+        assert name not in e2e or e2e[name]["bound"] <= bound
+    for w in cells:
+        assert sum(w in e2e[r]["workloads"] for r in RATES if r in e2e) == 1
     layers = set()
-    for m in BENCH["per_layer"]:
+    for m in bench["per_layer"]:
         assert UNIT.match(m["unit"]) and m["moves"] in e2e
+        assert m["workloads"] and set(m["workloads"]) <= cells
         layers.add(m["layer"])
         for w in m["workloads"]:
             moved = e2e[m["moves"]]
             assert "workloads" not in moved or w in moved["workloads"]
         if m["name"].endswith("_roofline"):
             assert m["unit"] == "%"
-    cells = {w["name"] for w in BENCH["workloads"]}
     for w in cells:
-        reported = [m for m in BENCH["end_to_end"]
+        reported = [m for m in bench["end_to_end"]
                     if "workloads" not in m or w in m["workloads"]]
         assert len(reported) >= 2
-        assert any(w in m["workloads"] for m in BENCH["per_layer"])
-    assert layers <= {"conv front end", "kernels", "device", "whole step"}
+        assert any(w in m["workloads"] for m in bench["per_layer"])
+    assert layers <= LAYERS
 
 
-def test_benchmark_json_cells():
-    configs = {c["name"] for c in BENCH["configs"]}
+def check_cells(bench: dict) -> None:
+    configs = {c["name"] for c in bench["configs"]}
     pairs = set()
-    for w in BENCH["workloads"]:
+    for w in bench["workloads"]:
         assert w["config"] in configs and w["chips"] == 1
         assert len(w["why"]) <= 200 and "\n" not in w["why"]
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
-    assert {w["config"] for w in BENCH["workloads"]} == configs
+    assert {w["config"] for w in bench["workloads"]} == configs
+
+
+def test_benchmark_json_metrics():
+    check_metrics(BENCH)
+
+
+def test_benchmark_json_cells():
+    check_cells(BENCH)
 
 
 # ---------------------------------------------------------- the import check
@@ -198,7 +223,7 @@ def test_run_fails_with_only_the_benchmark_files(tmp_path):
     assert out.stdout == ""
 
 
-@pytest.mark.parametrize("workload", sorted(SMOKE_TRAFFIC))
+@pytest.mark.parametrize("workload", CELLS)
 def test_driver_at_smoke_size_and_the_result_line(workload):
     """A run at smoke size on the CPU: its end-to-end metrics, the line
     the driver reads and its checks; with a trace, the readers of the
@@ -275,8 +300,138 @@ def test_profile_reads_a_cpu_trace():
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
+def test_token_window_counts_tokens_step_by_step():
+    """Every step's tokens are counted, a step that counts none (a decode
+    batch's prefill) adds only its time, and the window covers them all."""
+    def step(i):
+        return 0 if i % 4 == 0 else 3
+
+    steps, tokens, window_s = common.token_window(step, 0.05, "cpu")
+    assert steps > 4 and window_s >= 0.05
+    assert tokens == 3 * (steps - (steps + 3) // 4)
+
+
+#: a second configuration with a driver of its own, as a later PR adds one:
+#: greedy decode over a seeded embedding, judged by its own reference
+TOY_DRIVER = """
+import time
+import torch
+from mecbench.common import Check, Result, seed_stream, token_window
+
+
+def run(ctx):
+    c, t = ctx.config, ctx.traffic
+    gen = torch.Generator().manual_seed(seed_stream(ctx.seed, 0))
+    emb = torch.randn(c["vocab"], c["d_model"], generator=gen)
+    state = {"tok": torch.randint(0, c["vocab"], (t["batch"],),
+                                  generator=gen)}
+    setup_s = time.perf_counter() - ctx.t_start
+
+    def step(i):
+        state["prev"] = state["tok"]
+        state["tok"] = (emb[state["tok"]] @ emb.T).argmax(-1)
+        return t["batch"]
+
+    steps, tokens, window_s = token_window(step, ctx.seconds, ctx.device)
+    want = ctx.reference.next_tokens(emb, state["prev"])
+    wrong = int((want != state["tok"]).sum())
+    return Result(
+        metrics={"decode_tokens_per_s": tokens / window_s,
+                 "peak_mem_gib": 0.0, "setup_s": setup_s},
+        checks=[Check("tokens_wrong", wrong, t["limits"]["tokens_wrong"])],
+        attempted=tokens, failed=0, memory_peak_bytes=0,
+        trace={"step_ms": 1e3 * window_s / steps} if ctx.trace else None)
+"""
+TOY_REFERENCE = """
+def next_tokens(emb, tok):
+    return (emb[tok].double() @ emb.T.double()).argmax(-1)
+"""
+TOY_READER = """
+def read(trace):
+    return trace.get("step_ms")
+"""
+
+
+def _toy_checkout(root: Path) -> dict:
+    """``root`` as a checkout with the toy configuration added as new files
+    and entries only: the benchmark's files copied, one configuration, one
+    traffic file, a driver, a reader, a reference, the cell, and the
+    ``decode_tokens_per_s`` entry that lists it."""
+    shutil.copytree(ROOT / "mecbench", root / "mecbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    files = {
+        "configs/toy-lm.json": json.dumps({
+            "name": "toy-lm", "driver": "toy_lm", "reduced": [],
+            "vocab": 64, "d_model": 32, "smoke": {"d_model": 8}}),
+        "traffic/decode.toy.json": json.dumps({
+            "why": "greedy decode, closed loop", "batch": 16,
+            "limits": {"tokens_wrong": 0}, "smoke": {"batch": 2}}),
+        "drivers/toy_lm.py": TOY_DRIVER,
+        "reference/toy-lm.py": TOY_REFERENCE,
+        "metrics/toy_step_ms.py": TOY_READER,
+    }
+    for name, text in files.items():
+        (root / "mecbench" / name).write_text(text)
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({
+        "name": "toy-lm", "source": "https://arxiv.org/abs/1706.06873",
+        "file": "mecbench/configs/toy-lm.json", "reduced": [],
+        "why": "a configuration whose driver is not conv_stack"})
+    bench["workloads"].append({
+        "name": "toy-lm.decode", "config": "toy-lm", "traffic": "decode.toy",
+        "chips": 1, "why": "greedy decode at batch 16, closed loop"})
+    bench["end_to_end"].append({
+        "name": "decode_tokens_per_s", "unit": "tokens/s", "better": "higher",
+        "bound": LM_RATE_BOUNDS["decode_tokens_per_s"],
+        "source": "host_clock", "workloads": ["toy-lm.decode"]})
+    bench["per_layer"].append({
+        "name": "toy_step_ms", "unit": "ms", "better": "lower",
+        "source": "host_clock", "layer": "serving",
+        "moves": "decode_tokens_per_s", "workloads": ["toy-lm.decode"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+    return bench
+
+
+def test_a_configuration_with_its_own_driver_comes_in_as_new_files(tmp_path):
+    """A cell under ``decode_tokens_per_s`` whose configuration names a
+    driver of its own runs through ``make_context``, ``load_driver`` and
+    ``result_line`` with no file of the harness edited: its line holds
+    that rate, ``peak_mem_gib`` and ``setup_s``, and the ResNet cells'
+    lines are unchanged.  A ``workloads`` list left empty is refused."""
+    bench = _toy_checkout(tmp_path)
+    assert bench == bench_run.load_bench(tmp_path)
+    check_metrics(bench)
+    check_cells(bench)
+    ctx = smoke_context("toy-lm.decode", trace=True, bench=bench,
+                        root=tmp_path)
+    assert (ctx.config["d_model"], ctx.traffic["batch"]) == (8, 2)
+    res = bench_run.load_driver(ctx.config, tmp_path).run(ctx)
+    device = {"platform": "gpu", "kind": "test", "count": 1,
+              "memory_peak_bytes": 0}
+    line = bench_run.result_line(bench, "toy-lm.decode", res, False, device,
+                                 tmp_path)
+    assert line["correct"] is True and list(line)[-1] == "checks"
+    assert set(line["metrics"]) == {"decode_tokens_per_s", "peak_mem_gib",
+                                    "setup_s"}
+    assert line["metrics"]["decode_tokens_per_s"]["unit"] == "tokens/s"
+    res.trace["profile"] = {"busy_s": 0.5, "window_s": 1.0,
+                            "breakdown": {"device_ops": [], "idle_gaps": []}}
+    line = bench_run.result_line(bench, "toy-lm.decode", res, True, device,
+                                 tmp_path)
+    assert set(line["metrics"]) == {"toy_step_ms"}
+    for w in CELLS:
+        names = [[m["name"] for m in bench_run.cell_metrics(b, w, kind)]
+                 for b in (bench, BENCH) for kind in ("end_to_end",
+                                                      "per_layer")]
+        assert names[:2] == names[2:]
+        assert set(names[0]) == {"images_per_s", "peak_mem_gib", "setup_s"}
+    bench["end_to_end"][-1]["workloads"] = []
+    with pytest.raises(AssertionError):
+        check_metrics(bench)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+@pytest.mark.parametrize("workload", CELLS)
 def test_a_short_run_on_the_card(workload, tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
