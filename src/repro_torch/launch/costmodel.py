@@ -54,11 +54,12 @@ class MeshShape:
         return self.pod * self.data
 
 
-def _attn_flops_fwd(cfg, b, s, s_kv=None) -> float:
+def _attn_flops_fwd(cfg, b, s, s_kv=None, d_in=None) -> float:
+    """Projections from ``d_in`` (default d_model) channels, and scores."""
     s_kv = s_kv or s
     hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     d = cfg.d_model
-    proj = 2 * b * s * d * hd * (h + 2 * kv) + 2 * b * s * h * hd * d
+    proj = 2 * b * s * (d_in or d) * hd * (h + 2 * kv) + 2 * b * s * h * hd * d
     # qk^T + av; the triangular kernel (attn_skip_masked) visits only the
     # causal half of the chunk grid
     factor = 2 if getattr(cfg, "attn_skip_masked", False) else 4
@@ -80,12 +81,13 @@ def _block_flops_fwd(cfg, b, s) -> Dict[str, float]:
     if fam == "hybrid":
         d_in = cfg.ssm_expand * d
         n = cfg.ssm_state
+        gn = cfg.ssm_groups * n                 # B and C, each group's
         h = d_in // cfg.ssm_head_dim
-        proj = 2 * b * s * d * (2 * d_in + 2 * n + h) + 2 * b * s * d_in * d
-        conv = 2 * b * s * cfg.conv_width * (d_in + 2 * n)
-        # SSD: intra-chunk quadratic (chunk=128) + state updates
-        chunk = 128
-        ssd = (2 * b * s * chunk * n            # C B^T within chunk
+        proj = 2 * b * s * d * (2 * d_in + 2 * gn + h) + 2 * b * s * d_in * d
+        conv = 2 * b * s * cfg.conv_width * (d_in + 2 * gn)
+        # SSD: intra-chunk quadratic + state updates
+        chunk = cfg.ssm_chunk
+        ssd = (2 * b * s * chunk * gn           # C B^T within chunk
                + 2 * b * s * chunk * h * cfg.ssm_head_dim
                + 4 * b * s * h * cfg.ssm_head_dim * n)
         out["ssm"] = proj + conv + ssd
@@ -112,9 +114,16 @@ def flops_fwd(cfg, b, s) -> float:
         total += enc * cfg.encoder_layers
         total += _attn_flops_fwd(cfg, b, s, cfg.encoder_len) * cfg.n_layers
     if cfg.family == "hybrid":
-        n_apps = cfg.n_layers // max(1, cfg.attn_every)
-        shared = _attn_flops_fwd(cfg, b, s) + 3 * 2 * b * s * cfg.d_model * cfg.d_ff
-        total += shared * n_apps - 0  # shared block applied n_apps times
+        d = cfg.d_model
+        published = bool(cfg.hybrid_layer_ids)
+        shared = (_attn_flops_fwd(cfg, b, s, d_in=2 * d if published else d)
+                  + 3 * 2 * b * s * d * cfg.d_ff)
+        if published:
+            # the block reads [h, emb]; each hybrid layer's LoRA on the
+            # gate-up, and its linear
+            shared += (2 * b * s * cfg.adapter_rank * (d + 2 * cfg.d_ff)
+                       + 2 * b * s * d * d)
+        total += shared * cfg.shared_apps  # shared block applied n_apps times
     return total
 
 
@@ -180,8 +189,7 @@ def _tp_ars_per_stack(cfg) -> float:
     if cfg.family == "moe":
         return (1 + 1) * cfg.n_layers * sp
     if cfg.family == "hybrid":
-        n_apps = cfg.n_layers // max(1, cfg.attn_every)
-        return (1 * cfg.n_layers + 2 * n_apps) * sp
+        return (1 * cfg.n_layers + 2 * cfg.shared_apps) * sp
     if cfg.family == "ssm":
         return 1 * cfg.n_layers
     if cfg.family == "audio":
@@ -213,8 +221,7 @@ def decode_cost(cfg, b: int, s_cache: int, mesh: MeshShape) -> Dict:
     n_act = cfg.param_count(active_only=True)
     flops = 2 * n_act * b
     kv_layers = (cfg.n_layers if cfg.family in ("dense", "vlm", "moe", "audio")
-                 else cfg.n_layers // max(1, cfg.attn_every)
-                 if cfg.family == "hybrid" else 0)
+                 else cfg.shared_apps if cfg.family == "hybrid" else 0)
     kv_elem = ((1 + 2.0 / cfg.head_dim)
                if getattr(cfg, "kv_cache_int8", False) else BF16)
     cache_bytes = (kv_layers * b * s_cache * 2 * cfg.n_kv_heads

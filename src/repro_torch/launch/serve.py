@@ -16,6 +16,9 @@ prefill + decode loop.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-30b-a3b [--smoke --device cpu]
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch zamba2-7b-instruct [--smoke --device cpu]
+
 Runs on the card unless ``--device cpu``.  Every family is served: dense,
 vlm (llava), moe (``models.moe``), hybrid (zamba2), ssm (xLSTM) and audio
 (whisper).  ``--mesh host`` serves from one process;
@@ -56,7 +59,7 @@ import time
 
 import torch
 
-from repro_torch.configs.archs import ARCHS, smoke_config
+from repro_torch.configs.archs import ARCHS, PUBLISHED, smoke_config
 from repro_torch.models import moe
 from repro_torch.models import serve as serve_lib
 from repro_torch.models.layers import f32_accumulation
@@ -297,7 +300,8 @@ def _serve(cfg, *, batch: int, prompt_len: int, gen: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--arch", required=True,
+                    choices=sorted(ARCHS) + sorted(PUBLISHED))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -323,7 +327,8 @@ def main(argv=None):
         from repro_torch.parallel.axes import default_rules
         rules = default_rules(make_production_mesh(
             multi_pod=args.mesh == "multipod"))
-    cfg = smoke_config(args.arch) if args.smoke else ARCHS[args.arch]
+    cfg = (smoke_config(args.arch) if args.smoke
+           else {**ARCHS, **PUBLISHED}[args.arch])
     classes = None
     if args.shape_classes:
         from repro_torch.serving.conv_service import parse_shape_classes

@@ -3,11 +3,15 @@ dense / moe / hybrid (Mamba2+shared-attn) / ssm (xLSTM) / vlm / audio.
 
 A copy of ``repro.models.config`` (the port imports nothing of ``repro``);
 the fields, defaults and ``param_count`` are the same.
+:class:`HybridConfig` adds the settings of the published Zamba2 block
+(Zyphra, arXiv:2411.15242), which the JAX package does not have: every
+``ModelConfig`` reads them as class attributes with the behaviour of the
+fields above, so its ``dataclasses.asdict`` stays the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +88,28 @@ class ModelConfig:
     q_chunk: int = 512
     kv_chunk: int = 1024
 
+    # The published Zamba2 block's settings, set by :class:`HybridConfig`;
+    # here, class attributes (no annotation, so not fields) with the
+    # behaviour of the fields above.
+    #: Mamba2 layers fed by a shared block (empty: ``attn_every`` stacking)
+    hybrid_layer_ids = ()
+    #: shared blocks, used in turn by the hybrid layers
+    n_mem_blocks = 1
+    #: rank of each hybrid layer's LoRA on the shared MLP's gate-up (0: none)
+    adapter_rank = 0
+    #: attention's score scale (0: head_dim ** -0.5)
+    attn_scale = 0.0
+    #: Mamba2 B/C groups: head h reads group h // (heads / groups), and the
+    #: gated RMSNorm runs over each group's d_in / groups channels
+    ssm_groups = 1
+    #: a bias on the Mamba2 depthwise conv
+    conv_bias = False
+    #: the SSD scan's chunk
+    ssm_chunk = 128
+    #: (time_step_min, time_step_max, time_step_floor) the dt biases are
+    #: drawn from, and A = -(1..heads) (empty: dt bias -2, A = -1)
+    dt_init = ()
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
@@ -91,6 +117,12 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+    @property
+    def shared_apps(self) -> int:
+        """Applications of the shared block(s) in a hybrid forward."""
+        return (len(self.hybrid_layer_ids)
+                or self.n_layers // max(1, self.attn_every))
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -114,12 +146,20 @@ class ModelConfig:
         if self.family == "hybrid":
             d_in = self.ssm_expand * d
             n_h = d_in // self.ssm_head_dim
-            mamba = (d * (2 * d_in + 2 * self.ssm_state + n_h)  # in_proj
-                     + self.conv_width * (d_in + 2 * self.ssm_state)
+            bc = 2 * self.ssm_groups * self.ssm_state
+            mamba = (d * (2 * d_in + bc + n_h)                    # in_proj
+                     + (self.conv_width + self.conv_bias) * (d_in + bc)
                      + d_in * d)                                  # out_proj
-            n_attn_apps = self.n_layers // max(1, self.attn_every)
-            shared_blk = attn + dense_ffn                          # shared weights
-            return self.n_layers * mamba + shared_blk + emb
+            if not self.hybrid_layer_ids:
+                shared_blk = attn + dense_ffn                      # shared weights
+                return self.n_layers * mamba + shared_blk + emb
+            # the shared block reads the hidden state and the embeddings
+            attn = 2 * d * h * (n_q + 2 * n_kv) + n_q * h * d
+            per_app = (self.adapter_rank * (d + 2 * self.d_ff)     # LoRA
+                       + d * d)                                    # linear
+            return (self.n_layers * mamba
+                    + self.n_mem_blocks * (attn + dense_ffn)
+                    + self.shared_apps * per_app + emb)
         if self.family == "ssm":  # xLSTM
             d_in = 2 * d
             mlstm = d * 2 * d_in + 3 * d_in * h * n_q // max(n_q, 1) + d_in * d
@@ -130,3 +170,17 @@ class ModelConfig:
             dec = self.n_layers * (2 * attn + dense_ffn)           # self + cross
             return enc + dec + emb
         raise ValueError(self.family)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig(ModelConfig):
+    """A hybrid config with the published Zamba2 block's settings as
+    fields (their meanings and defaults are :class:`ModelConfig`'s)."""
+    hybrid_layer_ids: Tuple[int, ...] = ModelConfig.hybrid_layer_ids
+    n_mem_blocks: int = ModelConfig.n_mem_blocks
+    adapter_rank: int = ModelConfig.adapter_rank
+    attn_scale: float = ModelConfig.attn_scale
+    ssm_groups: int = ModelConfig.ssm_groups
+    conv_bias: bool = ModelConfig.conv_bias
+    ssm_chunk: int = ModelConfig.ssm_chunk
+    dt_init: Tuple[float, ...] = ModelConfig.dt_init

@@ -194,11 +194,13 @@ def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, q_chunk: int = 512,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+                      kv_chunk: int = 1024,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention.
 
     q: (B, Sq, H, D); k, v: (B, Skv, KV, D) with H % KV == 0.
     Returns (B, Sq, H, D) in q.dtype.  Assumes Sq == Skv when causal.
+    ``scale`` multiplies the scores (None: D ** -0.5).
     The JAX package's scan over kv chunks and map over q chunks are loops.
     """
     b, sq, h, d = q.shape
@@ -209,7 +211,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pq, pk = (-sq) % q_chunk, (-skv) % kv_chunk
     q, k, v = _pad_seq(q, pq), _pad_seq(k, pk), _pad_seq(v, pk)
     nq, nk = (sq + pq) // q_chunk, (skv + pk) // kv_chunk
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     f32 = torch.float32
 
     qc = q.reshape(b, nq, q_chunk, kv, g, d).permute(1, 0, 3, 4, 2, 5)
@@ -247,8 +249,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def chunked_attention_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          q_chunk: int = 512,
-                          kv_chunk: int = 512) -> torch.Tensor:
+                          q_chunk: int = 512, kv_chunk: int = 512,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """Causal attention that only visits lower-triangle chunk pairs.
 
     :func:`chunked_attention` computes every (q-chunk, kv-chunk) pair and
@@ -268,7 +270,7 @@ def chunked_attention_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = _pad_seq(q, pq), _pad_seq(k, pk), _pad_seq(v, pk)
     sqp, skp = s + pq, skv + pk
     nq, nk = sqp // q_chunk, skp // kv_chunk
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     f32 = torch.float32
     qc = q.reshape(b, nq, q_chunk, kv, g, d).permute(1, 0, 3, 4, 2, 5)
     kc = k.reshape(b, nk, kv_chunk, kv, d).permute(1, 0, 3, 2, 4)
@@ -302,18 +304,21 @@ def chunked_attention_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
-                     k_scale=None, v_scale=None) -> torch.Tensor:
+                     k_scale=None, v_scale=None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, 1, H, D); caches: (B, Smax, KV, D); entries < cache_len (an
     int, a 0-d tensor, or a (B, 1) tensor of per-row lengths) valid.  With
     k_scale/v_scale (B, Smax, KV, 1) the caches are int8 and dequantized on
     the fly: the scores are scaled by k_scale, the probabilities by
-    v_scale, both in f32."""
+    v_scale, both in f32.  ``scale`` multiplies the scores (None:
+    D ** -0.5)."""
     b, _, h, d = q.shape
     _, smax, kv, _ = k_cache.shape
     g = h // kv
     f32 = torch.float32
     qg = q.reshape(b, 1, kv, g, d).to(f32)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.to(f32)) * d ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.to(f32)) * (
+        d ** -0.5 if scale is None else scale)
     if k_scale is not None:
         s = s * k_scale[:, :, :, 0].transpose(1, 2)[:, :, None, None, :]
     valid = torch.arange(smax, device=q.device)[None, :] < cache_len
@@ -371,14 +376,16 @@ def kv_entries(cache: dict, k: torch.Tensor, v: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def init_attention(generator: torch.Generator, cfg, dtype,
-                   device="cuda") -> dict:
+                   device="cuda", d_in: Optional[int] = None) -> dict:
+    """q/k/v from ``d_in`` (default d_model) channels, out to d_model."""
     d, hd = cfg.d_model, cfg.head_dim
+    d_in = d if d_in is None else d_in
     p = {
-        "wq": init_linear(generator, d, cfg.n_heads * hd, dtype, cfg.use_bias,
-                          device=device),
-        "wk": init_linear(generator, d, cfg.n_kv_heads * hd, dtype,
+        "wq": init_linear(generator, d_in, cfg.n_heads * hd, dtype,
                           cfg.use_bias, device=device),
-        "wv": init_linear(generator, d, cfg.n_kv_heads * hd, dtype,
+        "wk": init_linear(generator, d_in, cfg.n_kv_heads * hd, dtype,
+                          cfg.use_bias, device=device),
+        "wv": init_linear(generator, d_in, cfg.n_kv_heads * hd, dtype,
                           cfg.use_bias, device=device),
         "wo": init_linear(generator, cfg.n_heads * hd, d, dtype,
                           scale=(cfg.n_heads * hd) ** -0.5
@@ -476,12 +483,13 @@ def attention_block(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     q, k, v = attention_qkv(p, cfg, x, positions, use_rope)
     if kv_override is not None:            # cross-attention
         k, v = kv_override
+    scale = cfg.attn_scale or None
     if causal and cfg.attn_skip_masked:
         out = chunked_attention_tri(q, k, v, q_chunk=cfg.q_chunk,
-                                    kv_chunk=cfg.kv_chunk)
+                                    kv_chunk=cfg.kv_chunk, scale=scale)
     else:
         out = chunked_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
-                                kv_chunk=cfg.kv_chunk)
+                                kv_chunk=cfg.kv_chunk, scale=scale)
     b, s = x.shape[:2]
     out = linear(out.reshape(b, s, -1), p["wo"])
     return _out_bias(tensor.leave(out, tp, sp), bias_p, tp, sp), (k, v)
@@ -506,7 +514,8 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache: dict,
     for name, val in kv_entries(cache, k, v):
         cache[name].index_copy_(1, idx, val)
     out = decode_attention(q, cache["k"], cache["v"], ln + 1,
-                           k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
+                           k_scale=cache.get("k_s"), v_scale=cache.get("v_s"),
+                           scale=cfg.attn_scale or None)
     out = linear(out.reshape(x.shape[0], 1, -1), p["wo"])
     return _out_bias(tensor.reduce_from(out, tp), bias_p, tp, False), new
 

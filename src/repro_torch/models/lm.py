@@ -8,7 +8,9 @@ All six families are ported, for serving (``models.serve``) and training
   moe     the GQA transformer with a mixture-of-experts FFN
           (``models.moe``: local dispatch, expert parallel under rules);
   hybrid  zamba2: Mamba2 layers and ONE shared attention+SwiGLU block
-          applied after every ``attn_every`` layers (weight sharing);
+          applied after every ``attn_every`` layers (weight sharing); or,
+          with ``cfg.hybrid_layer_ids`` (``HybridConfig``), the published
+          Zamba2 block (:func:`hybrid_plan`, :func:`hybrid_block`);
   ssm     xLSTM: super-blocks of ``slstm_every - 1`` mLSTM blocks and one
           sLSTM block (``models.xlstm``);
   audio   whisper: an encoder over frame embeddings (non-causal attention
@@ -18,8 +20,10 @@ All six families are ported, for serving (``models.serve``) and training
 Parameters are nested dicts of tensors with the JAX package's tree and
 layer-stacked leaves: the dense, vlm and moe blocks are stacked (layers,
 ...), the Mamba2 layers of the super-blocks (n_super, attn_every, ...) and
-the tail (tail, ...), the xLSTM super-blocks' mLSTM blocks (n_super,
-slstm_every - 1, ...) and sLSTM blocks (n_super, ...), so
+the tail (tail, ...); the published Zamba2 block's Mamba2 layers
+(n_layers, ...), shared blocks (n_mem_blocks, ...) and hybrid layers'
+LoRA and linear (hybrid layers, ...); the xLSTM super-blocks' mLSTM
+blocks (n_super, slstm_every - 1, ...) and sLSTM blocks (n_super, ...), so
 ``convert.params_from_jax`` maps leaf for leaf.  The JAX package's
 ``lax.scan`` over the stack becomes a Python loop over its leading axes;
 a layer's parameters are views into the stacked leaves, each leaf split
@@ -46,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch import obs
 from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention_block, attention_local,
@@ -267,6 +272,83 @@ def gelu_mlp(x: torch.Tensor, p: dict, tp=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the published Zamba2 hybrid block (Zyphra, arXiv:2411.15242; transformers'
+# ``Zamba2HybridLayer``)
+# ---------------------------------------------------------------------------
+
+def hybrid_plan(cfg) -> list:
+    """(Mamba2 layer, hybrid index or None) in order: the hybrid index k
+    of a layer in ``cfg.hybrid_layer_ids``, whose shared block is
+    k % ``cfg.n_mem_blocks``."""
+    ids = {n: k for k, n in enumerate(cfg.hybrid_layer_ids)}
+    return [(n, ids.get(n)) for n in range(cfg.n_layers)]
+
+
+def init_shared_block(generator: torch.Generator, cfg, dtype,
+                      device="cuda") -> dict:
+    """A shared block: RMSNorm over its input (the hidden state and the
+    embeddings, 2 d_model), attention from it, RMSNorm, the gated MLP
+    (gate and up in one projection, d_model -> 2 d_ff)."""
+    d, f = cfg.d_model, cfg.d_ff
+    a_in = 2 * d
+    return {"norm1": torch.ones((a_in,), dtype=dtype, device=device),
+            "attn": init_attention(generator, cfg, dtype, device=device,
+                                   d_in=a_in),
+            "norm2": torch.ones((d,), dtype=dtype, device=device),
+            "mlp": {"gate_up": init_linear(generator, d, 2 * f, dtype,
+                                           device=device),
+                    "down": init_linear(generator, f, d, dtype,
+                                        device=device)}}
+
+
+def init_hybrid_layer(generator: torch.Generator, cfg, dtype,
+                      device="cuda") -> dict:
+    """A hybrid layer's own weights: the linear on its shared block's
+    output and, with ``cfg.adapter_rank``, the LoRA on the gate-up
+    projection.  Both drawn N(0, 1/fan_in), not zero, so a seeded model
+    that leaves them out gives other logits."""
+    d = cfg.d_model
+    p = {"linear": init_linear(generator, d, d, dtype, device=device)}
+    if cfg.adapter_rank:
+        p["lora_a"] = init_linear(generator, d, cfg.adapter_rank, dtype,
+                                  device=device)
+        p["lora_b"] = init_linear(generator, cfg.adapter_rank, 2 * cfg.d_ff,
+                                  dtype, device=device)
+    return p
+
+
+def gated_mlp(x: torch.Tensor, p: dict, adapter: dict) -> torch.Tensor:
+    """gate, up = x W_gu + (x A) B (the hybrid layer's LoRA); act(gate) in
+    f32, cast, times up; down.  act: the exact GELU (Zamba2's
+    ``hidden_act`` "gelu", the only one ``configs.archs.zamba2_config``
+    takes)."""
+    gu = linear(x, p["gate_up"])
+    if "lora_a" in adapter:
+        gu = gu + linear(linear(x, adapter["lora_a"]), adapter["lora_b"])
+    gate, up = gu.chunk(2, dim=-1)
+    h = F.gelu(gate.to(torch.float32)).to(x.dtype) * up
+    return linear(h, p["down"])
+
+
+def hybrid_block(p: dict, adapter: dict, cfg, h: torch.Tensor,
+                 emb: torch.Tensor, attend: Callable, layer: int,
+                 block: int):
+    """What hybrid layer ``layer`` adds to its Mamba2 input: shared block
+    ``block`` (its weights ``p``) over [h, emb], with no residual
+    inside, through the layer's own linear
+    (``adapter``).  ``attend(attention params, normed input)`` -> (output,
+    k/v).  Returns (the addend, k/v); records the span
+    ``lm.shared_block``, noting the layer and the block."""
+    with obs.span("lm.shared_block") as sp:
+        sp.set(layer=layer, block=block)
+        x = torch.cat([h, emb], dim=-1)
+        a, kv = attend(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps))
+        f = gated_mlp(rms_norm(a, p["norm2"], cfg.norm_eps), p["mlp"],
+                      adapter)
+        return linear(f, adapter["linear"]), kv
+
+
+# ---------------------------------------------------------------------------
 # model
 # ---------------------------------------------------------------------------
 
@@ -341,10 +423,25 @@ class LM:
                 lambda: xlstm.init_slstm(generator, cfg, dt, device=device),
                 (n_super,), local("slstm"))
             return params
-        n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
 
         def layer():
             return mamba2.init_mamba(generator, cfg, dt, device=device)
+
+        if cfg.hybrid_layer_ids:
+            if n > 1:
+                raise NotImplementedError(
+                    "tensor parallelism of the published hybrid block")
+            params["mamba"] = stack_init(layer, (cfg.n_layers,))
+            params["shared"] = stack_init(
+                lambda: init_shared_block(generator, cfg, dt, device),
+                (cfg.n_mem_blocks,))
+            params["hybrid"] = stack_init(
+                lambda: init_hybrid_layer(generator, cfg, dt, device),
+                (cfg.shared_apps,))
+            params["mamba_norms"] = torch.ones((cfg.n_layers, cfg.d_model),
+                                               dtype=dt, device=device)
+            return params
+        n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
 
         params["mamba"] = stack_init(layer, (n_super, cfg.attn_every),
                                      local("mamba"))
@@ -428,6 +525,8 @@ class LM:
                 h, a = body(p, h)
                 aux = aux + a
             aux = aux * cfg.router_aux_coef / cfg.n_layers
+        elif fam == "hybrid" and cfg.hybrid_layer_ids:
+            h = self._published_hybrid_stack(params, h, positions)
         elif fam == "hybrid":
             h = self._hybrid_stack(params, h, positions)
         elif fam == "ssm":
@@ -461,6 +560,30 @@ class LM:
             h, _ = dense_block(params["shared"], cfg, h, positions)
         for n in range(n_super * cfg.attn_every, cfg.n_layers):
             h = mamba_body(layers[n], norms[n], h)
+        return h
+
+    def _published_hybrid_stack(self, params, h, positions):
+        """Each Mamba2 layer n adds mamba(norm_n(h + t)) to h, where t is
+        what the hybrid layer adds (:func:`hybrid_block`), or 0: the
+        residual carries h without t."""
+        cfg = self.cfg
+        emb = h
+        layers = layer_trees(params["mamba"], (cfg.n_layers,))
+        shared = layer_trees(params["shared"], (cfg.n_mem_blocks,))
+        adapters = layer_trees(params["hybrid"], (cfg.shared_apps,))
+        norms = params["mamba_norms"].unbind(0)
+
+        def attend(p, x):
+            return attention_block(p, cfg, x, positions)
+        for n, k in hybrid_plan(cfg):
+            x = h
+            if k is not None:
+                b = k % cfg.n_mem_blocks
+                t, _ = hybrid_block(shared[b], adapters[k], cfg, h, emb,
+                                    attend, n, b)
+                x = h + t
+            h = h + mamba2.mamba_forward(
+                layers[n], cfg, rms_norm(x, norms[n], cfg.norm_eps))
         return h
 
     def _ssm_stack(self, params, h):

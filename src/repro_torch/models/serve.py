@@ -16,6 +16,11 @@ tree and layer-stacked leaves:
              "attn_k", "attn_v": (n_super, B, max_len, KV, D),
              "tail": the tail layers' {"state", "conv"} or None,
              "len": 0-d int32}
+            the published Zamba2 block (``cfg.hybrid_layer_ids``):
+            {"mamba": {"state": (n_layers, B, H, P, N) f32,
+                       "conv":  (n_layers, B, k_w - 1, C)},
+             "attn_k", "attn_v": (hybrid layers, B, max_len, KV, D),
+             "len": 0-d int32}
     ssm:    {"mlstm": {"c": (n_super, k_m, B, H, P, P), "n": (..., B, H, P),
                        "m": (..., B, H), "conv": (..., B, k_w - 1, d_in)},
              "slstm": {"c", "n", "m", "h": (n_super, B, H, P),
@@ -29,18 +34,21 @@ tree and layer-stacked leaves:
 ``decode_step`` writes the new token's state, conv history and k/v (and
 int8 scales) into the cache's buffers in place (the JAX package returns updated copies) and
 returns a cache dict holding the same buffers and ``len + 1``.  The audio
-family's cross-attention k/v are computed once, at prefill.
+family's cross-attention k/v are computed once, at prefill.  ``prefill``
+records the span ``lm.prefill`` and ``decode_step`` ``lm.decode``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models import mamba2, moe, xlstm
-from repro_torch.models.layers import (attention_decode,
+from repro_torch.models.layers import (attention_block, attention_decode,
                                        cross_attention_decode, kv_planes,
                                        rms_norm, swiglu)
-from repro_torch.models.lm import (LM, dense_block, gelu_mlp, moe_block,
-                                   torch_dtype, tree_at, tree_map, tree_set)
+from repro_torch.models.lm import (LM, dense_block, gelu_mlp, hybrid_block,
+                                   hybrid_plan, moe_block, torch_dtype,
+                                   tree_at, tree_map, tree_set)
 from repro_torch.parallel import tensor
 from repro_torch.parallel.axes import constrain
 
@@ -155,8 +163,74 @@ def _attn_families_decode(model: LM, params, cache, tokens):
 # hybrid (zamba2)
 # ---------------------------------------------------------------------------
 
+def _published_hybrid_prefill(model: LM, params, batch, max_len: int):
+    """The published Zamba2 block (``lm.hybrid_plan``): each hybrid
+    layer's k/v go into its slot of the stacked KV cache, each Mamba2
+    layer's state and conv history into its slot."""
+    cfg = model.cfg
+    h = model.embed(params, batch["tokens"])
+    emb = h
+    b, s = h.shape[:2]
+    positions = torch.arange(s, device=h.device)
+    mcaches = _stacked_mamba_cache(cfg, (cfg.n_layers,), b, h.device)
+    shape = (cfg.shared_apps, b, max_len, _kv_heads(cfg), cfg.head_dim)
+    kc = torch.zeros(shape, dtype=h.dtype, device=h.device)
+    vc = torch.zeros(shape, dtype=h.dtype, device=h.device)
+    norms = params["mamba_norms"]
+
+    def attend(p, x):
+        return attention_block(p, cfg, x, positions)
+    for n, k in hybrid_plan(cfg):
+        x = h
+        if k is not None:
+            blk = k % cfg.n_mem_blocks
+            t, (kk, vv) = hybrid_block(
+                tree_at(params["shared"], (blk,)),
+                tree_at(params["hybrid"], (k,)), cfg, h, emb, attend, n, blk)
+            kc[k, :, :s] = kk
+            vc[k, :, :s] = vv
+            x = h + t
+        out, mc = mamba2.mamba_core(tree_at(params["mamba"], (n,)), cfg,
+                                    rms_norm(x, norms[n], cfg.norm_eps))
+        tree_set(mcaches, (n,), mc)
+        h = h + out
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    cache = {"mamba": mcaches, "attn_k": kc, "attn_v": vc,
+             "len": torch.tensor(s, dtype=torch.int32, device=h.device)}
+    return _logits_last(model, params, h), cache
+
+
+def _published_hybrid_decode(model: LM, params, cache, tokens):
+    cfg = model.cfg
+    h = model.embed(params, tokens)
+    emb = h
+    ln = cache["len"]
+    norms = params["mamba_norms"]
+    for n, k in hybrid_plan(cfg):
+        x = h
+        if k is not None:
+            def attend(p, xn, k=k):
+                return attention_decode(p, cfg, xn,
+                                        {"k": cache["attn_k"][k],
+                                         "v": cache["attn_v"][k], "len": ln})
+            blk = k % cfg.n_mem_blocks
+            t, _ = hybrid_block(tree_at(params["shared"], (blk,)),
+                                tree_at(params["hybrid"], (k,)), cfg, h, emb,
+                                attend, n, blk)
+            x = h + t
+        out, mc = mamba2.mamba_decode(tree_at(params["mamba"], (n,)), cfg,
+                                      rms_norm(x, norms[n], cfg.norm_eps),
+                                      tree_at(cache["mamba"], (n,)))
+        tree_set(cache["mamba"], (n,), mc)
+        h = h + out
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _logits_one(model, params, h), dict(cache, len=ln + 1)
+
+
 def _hybrid_prefill(model: LM, params, batch, max_len: int):
     cfg = model.cfg
+    if cfg.hybrid_layer_ids:
+        return _published_hybrid_prefill(model, params, batch, max_len)
     h = model.embed(params, batch["tokens"])
     b, s = h.shape[:2]
     positions = torch.arange(s, device=h.device)
@@ -199,6 +273,8 @@ def _hybrid_prefill(model: LM, params, batch, max_len: int):
 
 def _hybrid_decode(model: LM, params, cache, tokens):
     cfg = model.cfg
+    if cfg.hybrid_layer_ids:
+        return _published_hybrid_decode(model, params, cache, tokens)
     h = model.embed(params, tokens)
     n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
     norms = params["mamba_norms"][:n_super * cfg.attn_every].reshape(
@@ -342,13 +418,15 @@ def prefill(model: LM, params, batch, max_len: int):
     "model" axis (tensor parallelism) ``params`` are the rank's slices,
     the cache holds the rank's kv heads and channels, and the logits are
     the rank's vocab shard where the vocabulary splits."""
-    return _PREFILL[model.cfg.family](model, params, batch, max_len)
+    with obs.span("lm.prefill"):
+        return _PREFILL[model.cfg.family](model, params, batch, max_len)
 
 
 def decode_step(model: LM, params, cache, tokens):
     """tokens (B, 1) -> (logits (B, V) f32, cache), the cache updated in
     place."""
-    return _DECODE[model.cfg.family](model, params, cache, tokens)
+    with obs.span("lm.decode"):
+        return _DECODE[model.cfg.family](model, params, cache, tokens)
 
 
 def init_decode_cache(model: LM, batch: int, max_len: int, device="cuda"):
@@ -373,6 +451,12 @@ def init_decode_cache(model: LM, batch: int, max_len: int, device="cuda"):
     if cfg.family == "ssm":
         mc, sc = _ssm_caches(cfg, batch, device)
         return {"mlstm": mc, "slstm": sc, "len": length}
+    if cfg.hybrid_layer_ids:
+        return {"mamba": _stacked_mamba_cache(cfg, (cfg.n_layers,), batch,
+                                              device),
+                "attn_k": zeros(cfg.shared_apps, batch, max_len, kv, hd),
+                "attn_v": zeros(cfg.shared_apps, batch, max_len, kv, hd),
+                "len": length}
     n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
     return {"mamba": _stacked_mamba_cache(cfg, (n_super, cfg.attn_every),
                                           batch, device),

@@ -43,7 +43,7 @@ count.  Nothing else times the device.
 most :data:`MAX_RECORDS` spans are kept; the rest are counted in
 ``dropped``.  :func:`counters` gathers what the port counts elsewhere:
 kernel launches, the plan cache's lookups and disk reads, the kernel
-compiles.
+compiles, the decode programs' CUDA graphs captured and replayed.
 """
 from __future__ import annotations
 
@@ -91,6 +91,9 @@ class _Off:
         return None
 
     def note(self, spec, algorithm, dtype) -> None:
+        pass
+
+    def set(self, **attrs) -> None:
         pass
 
 
@@ -155,6 +158,10 @@ class _Span:
         self.attrs.update(algorithm=algorithm, dtype=dtype)
         if spec is not None:
             self.attrs["spec"] = spec
+
+    def set(self, **attrs) -> None:
+        """Add ``attrs`` to the span's attributes."""
+        self.attrs.update(attrs)
 
 
 def _keep(sp: _Span) -> None:
@@ -389,10 +396,12 @@ def summary() -> dict:
 def counters() -> dict:
     """What the port counts, read where it is counted: the kernel
     wrappers' launches, the process plan cache's hits, misses, disk loads
-    and I/O errors, and the kernel compiles ``kernels.build.build`` ran in
-    this process with their seconds."""
+    and I/O errors, the kernel compiles ``kernels.build.build`` ran in
+    this process with their seconds, and the CUDA graphs of
+    ``serving.step_graph.DecodeProgram`` captured and replayed."""
     from repro_torch.kernels import build, mec_conv, mec_conv1d
     from repro_torch.plan.cache import global_plan_cache
+    from repro_torch.serving import step_graph
     cache = global_plan_cache()
     return {"launches": dict(mec_conv.launch_counts(),
                              mec_conv1d=mec_conv1d.mec_conv1d.launches),
@@ -400,4 +409,5 @@ def counters() -> dict:
                            "disk_loads": cache.disk_loads,
                            "io_errors": cache.io_errors},
             "nvcc": {"compiles": build.build.compiles,
-                     "seconds": build.build.seconds}}
+                     "seconds": build.build.seconds},
+            "decode_program": step_graph.counts()}

@@ -24,6 +24,11 @@ caller built.  Nothing in a step reads a device value on the host, so the
 whole step is captured; a capture that fails raises, and there is no
 eager fallback on the card.
 
+A capture records the span ``decode_program.capture`` and a replay
+``decode_program.replay``, host bounds around the graph's launch; the
+process's captures and replays are counted (:func:`counts`, read by
+``obs.counters``).
+
 A replay overwrites the logits buffer of the previous one: consume (or
 clone) them before the next call.  The graph's private memory pool keeps
 the step's transients (for a dense model, the f32 copy of the LM head in
@@ -35,9 +40,18 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models.lm import tree_map
 
-__all__ = ["DecodeProgram"]
+__all__ = ["DecodeProgram", "counts"]
+
+#: CUDA graphs captured and replayed by the process's decode programs
+_COUNTS = {"captures": 0, "replays": 0}
+
+
+def counts() -> dict:
+    """The decode programs' captures and replays in this process."""
+    return dict(_COUNTS)
 
 
 class DecodeProgram:
@@ -67,6 +81,11 @@ class DecodeProgram:
         return logits
 
     def _capture(self, device: torch.device) -> None:
+        with obs.span("decode_program.capture"):
+            self._capture_graph(device)
+        _COUNTS["captures"] += 1
+
+    def _capture_graph(self, device: torch.device) -> None:
         # the eager warm-up on a clone of the cache, so the caller's cache
         # stays as built, and on token 0 (the buffer may not hold ids yet)
         scratch = tree_map(torch.clone, self.cache)
@@ -91,6 +110,8 @@ class DecodeProgram:
         buffer)."""
         if self.graph is None:
             return self._run(self.cache, self.tokens)
-        self.graph.replay()
+        with obs.span("decode_program.replay"):
+            self.graph.replay()
         self.replays += 1
+        _COUNTS["replays"] += 1
         return self._logits
